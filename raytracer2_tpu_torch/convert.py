@@ -1,0 +1,97 @@
+"""Carry the JAX package's state across to the port.
+
+Each function takes that state as numpy arrays (the fields of the JAX
+NamedTuple or dataclass, nested ones as mappings) and returns the port's
+counterpart on `device`, so a test can feed both packages identical
+inputs. Nothing here imports JAX: callers convert with np.asarray.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Mapping
+
+import numpy as np
+import torch
+
+from raytracer2_tpu_torch.ops.cluster import Clusters, clusters_from_arrays
+from raytracer2_tpu_torch.ops.intersect import HitRecord
+from raytracer2_tpu_torch.params import GConst, PlanarViewConstants
+from raytracer2_tpu_torch.scene.scene import Scene, scene_from_arrays
+
+
+def to_numpy_tree(obj):
+    """NamedTuples and dataclasses -> dicts of their fields, arrays of any
+    framework (anything with __array__) -> numpy; other leaves as they
+    are. Turns the JAX package's state into this module's inputs."""
+    if dataclasses.is_dataclass(obj) and not isinstance(obj, type):
+        return {f.name: to_numpy_tree(getattr(obj, f.name))
+                for f in dataclasses.fields(obj)}
+    if isinstance(obj, tuple) and hasattr(obj, "_fields"):
+        return {f: to_numpy_tree(getattr(obj, f)) for f in obj._fields}
+    if hasattr(obj, "__array__") and not isinstance(obj, np.ndarray):
+        return np.asarray(obj)
+    return obj
+
+
+def scene_from_numpy(arrays: Mapping, *, device) -> Scene:
+    """Scene from the JAX Scene's fields (`geometry` a mapping of its
+    GeometryTable fields; metadata and host copies as they are)."""
+    return scene_from_arrays(arrays, device=device)
+
+
+def clusters_from_numpy(arrays: Mapping, *, device) -> Clusters:
+    """Clusters from the JAX Clusters' fields (aabb_min, aabb_max, wald,
+    tri_index)."""
+    return clusters_from_arrays(arrays, device=device)
+
+
+def hit_record_from_numpy(arrays: Mapping, *, device) -> HitRecord:
+    """HitRecord from the JAX HitRecord's fields; uint32 ids become int64."""
+    def dev(name, dtype):
+        a = np.asarray(arrays[name]).astype(dtype)
+        return torch.from_numpy(np.ascontiguousarray(a)).to(device)
+
+    return HitRecord(
+        t=dev("t", np.float32), u=dev("u", np.float32), v=dev("v", np.float32),
+        geometry_index=dev("geometry_index", np.int64),
+        primitive_id=dev("primitive_id", np.int64),
+        triangle_index=dev("triangle_index", np.int32))
+
+
+def _view(arrays: Mapping | None) -> PlanarViewConstants | None:
+    if arrays is None:
+        return None
+    return PlanarViewConstants(**{
+        f: np.asarray(arrays[f], np.float32)
+        for f in PlanarViewConstants._fields})
+
+
+def _dataclass_from(cls, values: Mapping):
+    kw = {}
+    for f in dataclasses.fields(cls):
+        if f.name not in values:
+            continue
+        v = values[f.name]
+        if f.name in ("view", "prev_view"):
+            v = _view(v)
+        elif isinstance(v, Mapping):
+            default = (f.default_factory()
+                       if f.default_factory is not dataclasses.MISSING
+                       else f.default)
+            v = _dataclass_from(type(default), v)
+        elif isinstance(v, np.generic) or (
+                isinstance(v, np.ndarray) and v.ndim == 0):
+            v = v.item()
+        elif isinstance(v, (list, np.ndarray)):
+            v = tuple(np.asarray(v).tolist())
+        kw[f.name] = v
+    return cls(**kw)
+
+
+def gconst_from_numpy(values: Mapping) -> GConst:
+    """GConst from the JAX GConst's fields: nested parameter dataclasses as
+    mappings, view/prev_view as mappings of PlanarViewConstants arrays,
+    scalar arrays (frame, blend_factor, uniform_random_number) as 0-d
+    numpy arrays or Python numbers."""
+    return _dataclass_from(GConst, values)

@@ -1,0 +1,92 @@
+"""Build and load the port's CUDA kernels.
+
+`nvcc` compiles the `.cu` sources under raytracer2_tpu_torch/csrc (and
+nothing else) into one shared library with a plain C interface, at first
+use, into build/kernels/ at the repository root. The output name carries a
+hash of the sources and flags, so an edited kernel never loads a stale
+library. The library is loaded with ctypes; every pointer argument is
+declared c_void_p (an undeclared pointer would be cut to 32 bits).
+
+--fmad=false keeps every multiply and add separately rounded, in the order
+the source writes them: the kernel then computes the same bits as the
+plain torch version of each kernel (ops/cuda_traverse.py).
+"""
+
+from __future__ import annotations
+
+import ctypes
+import dataclasses
+import functools
+import hashlib
+import os
+import shutil
+import subprocess
+import time
+from pathlib import Path
+
+CSRC = Path(__file__).resolve().parent.parent / "csrc"
+BUILD_DIR = Path(__file__).resolve().parent.parent.parent / "build" / "kernels"
+
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-O3",
+              "--fmad=false", "-std=c++17", "-shared", "-Xcompiler", "-fPIC",
+              "-Xptxas", "-v")
+
+
+@dataclasses.dataclass(frozen=True)
+class Build:
+    path: Path
+    seconds: float  # nvcc wall time; 0.0 when the library was already built
+    log: str  # nvcc's stderr (ptxas register / shared-memory report)
+
+
+def _nvcc() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    home = os.environ.get("CUDA_HOME") or os.environ.get("CUDA_PATH") \
+        or "/usr/local/cuda"
+    cand = Path(home) / "bin" / "nvcc"
+    if cand.exists():
+        return str(cand)
+    raise RuntimeError("nvcc not found (PATH, CUDA_HOME, /usr/local/cuda): "
+                       "the CUDA kernels cannot be built")
+
+
+@functools.cache
+def build() -> Build:
+    """Compile the kernel library if this source hash is not built yet."""
+    sources = sorted(CSRC.glob("*.cu"))
+    digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for src in sorted(CSRC.glob("*.cu*")):
+        digest.update(src.name.encode())
+        digest.update(src.read_bytes())
+    out = BUILD_DIR / f"libraytracer2_kernels_{digest.hexdigest()[:16]}.so"
+    if out.exists():
+        return Build(out, 0.0, "")
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tmp = out.with_suffix(f".{os.getpid()}.tmp")
+    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *map(str, sources)]
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, capture_output=True, text=True)
+    seconds = time.perf_counter() - t0
+    if proc.returncode != 0:
+        raise RuntimeError(
+            f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n{proc.stderr}")
+    tmp.replace(out)
+    return Build(out, seconds, proc.stderr)
+
+
+@functools.cache
+def library() -> ctypes.CDLL:
+    """The loaded kernel library with every entry point's signature set."""
+    lib = ctypes.CDLL(str(build().path))
+    vp, ci = ctypes.c_void_p, ctypes.c_int
+    lib.rt2_walk_closest.restype = ci
+    lib.rt2_walk_closest.argtypes = [
+        vp, vp, vp, vp, vp, vp,  # rays8, cand_idx, cand_t, cand_count, wald, out
+        ci, ci, ci, ci, ci,  # n_bundles, p, k, s_pad, group
+        vp,  # stream
+    ]
+    lib.rt2_error_string.restype = ctypes.c_char_p
+    lib.rt2_error_string.argtypes = [ci]
+    return lib

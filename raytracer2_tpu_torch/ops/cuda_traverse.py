@@ -1,0 +1,532 @@
+"""Closest-hit traversal through the hand-written CUDA bundle walk.
+
+Port of the host side of raytracer2_tpu/ops/pallas_traverse.py
+(closest_hit_bundle_pallas) for the two ray classes the reference frame
+traces, plus the wrapper of the kernel that replaces its Pallas walk
+(csrc/bundle_walk.cu) and that kernel's plain torch version.
+
+- Pixel tiles (presorted=True, cull="interval"): rays arrive in screen
+  Z-order; each bundle's candidates come from the conservative interval
+  slab test over all cluster boxes (bundle_cluster_overlap). No sort.
+- Bounces (presorted=False, cull="exact"): every ray is slab-tested
+  exactly against every cluster box (a chunked dense [rays, C] pass), rays
+  are sorted by the cand0 key (nearest overlapped cluster | t_max bucket |
+  octant | origin Morton), and each bundle's candidate list is the union
+  of its rays' overlaps, ranked nearest first.
+
+Ranking uses a stable argsort and keeps the first k: jax.lax.top_k breaks
+ties by lower index and jnp.argsort is stable, so the candidate order
+matches the JAX package's exactly (torch.topk promises no tie order).
+uint32 keys are built in int64 with explicit masks.
+
+A bundle whose union exceeds k_cand overflows. Those bundles re-trace
+through the same kernel with full-length lists (k_cand = C, exact by
+construction); past FALLBACK_BUNDLES of them the whole batch re-traces
+at k_cand = C. The TPU tuning knobs (mb, depth, lean, mm, t_cap,
+debug_steps, cull_kernel, the hier/sc/exact_iv culls and the other sort
+keys) are not ported: each gives the same hits as this path.
+"""
+
+from __future__ import annotations
+
+import ctypes
+from typing import NamedTuple
+
+import torch
+
+from raytracer2_tpu_torch.ops.cluster import Clusters, bundle_cluster_overlap
+from raytracer2_tpu_torch.ops.intersect import INVALID_INDEX, HitRecord
+from raytracer2_tpu_torch.ops.traverse_bundle import (
+    _bundle_bounds, _expand_bits, _pad_rays)
+
+LANE_PAD = 128  # triangles per cluster row, padded to the lane width
+SLOT_BITS = 10  # group * S_pad <= 1024; low key bits carry the winning slot
+SLOT_MASK = (1 << SLOT_BITS) - 1
+MISS_CODE = 0x7FFFFFFF
+NO_HIT_KEY = 0x7FFFFFFF  # above every hit key and every initial key
+
+CULL_CHUNK_BYTES = 48 << 20  # bound on one [rays, C] f32 cull temporary (CPU)
+# elements of one [bundles, P, group*S_pad] temporary of the plain walk
+REFERENCE_CHUNK_ELEMS = {"cuda": 1 << 25, "cpu": 1 << 22}
+FALLBACK_BUNDLES = 32  # past this many overflowed bundles, re-trace the batch
+
+
+# ---------------------------------------------------------------------------
+# Per-scene tables
+# ---------------------------------------------------------------------------
+
+def s_pad(clusters: Clusters) -> int:
+    s = clusters.cluster_size
+    return ((s + LANE_PAD - 1) // LANE_PAD) * LANE_PAD
+
+
+def wald_rows(clusters: Clusters) -> torch.Tensor:
+    """[C, 4, 3S] -> [C, 16, S_pad]: row (k*3 + c) holds transform input k
+    (x, y, z, bias) for output component c (u, v, z); rows 12:16 and the
+    padding lanes are zero (d'_z == 0 -> never hit)."""
+    c, _, w3 = clusters.wald.shape
+    s = w3 // 3
+    rows = (clusters.wald.reshape(c, 4, s, 3)
+            .permute(0, 1, 3, 2)  # [C, 4, 3, S]
+            .reshape(c, 12, s))
+    return torch.nn.functional.pad(rows, (0, s_pad(clusters) - s, 0, 4))
+
+
+def tri_meta(clusters: Clusters, tri_geometry: torch.Tensor,
+             tri_primitive: torch.Tensor) -> torch.Tensor:
+    """[C*S_pad, 16] i32 rows addressed by the walk's winner code
+    cluster * S_pad + slot: [0:12] the triangle's Wald coefficients (f32
+    bits, row order k*3+c), [12:15] (triangle, geometry, primitive), [15]
+    zero. One row gather gives the payload ids and what the host needs to
+    re-evaluate the winner's exact (t, u, v)."""
+    c, s = clusters.tri_index.shape
+    sp = s_pad(clusters)
+    tri = clusters.tri_index.to(torch.int32)
+    safe = torch.clamp_min(tri, 0).long()
+    geom = torch.where(tri >= 0, tri_geometry[safe].to(torch.int32), -1)
+    prim = torch.where(tri >= 0, tri_primitive[safe].to(torch.int32), 0)
+    meta = torch.stack([tri, geom, prim, torch.zeros_like(tri)], dim=-1)
+    if sp != s:
+        pad = torch.tensor([-1, -1, 0, 0], dtype=torch.int32,
+                           device=tri.device).expand(c, sp - s, 4)
+        meta = torch.cat([meta, pad], dim=1)
+    coeff = wald_rows(clusters)[:, :12, :].permute(0, 2, 1).contiguous()
+    return torch.cat([coeff.view(torch.int32), meta], dim=-1).reshape(
+        c * sp, 16)
+
+
+class WalkTables(NamedTuple):
+    """The walk's per-scene tables, built once (make_tracers)."""
+
+    wald_rows: torch.Tensor  # [C, 16, S_pad] f32
+    meta_rows: torch.Tensor  # [C*S_pad, 16] i32
+
+
+def build_tables(clusters: Clusters, tri_geometry, tri_primitive
+                 ) -> WalkTables:
+    return WalkTables(wald_rows(clusters).contiguous(),
+                      tri_meta(clusters, tri_geometry, tri_primitive))
+
+
+# ---------------------------------------------------------------------------
+# The kernel and its plain version
+# ---------------------------------------------------------------------------
+
+def _check_walk_args(rays8, cand_idx, cand_t, cand_count, wald, group):
+    if cand_idx.dim() != 2:
+        raise ValueError(f"cand_idx must be [B, K], got {tuple(cand_idx.shape)}")
+    b, k = cand_idx.shape
+    specs = ((rays8, torch.float32, None), (cand_idx, torch.int32, (b, k)),
+             (cand_t, torch.float32, (b, k)), (cand_count, torch.int32, (b,)),
+             (wald, torch.float32, None))
+    for name, (x, dtype, shape) in zip(
+            ("rays8", "cand_idx", "cand_t", "cand_count", "wald_rows"), specs):
+        if x.dtype != dtype:
+            raise TypeError(f"{name} must be {dtype}, got {x.dtype}")
+        if shape is not None and tuple(x.shape) != shape:
+            raise ValueError(f"{name} must be {shape}, got {tuple(x.shape)}")
+        if x.device != rays8.device:
+            raise ValueError(f"{name} is on {x.device}, rays8 on {rays8.device}")
+        if not x.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+    if rays8.dim() != 2 or rays8.shape[1] != 8 or b == 0 \
+            or rays8.shape[0] % b:
+        raise ValueError(f"rays8 must be [B*P, 8], got {tuple(rays8.shape)}")
+    p = rays8.shape[0] // b
+    if wald.dim() != 3 or wald.shape[1] != 16:
+        raise ValueError(f"wald_rows must be [C, 16, S_pad], "
+                         f"got {tuple(wald.shape)}")
+    sp = wald.shape[2]
+    if not 1 <= group <= 8 or group * sp > SLOT_MASK + 1:
+        raise ValueError(f"group {group} x S_pad {sp} exceeds the "
+                         f"{SLOT_BITS}-bit slot field")
+    return b, k, p, sp
+
+
+def walk_closest(rays8, cand_idx, cand_t, cand_count, wald_rows, group):
+    """Closest-hit bundle walk: winner code [B*P] i32 per ray (cluster *
+    S_pad + slot, 0x7FFFFFFF on a miss). rays8 [B*P, 8] f32 rows (ox oy oz
+    dx dy dz t_min t_max) in bundle order; cand_idx/cand_t [B, K] nearest
+    first, cand_count [B]; wald_rows [C, 16, S_pad].
+
+    A CUDA tensor launches csrc/bundle_walk.cu on the current stream (and
+    counts the launch in walk_closest.launches); a CPU tensor runs
+    walk_closest_reference. Anything else raises."""
+    b, k, p, sp = _check_walk_args(rays8, cand_idx, cand_t, cand_count,
+                                   wald_rows, group)
+    if rays8.device.type == "cpu":
+        return walk_closest_reference(rays8, cand_idx, cand_t, cand_count,
+                                      wald_rows, group)
+    if rays8.device.type != "cuda":
+        raise ValueError(f"walk_closest runs on cuda or cpu, "
+                         f"not {rays8.device}")
+    if p > 1024 or p % 32:
+        raise ValueError(f"bundle size {p} must be a multiple of 32, <= 1024")
+    from raytracer2_tpu_torch.ops import _build
+
+    lib = _build.library()
+    out = torch.empty(b * p, dtype=torch.int32, device=rays8.device)
+    with torch.cuda.device(rays8.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = lib.rt2_walk_closest(
+            rays8.data_ptr(), cand_idx.data_ptr(), cand_t.data_ptr(),
+            cand_count.data_ptr(), wald_rows.data_ptr(), out.data_ptr(),
+            b, p, k, sp, group, ctypes.c_void_p(stream))
+    if err != 0:
+        raise RuntimeError(f"walk_closest launch failed: "
+                           f"{lib.rt2_error_string(err).decode()} ({err})")
+    walk_closest.launches += 1
+    return out
+
+
+walk_closest.launches = 0
+
+
+def walk_closest_reference(rays8, cand_idx, cand_t, cand_count, wald_rows,
+                           group):
+    """Plain torch version of the walk, batched over bundles: the same
+    steps, predicates, packed keys, tie rule and early exit as the kernel,
+    with the Wald affines in the same unfused order, so the two agree bit
+    for bit. REFERENCE_CHUNK_ELEMS bounds its temporaries."""
+    b, k, p, sp = _check_walk_args(rays8, cand_idx, cand_t, cand_count,
+                                   wald_rows, group)
+    dev = rays8.device
+    w = group * sp
+    bc = max(1, REFERENCE_CHUNK_ELEMS[dev.type] // (p * w))
+    lane = torch.arange(w, device=dev)
+    grp = lane // sp
+    lane_in = lane % sp
+    last = wald_rows.shape[0] - 1
+    out = torch.empty((b, p), dtype=torch.int32, device=dev)
+    rays = rays8.reshape(b, p, 8)
+    for b0 in range(0, b, bc):
+        r = rays[b0:b0 + bc]
+        nb = r.shape[0]
+        ox, oy, oz, dx, dy, dz, tn = (r[..., i:i + 1] for i in range(7))
+        best_key = (r[..., 7].view(torch.int32) & ~SLOT_MASK) | SLOT_MASK
+        best_code = torch.full((nb, p), MISS_CODE, dtype=torch.int32,
+                               device=dev)
+        n = cand_count[b0:b0 + bc]
+        alive = torch.ones(nb, dtype=torch.bool, device=dev)
+        for k0 in range(0, int(n.max()), group):
+            worst = (best_key | SLOT_MASK).view(torch.float32).amax(dim=1)
+            alive &= (k0 < n) & (cand_t[b0:b0 + bc, k0] <= worst)
+            if not bool(alive.any()):
+                break
+            ci = cand_idx[b0:b0 + bc, k0:k0 + group]
+            if ci.shape[1] < group:
+                ci = torch.nn.functional.pad(ci, (0, group - ci.shape[1]))
+            ci = torch.clamp(ci, 0, last)
+            wr = (wald_rows[ci.long(), :12, :]  # [nb, group, 12, S_pad]
+                  .permute(0, 2, 1, 3).reshape(nb, 12, 1, w))
+            op_u = ox * wr[:, 0] + oy * wr[:, 3] + oz * wr[:, 6] + wr[:, 9]
+            op_v = ox * wr[:, 1] + oy * wr[:, 4] + oz * wr[:, 7] + wr[:, 10]
+            op_z = ox * wr[:, 2] + oy * wr[:, 5] + oz * wr[:, 8] + wr[:, 11]
+            dp_u = dx * wr[:, 0] + dy * wr[:, 3] + dz * wr[:, 6]
+            dp_v = dx * wr[:, 1] + dy * wr[:, 4] + dz * wr[:, 7]
+            dp_z = dx * wr[:, 2] + dy * wr[:, 5] + dz * wr[:, 8]
+            t = -op_z / dp_z
+            uu = op_u + t * dp_u
+            vv = op_v + t * dp_v
+            live = (lane[None, :] < (n[:, None] - k0) * sp) & alive[:, None]
+            hit = ((torch.abs(dp_z) > 1e-12) & (uu >= 0.0) & (vv >= 0.0)
+                   & (uu + vv <= 1.0) & (t > tn) & live[:, None, :])
+            key = torch.where(
+                hit, (t.view(torch.int32) & ~SLOT_MASK) | lane.to(torch.int32),
+                NO_HIT_KEY)
+            step_key, arg = key.min(dim=-1)  # [nb, P]
+            step_code = (torch.gather(ci, 1, grp[arg].reshape(nb, -1))
+                         .reshape(nb, p) * sp + lane_in[arg])
+            better = step_key < best_key
+            best_key = torch.where(better, step_key, best_key)
+            best_code = torch.where(better, step_code.to(torch.int32),
+                                    best_code)
+        out[b0:b0 + nb] = best_code
+    return out.reshape(b * p)
+
+
+# ---------------------------------------------------------------------------
+# Candidate prep
+# ---------------------------------------------------------------------------
+
+def _cull_chunk_bytes(device: torch.device) -> int:
+    """Bytes allowed for one [rays, C] f32 temporary of the dense cull: the
+    JAX bound on the CPU, a share of free memory on the card. Results do
+    not depend on it."""
+    if device.type == "cuda":
+        free, _ = torch.cuda.mem_get_info(device)
+        return max(CULL_CHUNK_BYTES, free // 64)
+    return CULL_CHUNK_BYTES
+
+
+def _entry_exact(o, d, tn, tx, amin, amax):
+    """Exact per-ray slab test vs every cluster AABB: [n, C] conservative
+    entry distance, +inf where the ray's [tn, tx] segment misses the box;
+    dead rays (tx < 0) get all-inf rows."""
+    eps = 1e-12
+    ds = torch.where(torch.abs(d) < eps, torch.where(d >= 0, eps, -eps), d)
+    inv = 1.0 / ds  # [n, 3]
+    near = far = None
+    for ax in range(3):
+        ia = inv[:, ax:ax + 1]
+        oa = o[:, ax:ax + 1]
+        t0 = (amin[None, :, ax] - oa) * ia  # [n, C]
+        t1 = (amax[None, :, ax] - oa) * ia
+        lo = torch.minimum(t0, t1)
+        hi = torch.maximum(t0, t1)
+        near = lo if near is None else torch.maximum(near, lo)
+        far = hi if far is None else torch.minimum(far, hi)
+    hit = ((near <= far) & (far >= tn[:, None]) & (near <= tx[:, None])
+           & (tx >= 0.0)[:, None])
+    return torch.where(hit, torch.clamp_min(near, 0.0), torch.inf)
+
+
+def _norm3(v: torch.Tensor) -> torch.Tensor:
+    return torch.sqrt(v[0] * v[0] + v[1] * v[1] + v[2] * v[2])
+
+
+def cand0_sort_key(o, d, tn, tx, amin, amax, scene_min, scene_max):
+    """Per-ray sort key (int64 holding uint32): [nearest exactly-overlapped
+    box id | t_max bucket | octant | origin Morton]. Rays that touch
+    nothing key to C and compact into empty bundles."""
+    n = o.shape[0]
+    c = amin.shape[0]
+    chunk = max(1024, (_cull_chunk_bytes(o.device) // (4 * max(c, 1)))
+                // 1024 * 1024)
+    cand0 = torch.empty(n, dtype=torch.int64, device=o.device)
+    for s in range(0, n, chunk):
+        e = _entry_exact(o[s:s + chunk], d[s:s + chunk], tn[s:s + chunk],
+                         tx[s:s + chunk], amin, amax)
+        nearest, arg = e.min(dim=-1)  # first index among ties, as jnp.argmin
+        cand0[s:s + chunk] = torch.where(torch.isfinite(nearest), arg, c)
+
+    # tiebreak (t_max bucket | octant | origin morton): short rays bundle
+    # together; then direction octant + origin morton for coherence
+    octant = ((d[:, 0] >= 0).long() | ((d[:, 1] >= 0).long() << 1)
+              | ((d[:, 2] >= 0).long() << 2))
+    span = scene_max - scene_min
+    extent = torch.clamp_min(span, 1e-12)
+    diag = _norm3(span)
+    q = torch.clamp((o - scene_min) / extent, 0.0, 0.999)
+    ocell = (q * 32.0).long()
+    o_morton = (_expand_bits(ocell[:, 0], 5)
+                | (_expand_bits(ocell[:, 1], 5) << 1)
+                | (_expand_bits(ocell[:, 2], 5) << 2))
+    # dead lanes carry tx = -1: clamp BEFORE the integer conversion (the
+    # JAX uint32 cast of a negative float saturates to 0)
+    t_bucket = torch.clamp(4.0 * tx / torch.clamp_min(diag, 1e-12),
+                           0.0, 3.0).long()
+    tie = (t_bucket << 18) | (octant << 15) | o_morton  # 20 bits
+
+    bits_c = max((c + 1).bit_length(), 1)
+    tie_bits = max(32 - bits_c, 0)
+    if tie_bits >= 20:
+        tie_part = tie << (tie_bits - 20)
+    else:
+        tie_part = tie >> (20 - tie_bits)
+    return ((cand0 << tie_bits) | tie_part) & 0xFFFFFFFF
+
+
+class Prep(NamedTuple):
+    """Bundled rays and their candidate lists. Rays are in bundle order
+    (perm maps bundle row -> caller row; None when presorted) and padded
+    to whole bundles; candidate arrays are [B, k] nearest first."""
+
+    perm: torch.Tensor | None
+    o: torch.Tensor
+    d: torch.Tensor
+    tn: torch.Tensor
+    tx: torch.Tensor
+    cand_idx: torch.Tensor  # [B, k] i32
+    cand_t: torch.Tensor  # [B, k] f32 entry distances (+inf past the union)
+    cand_count: torch.Tensor  # [B] i32
+    overflowed: torch.Tensor  # [B] bool: union larger than k
+
+
+def _rank(entry: torch.Tensor, k: int):
+    """Nearest-first candidates of [B, C] entry distances: stable argsort
+    and the first k (ties to the lower index, as jax.lax.top_k)."""
+    idx = torch.argsort(entry, dim=-1, stable=True)[:, :k]
+    cand_t = torch.gather(entry, 1, idx)
+    n_union = torch.isfinite(entry).sum(dim=-1)
+    cand_count = torch.minimum(torch.isfinite(cand_t).sum(dim=-1), n_union)
+    return idx.to(torch.int32), cand_t, cand_count.to(torch.int32), n_union > k
+
+
+def _finish(perm, o, d, tn, tx, parts) -> Prep:
+    idx, ct, cnt, ovf = (torch.cat(x) for x in zip(*parts))
+    return Prep(perm, o, d, tn, tx, idx.contiguous(), ct.contiguous(),
+                cnt.contiguous(), ovf)
+
+
+def prepare_bundles_exact(clusters: Clusters, origins, directions, t_min,
+                          t_max, scene_min, scene_max, bundle_size: int,
+                          presorted: bool, k_cand: int) -> Prep:
+    """Exact-cull prep (JAX _prepare_bundles_exact with sort_key="cand0"):
+    per-ray slab tests, cand0 ray sort (unless presorted), per-bundle union
+    candidate lists ranked nearest first."""
+    p = bundle_size
+    c = clusters.num_clusters
+    if presorted:
+        perm = None
+        o, d, tn, tx = origins, directions, t_min, t_max
+    else:
+        key = cand0_sort_key(origins, directions, t_min, t_max,
+                             clusters.aabb_min, clusters.aabb_max,
+                             scene_min, scene_max)
+        perm = torch.argsort(key, stable=True)
+        packed = torch.cat([origins, directions, t_min[:, None],
+                            t_max[:, None]], dim=1)[perm]
+        o, d, tn, tx = packed[:, 0:3], packed[:, 3:6], packed[:, 6], \
+            packed[:, 7]
+    o, d, tn, tx, _ = _pad_rays(o, d, tn, tx, p)
+    k = min(k_cand, c)
+    b = o.shape[0] // p
+    cb = max(1, _cull_chunk_bytes(o.device) // (4 * max(c, 1) * p))
+    parts = []
+    for b0 in range(0, b, cb):
+        r0, r1 = b0 * p, min(b, b0 + cb) * p
+        e = _entry_exact(o[r0:r1], d[r0:r1], tn[r0:r1], tx[r0:r1],
+                         clusters.aabb_min, clusters.aabb_max)
+        parts.append(_rank(e.reshape(-1, p, c).amin(dim=1), k))
+    return _finish(perm, o, d, tn, tx, parts)
+
+
+def prepare_bundles_interval(clusters: Clusters, origins, directions, t_min,
+                             t_max, bundle_size: int, k_cand: int) -> Prep:
+    """Interval-union prep for presorted rays (JAX _prepare_bundles with
+    presorted=True): per-bundle candidates from the conservative interval
+    slab test over all clusters, ranked nearest first."""
+    p = bundle_size
+    c = clusters.num_clusters
+    o, d, tn, tx, _ = _pad_rays(origins, directions, t_min, t_max, p)
+    k = min(k_cand, c)
+    b = o.shape[0] // p
+    o_min, o_max, inv_lo, inv_hi, bundle_tmax = _bundle_bounds(o, d, tx, p)
+    # ~12 live [bundles, C, 3] f32 temporaries per chunk
+    cb = max(1, _cull_chunk_bytes(o.device) // (4 * 3 * 12 * max(c, 1)))
+    parts = []
+    for b0 in range(0, b, cb):
+        sl = slice(b0, b0 + cb)
+        may_hit, t_enter = bundle_cluster_overlap(
+            o_min[sl], o_max[sl], inv_lo[sl], inv_hi[sl], bundle_tmax[sl],
+            clusters.aabb_min, clusters.aabb_max)
+        entry = torch.where(may_hit, torch.clamp_min(t_enter, 0.0),
+                            torch.inf)
+        parts.append(_rank(entry, k))
+    return _finish(None, o, d, tn, tx, parts)
+
+
+# ---------------------------------------------------------------------------
+# Closest hit
+# ---------------------------------------------------------------------------
+
+def _per_ray(x, n: int, ref: torch.Tensor) -> torch.Tensor:
+    return torch.as_tensor(x, dtype=torch.float32,
+                           device=ref.device).expand(n).contiguous()
+
+
+def _decode(code, meta_rows, on, dn, t_max_orig) -> HitRecord:
+    """Winner code -> payload ids via one meta-row gather, then the 12-term
+    re-evaluation of the winner's exact (t, u, v) in the caller's order."""
+    missed = code == MISS_CODE
+    meta = meta_rows[torch.where(missed, 0, code).long()]  # [n, 16] i32
+    tri_r = torch.where(missed, -1, meta[:, 12])
+    geom_r = torch.where(missed, -1, meta[:, 13])
+    prim_r = torch.where(missed, 0, meta[:, 14])
+
+    # in float64, rounded once at the end. XLA evaluates these affines with
+    # fused multiply-adds, which torch's elementwise ops do not offer: in
+    # unfused float32 steps, u and v (small differences of large affine
+    # terms) land up to 1.5e-5 relative from the JAX package's values, while
+    # float64 rounded once lands within 1e-6 of them.
+    wf = meta[:, 0:12].contiguous().view(torch.float32).double()
+    on, dn = on.double(), dn.double()
+    op_u = wf[:, 0] * on[:, 0] + wf[:, 3] * on[:, 1] + wf[:, 6] * on[:, 2] \
+        + wf[:, 9]
+    op_v = wf[:, 1] * on[:, 0] + wf[:, 4] * on[:, 1] + wf[:, 7] * on[:, 2] \
+        + wf[:, 10]
+    op_z = wf[:, 2] * on[:, 0] + wf[:, 5] * on[:, 1] + wf[:, 8] * on[:, 2] \
+        + wf[:, 11]
+    dp_u = wf[:, 0] * dn[:, 0] + wf[:, 3] * dn[:, 1] + wf[:, 6] * dn[:, 2]
+    dp_v = wf[:, 1] * dn[:, 0] + wf[:, 4] * dn[:, 1] + wf[:, 7] * dn[:, 2]
+    dzv = wf[:, 2] * dn[:, 0] + wf[:, 5] * dn[:, 1] + wf[:, 8] * dn[:, 2]
+    t_r = -op_z / torch.where(dzv == 0.0, 1.0, dzv)
+    u_r = (op_u + t_r * dp_u).float()
+    v_r = (op_v + t_r * dp_v).float()
+    t_r = t_r.float()
+    missed_r = tri_r < 0
+
+    return HitRecord(
+        t=torch.where(missed_r, t_max_orig, t_r),
+        u=torch.where(missed_r, 0.0, u_r),
+        v=torch.where(missed_r, 0.0, v_r),
+        geometry_index=torch.where(missed_r, INVALID_INDEX, geom_r.long()),
+        primitive_id=torch.where(missed_r, 0, prim_r.long()),
+        triangle_index=tri_r)
+
+
+def closest_hit_bundle(clusters: Clusters, tables: WalkTables,
+                       origins: torch.Tensor, directions: torch.Tensor,
+                       t_min, t_max, scene_min: torch.Tensor,
+                       scene_max: torch.Tensor, *, bundle_size: int = 128,
+                       presorted: bool = False, cull: str = "exact",
+                       group: int = 4, k_cand: int = 256,
+                       overflow_fallback: bool = True
+                       ) -> tuple[HitRecord, int]:
+    """Closest hit through the bundle walk. Returns (HitRecord, number of
+    bundles that overflowed k_cand and took the fallback).
+
+    cull="interval" needs presorted rays (pixel tiles); cull="exact" sorts
+    by the cand0 key unless presorted."""
+    n_orig = origins.shape[0]
+    p = bundle_size
+    sp = tables.wald_rows.shape[-1]
+    group = max(1, min(group, (1 << SLOT_BITS) // sp))
+    tn_o = _per_ray(t_min, n_orig, origins)
+    tx_o = _per_ray(t_max, n_orig, origins)
+    if cull == "interval":
+        if not presorted:
+            raise NotImplementedError(
+                "the interval cull is ported for presorted rays only")
+        prep = prepare_bundles_interval(clusters, origins, directions, tn_o,
+                                        tx_o, p, k_cand)
+    elif cull == "exact":
+        prep = prepare_bundles_exact(clusters, origins, directions, tn_o,
+                                     tx_o, scene_min, scene_max, p,
+                                     presorted, k_cand)
+    else:
+        raise ValueError(f"cull must be 'exact' or 'interval', not {cull!r}")
+
+    rays8 = torch.cat([prep.o, prep.d, prep.tn[:, None], prep.tx[:, None]],
+                      dim=1).contiguous()
+    code = walk_closest(rays8, prep.cand_idx, prep.cand_t, prep.cand_count,
+                        tables.wald_rows, group)[:n_orig]
+    if prep.perm is not None:
+        # un-sort the codes with one scatter, then decode in caller order
+        code = torch.empty_like(code).index_put_((prep.perm,), code)
+    rec = _decode(code, tables.meta_rows, origins, directions, tx_o)
+
+    n_ovf = int(prep.overflowed.sum())
+    if not overflow_fallback or n_ovf == 0:
+        return rec, n_ovf
+    full_k = clusters.num_clusters
+    if n_ovf > FALLBACK_BUNDLES:
+        rec, _ = closest_hit_bundle(
+            clusters, tables, origins, directions, tn_o, tx_o, scene_min,
+            scene_max, bundle_size=p, presorted=presorted, cull=cull,
+            group=group, k_cand=full_k, overflow_fallback=False)
+        return rec, n_ovf
+    # re-trace only the overflowed bundles' rays, in their bundle order,
+    # with full-length candidate lists (cannot truncate => exact)
+    bidx = torch.nonzero(prep.overflowed).reshape(-1)
+    j = (bidx[:, None] * p + torch.arange(p, device=bidx.device)).reshape(-1)
+    j = j[j < n_orig]
+    oi = prep.perm[j] if prep.perm is not None else j
+    sub, _ = closest_hit_bundle(
+        clusters, tables, origins[oi], directions[oi], tn_o[oi], tx_o[oi],
+        scene_min, scene_max, bundle_size=p, presorted=True, cull="exact",
+        group=group, k_cand=full_k, overflow_fallback=False)
+    rec = HitRecord(*(field.index_put((oi,), sub_field)
+                      for field, sub_field in zip(rec, sub)))
+    return rec, n_ovf

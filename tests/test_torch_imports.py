@@ -1,0 +1,49 @@
+"""The PyTorch port never imports JAX: the machine with the GPU has none."""
+
+import os
+import pathlib
+import re
+import subprocess
+import sys
+
+import raytracer2_tpu_torch
+
+PACKAGE = pathlib.Path(raytracer2_tpu_torch.__file__).resolve().parent
+REPO = PACKAGE.parent
+
+_PROBE = """
+import importlib, pkgutil, sys
+import raytracer2_tpu_torch as pkg
+names = [m.name for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + ".")]
+for name in names:
+    importlib.import_module(name)
+jax_free = not any(m == "jax" or m.startswith("jax.") for m in sys.modules)
+old = sorted(m for m in sys.modules if m.startswith("raytracer2_tpu."))
+print(len(names), jax_free, ",".join(old))
+"""
+
+# the JAX package's modules the port may share: they import no JAX
+SHARED = {"raytracer2_tpu.scene", "raytracer2_tpu.scene.gltf",
+          "raytracer2_tpu.scene.exr", "raytracer2_tpu.scene.piz",
+          "raytracer2_tpu.models", "raytracer2_tpu.models.procedural",
+          "raytracer2_tpu.ops", "raytracer2_tpu.ops.native"}
+
+
+def test_every_submodule_imports_without_jax():
+    env = dict(os.environ, PYTHONPATH=str(REPO))
+    out = subprocess.run([sys.executable, "-c", _PROBE], cwd=REPO, env=env,
+                         capture_output=True, text=True, timeout=120,
+                         check=True).stdout.split()
+    n_modules, jax_free = int(out[0]), out[1]
+    old = set(out[2].split(",")) if len(out) > 2 else set()
+    assert n_modules >= 20
+    assert jax_free == "True"
+    assert old <= SHARED, old - SHARED
+
+
+def test_no_source_file_imports_jax():
+    pattern = re.compile(r"^\s*(import jax|from jax\b)", re.MULTILINE)
+    sources = sorted(PACKAGE.rglob("*.py"))
+    assert sources
+    offenders = [str(p) for p in sources if pattern.search(p.read_text())]
+    assert not offenders

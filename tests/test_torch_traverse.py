@@ -1,0 +1,318 @@
+"""The closest-hit bundle walk of the PyTorch port (ops/cuda_traverse.py)
+against the JAX package, for both ray classes of the reference frame:
+pixel tiles (presorted, interval cull) and bounces (cand0 sort, exact cull).
+
+On the CPU the wrapper runs the kernel's plain version, so these tests hold
+walk_closest_reference to JAX's Pallas walk in interpret mode (bit for bit
+in the triangle, geometry and primitive ids), to the brute-force oracle
+(exact up to t-ties), and its candidate prep to JAX's bit for bit. The
+kernel itself is compared with the plain version on the card only
+(tests/test_torch_kernels.py, chip_smoke.py).
+"""
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from raytracer2_tpu.models import procedural as proc
+from raytracer2_tpu.ops import cluster as jcluster
+from raytracer2_tpu.ops import pallas_traverse as ptm
+from raytracer2_tpu.ops.intersect import intersect_brute_force
+from raytracer2_tpu.scene import gltf
+from raytracer2_tpu.scene.scene import build_scene
+from raytracer2_tpu_torch import convert
+from raytracer2_tpu_torch.ops import cuda_traverse as ct
+from raytracer2_tpu_torch.render import app_bridge
+from raytracer2_tpu_torch.render.rays import zorder_permutation
+
+CPU = torch.device("cpu")
+P = 32  # rays per bundle
+N = 96
+# the two classes of the reference frame, at the shapes this scene allows
+CLASSES = {
+    "pixel_tiles": dict(presorted=True, cull="interval", group=4),
+    "bounces": dict(presorted=False, cull="exact", group=8),
+}
+
+
+def _pixel_rays():
+    """Camera rays through a 12x8 grid, in Z-order, as a pixel chunk."""
+    zidx, _ = zorder_permutation(12, 8)
+    lin = zidx.astype(np.int64)
+    x = (lin % 12 + 0.5) / 12 * 3.2 - 1.6
+    y = (lin // 12 + 0.5) / 8 * 2.4 - 1.2
+    d = np.stack([x, y, np.full_like(x, 5.0)], -1).astype(np.float32)
+    d /= np.linalg.norm(d, axis=-1, keepdims=True)
+    o = np.broadcast_to(np.float32([0.11, 0.07, -5.0]), d.shape).copy()
+    return o, d
+
+
+def _bounce_rays():
+    """Scattered origins, directions roughly toward the spheres."""
+    rng = np.random.default_rng(77)
+    o = rng.uniform(-3, 3, (N, 3)).astype(np.float32)
+    d = (rng.normal(scale=0.5, size=(N, 3)) - o / 3).astype(np.float32)
+    return o, d / np.linalg.norm(d, axis=-1, keepdims=True)
+
+
+@pytest.fixture(scope="module")
+def tiny(tmp_path_factory):
+    p = tmp_path_factory.mktemp("trav") / "s.glb"
+    proc.write_glb(p, proc.sphere_grid_glb(n=1, lat=6, lon=8))
+    j_scene = build_scene(gltf.load_file(p))
+    j_clusters = jcluster.build_clusters(
+        j_scene.tri_v0, j_scene.tri_edge1, j_scene.tri_edge2, cluster_size=4)
+    t_clusters = convert.clusters_from_numpy(
+        convert.to_numpy_tree(j_clusters), device=CPU)
+    t_scene = convert.scene_from_numpy(convert.to_numpy_tree(j_scene),
+                                       device=CPU)
+    tables = ct.build_tables(t_clusters, t_scene.tri_geometry,
+                             t_scene.tri_primitive)
+    t_max = np.full(N, 1e5, np.float32)
+    t_max[::11] = -1.0  # dead lanes, as bounce batches carry them
+    rays = {"pixel_tiles": _pixel_rays(), "bounces": _bounce_rays()}
+    return dict(j_scene=j_scene, j_clusters=j_clusters, t_scene=t_scene,
+                t_clusters=t_clusters, tables=tables, rays=rays,
+                t_min=np.full(N, 1e-3, np.float32), t_max=t_max,
+                smin=np.array(jnp.min(j_clusters.aabb_min, 0)),
+                smax=np.array(jnp.max(j_clusters.aabb_max, 0)))
+
+
+def _port_hits(tiny, o, d, t_max=None, **kw):
+    return ct.closest_hit_bundle(
+        tiny["t_clusters"], tiny["tables"], torch.from_numpy(o),
+        torch.from_numpy(d), torch.from_numpy(tiny["t_min"]),
+        torch.from_numpy(tiny["t_max"] if t_max is None else t_max),
+        torch.from_numpy(tiny["smin"]), torch.from_numpy(tiny["smax"]),
+        bundle_size=P, **kw)
+
+
+def _brute(tiny, o, d):
+    s = tiny["j_scene"]
+    return intersect_brute_force(
+        jnp.asarray(o), jnp.asarray(d), s.tri_v0, s.tri_edge1, s.tri_edge2,
+        s.tri_geometry, s.tri_primitive, jnp.asarray(tiny["t_min"]),
+        jnp.asarray(tiny["t_max"]))
+
+
+def _assert_matches_brute(got, ref):
+    """test_bvh.py's bar: the same misses and t, and the same triangle
+    except where two triangles tie in t."""
+    ref = convert.hit_record_from_numpy(convert.to_numpy_tree(ref),
+                                        device=CPU)
+    np.testing.assert_array_equal(got.missed.numpy(), ref.missed.numpy())
+    m = ~ref.missed.numpy()
+    np.testing.assert_allclose(got.t.numpy()[m], ref.t.numpy()[m],
+                               rtol=1e-5)
+    differ = (got.triangle_index != ref.triangle_index).numpy()
+    np.testing.assert_allclose(got.t.numpy()[differ],
+                               ref.t.numpy()[differ], rtol=1e-6)
+    same = ~differ & m
+    np.testing.assert_array_equal(got.geometry_index.numpy()[same],
+                                  ref.geometry_index.numpy()[same])
+
+
+@pytest.mark.parametrize("cls", sorted(CLASSES))
+def test_walk_matches_pallas_walk_bit_exact(tiny, cls):
+    cfg = CLASSES[cls]
+    o, d = tiny["rays"][cls]
+    s = tiny["j_scene"]
+    want = ptm.closest_hit_bundle_pallas(
+        tiny["j_clusters"], s.tri_geometry, s.tri_primitive,
+        jnp.asarray(o), jnp.asarray(d), jnp.asarray(tiny["t_min"]),
+        jnp.asarray(tiny["t_max"]), jnp.asarray(tiny["smin"]),
+        jnp.asarray(tiny["smax"]), bundle_size=P, interpret=True, mb=1,
+        k_cand=256, **cfg)
+    got, n_fallback = _port_hits(tiny, o, d, k_cand=256, **cfg)
+    assert n_fallback == 0
+    for f in ("triangle_index", "geometry_index", "primitive_id"):
+        np.testing.assert_array_equal(
+            getattr(got, f).numpy(),
+            np.asarray(getattr(want, f)).astype(np.int64), err_msg=f)
+    for f in ("t", "u", "v"):
+        np.testing.assert_allclose(getattr(got, f).numpy(),
+                                   np.asarray(getattr(want, f)),
+                                   rtol=1e-5, atol=1e-6, err_msg=f)
+    assert (~got.missed.numpy()).sum() > N // 4  # the rays hit the spheres
+    _assert_matches_brute(got, _brute(tiny, o, d))
+
+
+@pytest.mark.parametrize("cls", sorted(CLASSES))
+@pytest.mark.parametrize("fallback", ["partial", "full_batch"])
+def test_overflow_fallback_stays_exact(tiny, cls, fallback, monkeypatch):
+    """k_cand=2 truncates every bundle's candidate union: the overflowed
+    bundles re-trace through the same walk at k_cand=C (partial), or the
+    whole batch does once more than FALLBACK_BUNDLES overflowed."""
+    o, d = tiny["rays"][cls]
+    ref = _brute(tiny, o, d)
+    if fallback == "full_batch":
+        monkeypatch.setattr(ct, "FALLBACK_BUNDLES", 1)
+    got, n_fallback = _port_hits(tiny, o, d, k_cand=2, **CLASSES[cls])
+    assert 0 < n_fallback
+    assert (n_fallback > ct.FALLBACK_BUNDLES) == (fallback == "full_batch")
+    _assert_matches_brute(got, ref)
+
+    bare, _ = _port_hits(tiny, o, d, k_cand=2, overflow_fallback=False,
+                         **CLASSES[cls])
+    assert (bare.missed.numpy() != np.asarray(ref.missed)).any(), \
+        "without the fallback, k_cand=2 must miss hits (the test bites)"
+
+
+def _rays_t(tiny, cls):
+    o, d = tiny["rays"][cls]
+    return (torch.from_numpy(o), torch.from_numpy(d),
+            torch.from_numpy(tiny["t_min"]), torch.from_numpy(tiny["t_max"]))
+
+
+def test_cand0_sort_key_bit_exact(tiny):
+    o, d = tiny["rays"]["bounces"]
+    c = tiny["j_clusters"]
+    want = ptm._cand0_sort_key(
+        jnp.asarray(o), jnp.asarray(d), jnp.asarray(tiny["t_min"]),
+        jnp.asarray(tiny["t_max"]), c.aabb_min, c.aabb_max,
+        tiny["smin"], tiny["smax"])
+    tc = tiny["t_clusters"]
+    got = ct.cand0_sort_key(*_rays_t(tiny, "bounces"), tc.aabb_min,
+                            tc.aabb_max,
+                            torch.from_numpy(tiny["smin"]),
+                            torch.from_numpy(tiny["smax"]))
+    np.testing.assert_array_equal(got.numpy(),
+                                  np.asarray(want).astype(np.int64))
+
+
+def _assert_prep_equal(got, want, b, k, sorted_rays):
+    (perm, o, d, tn, tx, cand_idx_flat, _, cand_t, cand_count, _, _, kp,
+     _, overflowed) = want
+    if sorted_rays:
+        np.testing.assert_array_equal(got.perm.numpy(), np.asarray(perm))
+    else:
+        assert got.perm is None and perm is None
+    n = b * P
+    for g, w in ((got.o, o), (got.d, d), (got.tn, tn), (got.tx, tx)):
+        np.testing.assert_array_equal(g.numpy(), np.asarray(w)[:n])
+    np.testing.assert_array_equal(got.cand_idx.numpy(),
+                                  np.asarray(cand_idx_flat)[:b, :k])
+    np.testing.assert_array_equal(
+        got.cand_t.numpy(), np.asarray(cand_t).reshape(-1, kp)[:b, :k])
+    np.testing.assert_array_equal(got.cand_count.numpy(),
+                                  np.asarray(cand_count)[:b])
+    np.testing.assert_array_equal(got.overflowed.numpy(),
+                                  np.asarray(overflowed)[:b])
+    # bundles JAX adds to round its cull chunks up are empty
+    assert not np.asarray(cand_count)[b:].any()
+
+
+@pytest.mark.parametrize("k_cand", [8, 256])
+def test_prepare_bundles_exact_bit_exact(tiny, k_cand):
+    o, d = tiny["rays"]["bounces"]
+    c = tiny["j_clusters"]
+    want = ptm._prepare_bundles_exact(
+        c, jnp.asarray(o), jnp.asarray(d), jnp.asarray(tiny["t_min"]),
+        jnp.asarray(tiny["t_max"]), tiny["smin"], tiny["smax"], P, False,
+        k_cand)
+    got = ct.prepare_bundles_exact(
+        tiny["t_clusters"], *_rays_t(tiny, "bounces"),
+        torch.from_numpy(tiny["smin"]),
+        torch.from_numpy(tiny["smax"]), P, False, k_cand)
+    _assert_prep_equal(got, want, N // P, min(k_cand, c.num_clusters), True)
+
+
+@pytest.mark.parametrize("k_cand", [8, 256])
+def test_prepare_bundles_interval_bit_exact(tiny, k_cand):
+    o, d = tiny["rays"]["pixel_tiles"]
+    c = tiny["j_clusters"]
+    want = ptm._prepare_bundles(
+        c, jnp.asarray(o), jnp.asarray(d), jnp.asarray(tiny["t_min"]),
+        jnp.asarray(tiny["t_max"]), tiny["smin"], tiny["smax"], P, True,
+        k_cand=k_cand)
+    got = ct.prepare_bundles_interval(tiny["t_clusters"],
+                                      *_rays_t(tiny, "pixel_tiles"), P,
+                                      k_cand)
+    _assert_prep_equal(got, want, N // P, min(k_cand, c.num_clusters), False)
+
+
+def test_make_tracers_counts_fallback_bundles(tiny, monkeypatch):
+    """Tracers.fallback_bundles sums, over calls, the bundles that took the
+    overflow path; the per-class shapes follow the JAX make_tracers. Tiny
+    clusters and k_cand=2 make every bundle overflow."""
+    monkeypatch.setattr(app_bridge, "CLUSTER_SIZE", 4)
+    monkeypatch.setattr(app_bridge, "K_CAND", 2)
+    tracers = app_bridge.make_tracers(tiny["t_scene"])
+    assert tracers.shapes_by_class[True]["cull"] == "interval"
+    assert tracers.shapes_by_class[False]["cull"] == "exact"
+    assert tracers.fallback_bundles == 0
+    o, d = tiny["rays"]["bounces"]
+    rec = tracers.closest_hit(*_rays_t(tiny, "bounces"))
+    first = tracers.fallback_bundles
+    assert first > 0
+    _assert_matches_brute(rec, _brute(tiny, o, d))
+    tracers.closest_hit(*_rays_t(tiny, "pixel_tiles"), presorted=True)
+    assert tracers.fallback_bundles > first
+
+    brute = app_bridge.make_tracers(tiny["t_scene"], backend="brute")
+    _assert_matches_brute(brute.closest_hit(*_rays_t(tiny, "bounces")),
+                          _brute(tiny, o, d))
+    with pytest.raises(ValueError, match="CUDA"):
+        app_bridge.make_tracers(tiny["t_scene"], backend="bundle_cuda")
+
+
+def test_walk_closest_dispatches_on_device(tiny, monkeypatch):
+    """A CPU tensor runs the plain version; any other device launches the
+    kernel or raises, and never falls back to the plain version."""
+    prep = ct.prepare_bundles_exact(
+        tiny["t_clusters"], *_rays_t(tiny, "bounces"),
+        torch.from_numpy(tiny["smin"]),
+        torch.from_numpy(tiny["smax"]), P, False, 256)
+    rays8 = torch.cat([prep.o, prep.d, prep.tn[:, None], prep.tx[:, None]],
+                      dim=1).contiguous()
+    args = (rays8, prep.cand_idx, prep.cand_t, prep.cand_count,
+            tiny["tables"].wald_rows)
+    launches = ct.walk_closest.launches
+    code = ct.walk_closest(*args, group=8)
+    assert ct.walk_closest.launches == launches  # the plain version ran
+    np.testing.assert_array_equal(
+        code.numpy(), ct.walk_closest_reference(*args, group=8).numpy())
+    # the per-step early exit changes no result: one bundle per chunk lets
+    # each bundle exit on its own
+    with monkeypatch.context() as m:
+        m.setitem(ct.REFERENCE_CHUNK_ELEMS, "cpu", 1)
+        np.testing.assert_array_equal(
+            code.numpy(), ct.walk_closest_reference(*args, group=8).numpy())
+    with pytest.raises(ValueError, match="cuda or cpu"):
+        ct.walk_closest(*(a.to("meta") for a in args), group=8)
+    with pytest.raises(TypeError):
+        ct.walk_closest(rays8.double(), *args[1:], group=8)
+    with pytest.raises(ValueError):
+        ct.walk_closest(*args, group=16)
+
+
+def _tie_case(tiny, order, group):
+    """One bundle whose two candidates are the same cluster's Wald rows
+    under two ids, so every hit ties exactly in key across the two."""
+    o, d = tiny["rays"]["pixel_tiles"]
+    got, _ = _port_hits(tiny, o, d, k_cand=256, **CLASSES["pixel_tiles"])
+    i = int(np.nonzero(~got.missed.numpy())[0][0])
+    sp = tiny["tables"].wald_rows.shape[-1]
+    code = int(torch.nonzero(
+        (tiny["tables"].meta_rows[:, 12] == got.triangle_index[i]))[0])
+    rows = tiny["tables"].wald_rows[code // sp]
+    wald = torch.stack([rows, rows]).contiguous()
+    ray = torch.tensor([*o[i], *d[i], 1e-3, 1e5], dtype=torch.float32)
+    rays8 = ray.expand(P, 8).contiguous()
+    cand_idx = torch.tensor([order], dtype=torch.int32)
+    return ((rays8, cand_idx, torch.zeros((1, 2)),
+             torch.tensor([2], dtype=torch.int32), wald),
+            order[0] * sp + code % sp)
+
+
+@pytest.mark.parametrize("group", [1, 2])
+@pytest.mark.parametrize("order", [(0, 1), (1, 0)])
+def test_walk_tie_rule(tiny, order, group):
+    """Equal keys: inside a step the lower slot wins (the first group
+    member), across steps the earlier step keeps its hit (strict <) — so
+    the first candidate in walk order wins, as on the TPU."""
+    args, want = _tie_case(tiny, order, group)
+    np.testing.assert_array_equal(
+        ct.walk_closest_reference(*args, group=group).numpy(), want)
+
