@@ -3,27 +3,53 @@
 
     python3 chip_smoke.py
 
-Drives the port's reference-mode frame at full size: the procedural ladder
+Drives the port's two frame paths at full size on the procedural ladder
 corridor (~260k triangles, bench.py's headline scene) at 1920x1080, through
-create_renderer / init_frame_state / render_frame and render_reference. The
-phases, each of which raises on failure:
+create_renderer / init_frame_state / render_frame (and render_reference):
+the ReSTIR DI frame of bench.py's DI validation config (4 local-light + 1
+BRDF candidates, final visibility, accumulation; GI off) and the
+reference-mode frame. The phases, each of which raises on failure:
 
-1. device  - a CUDA device is required; no CPU run.
-2. build   - nvcc builds the walk kernel from raytracer2_tpu_torch/csrc.
-3. scene   - the ladder scene, its clusters and the tracers on the card.
-4. kernel  - the walk kernel against its plain torch version on one
-             262,144-ray batch of each ray class (pixel tiles and BRDF
-             bounces), winner codes bit for bit, with both times.
-5. oracle  - 4,096 rays of each class against the brute-force tracer.
-6. frames  - two reference-mode frames and two render_reference frames at
-             bench's ladder settings; the walk must have launched.
+1. device         - a CUDA device is required; no CPU run.
+2. build          - nvcc builds both walk kernels from raytracer2_tpu_torch/csrc.
+3. scene          - the ladder scene, its clusters (and which cluster
+                    builder ran) and the tracers on the card.
+4. kernel         - walk_closest against its plain torch version on the
+                    reference path's 262,144-ray batch of each closest-hit
+                    class (pixel tiles, BRDF bounces), winner codes bit for
+                    bit.
+5. oracle         - 4,096 rays of each of those classes against the
+                    brute-force tracer.
+6. capture        - one DI frame that keeps a copy of the inputs of each
+                    trace call's walk launch (G-buffer, BRDF candidate,
+                    visibility: 2,073,600 rays each).
+7. kernel-occlude - on those inputs, walk_closest (G-buffer, BRDF
+                    candidate) and walk_occluded (visibility) against their
+                    plain versions, bit for bit.
+8. oracle-occlude - 4,096 visibility rays from the middle of the screen
+                    through occluded_bundle against the brute-force any-hit
+                    oracle; rounding ties (the walk's answer lies between
+                    the oracle's with the segment ends and triangle edges
+                    moved in and out by the Wald test's float32 bound) are
+                    counted apart.
+9. di-frames      - two DI frames; both kernels must have launched. Then
+                    di-breakdown: one more with each trace and walk
+                    timed, and one under torch.profiler (busy/idle).
+10. frames         - one reference-mode render_frame and one
+                    render_reference frame; walk_closest must have launched.
 
-The last two lines are one JSON object about the kernels and the result
-line {"ok": true, "device": {...}}. Imports nothing of JAX.
+Each kernel check prints its time, its plain version's and its bound (the
+least time the card could take: the larger of the bytes the walk must move
+over the memory rate and the FP32 operations its data needs over the FP32
+rate). The last
+lines are the card's name and power limit, one JSON object about the
+kernels and the result line {"ok": true, "device": {...}}. Imports nothing
+of JAX.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import statistics
 import subprocess
@@ -36,13 +62,11 @@ import torch
 
 sys.path.insert(0, str(Path(__file__).resolve().parent))
 
-from raytracer2_tpu.models import procedural as proc  # noqa: E402
-from raytracer2_tpu.ops import native  # noqa: E402
-from raytracer2_tpu.scene import gltf  # noqa: E402
-from raytracer2_tpu_torch.ops import _build  # noqa: E402
+from raytracer2_tpu_torch.models import procedural as proc  # noqa: E402
+from raytracer2_tpu_torch.ops import _build, native  # noqa: E402
 from raytracer2_tpu_torch.ops import cuda_traverse as ct  # noqa: E402
 from raytracer2_tpu_torch.ops.intersect import (  # noqa: E402
-    intersect_brute_force)
+    intersect_brute_force, moller_trumbore, occluded_brute_force)
 from raytracer2_tpu_torch.params import default_gconst  # noqa: E402
 from raytracer2_tpu_torch.render import frame as fr  # noqa: E402
 from raytracer2_tpu_torch.render import rays as raysmod  # noqa: E402
@@ -50,6 +74,7 @@ from raytracer2_tpu_torch.render.reference import (  # noqa: E402
     render_reference)
 from raytracer2_tpu_torch.render.surface import (  # noqa: E402
     get_surface_brdf_sample, surface_from_hit)
+from raytracer2_tpu_torch.scene import gltf  # noqa: E402
 from raytracer2_tpu_torch.scene.camera import default_camera  # noqa: E402
 from raytracer2_tpu_torch.scene.scene import build_scene  # noqa: E402
 from raytracer2_tpu_torch.utils import rng as rtrng  # noqa: E402
@@ -58,8 +83,28 @@ WIDTH, HEIGHT = 1920, 1080
 BATCH = 1 << 18  # render_reference's chunk_pixels: one trace batch
 ORACLE_RAYS = 4096
 T_MIN, T_MAX = 0.001, 100000.0  # refrence.rgen:27, BACKGROUND_DEPTH
-KERNEL_SOURCE = "raytracer2_tpu_torch/csrc/bundle_walk.cu"
-REPLACES = "raytracer2_tpu/ops/pallas_traverse.py:1323"
+TIE_REL = 1e-5  # a closest hit within this relative t of another ties
+# the float32 rounding bound of one Wald test: this many units of 2^-24
+# times the sum of the absolute terms of its affines
+WALD_ROUNDING = 8 * 2.0 ** -24
+
+# NVIDIA H100 SXM data sheet: HBM3 rate and FP32 rate outside the tensor
+# cores, at the full 700 W power limit
+HBM_BYTES_PER_S = 3.35e12
+FP32_OPS_PER_S = 67e12
+# FP32 operations of one (ray, triangle) Wald test: 20 multiplies, 18
+# adds, 1 divide and 6 compares (the closest-hit walk has one compare fewer
+# and a packed-key update instead)
+WALD_TEST_OPS = 45
+
+KERNELS = {
+    "walk_closest": dict(
+        source="raytracer2_tpu_torch/csrc/bundle_walk.cu",
+        replaces="raytracer2_tpu/ops/pallas_traverse.py:1323"),
+    "walk_occluded": dict(
+        source="raytracer2_tpu_torch/csrc/bundle_occlude.cu",
+        replaces="raytracer2_tpu/ops/pallas_traverse.py:1488"),
+}
 
 
 def log(phase: str, **fields) -> None:
@@ -67,7 +112,7 @@ def log(phase: str, **fields) -> None:
           flush=True)
 
 
-def phase_device() -> torch.device:
+def phase_device() -> tuple[torch.device, str]:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device (torch.cuda.is_available()"
                          " is false); this script runs on the GPU only")
@@ -77,9 +122,8 @@ def phase_device() -> torch.device:
         timeout=60, check=True).stdout.strip().splitlines()[0]
     log("device", name=repr(torch.cuda.get_device_name(0)),
         count=torch.cuda.device_count(), torch=torch.__version__,
-        cuda=torch.version.cuda)
-    print(smi, flush=True)
-    return torch.device("cuda", 0)
+        cuda=torch.version.cuda, smi=repr(smi))
+    return torch.device("cuda", 0), smi
 
 
 def phase_build() -> None:
@@ -102,16 +146,35 @@ def phase_scene(dev: torch.device):
     torch.cuda.synchronize()
     cam = default_camera(window_size=(WIDTH, HEIGHT), position=(0, 4, 90),
                          direction=(0, 0, 1))
-    g = default_gconst(cam.planar_view_constants(),
-                       scene.num_emissive_triangles, refrence_mode=1)
+    view = cam.planar_view_constants()
     tr = renderer.tracers
     log("scene", triangles=scene.num_triangles,
+        lights=renderer.scene_lights.num_local_lights,
         clusters=tr.clusters.num_clusters,
         cluster_builder="native_sah" if native.available() else "morton",
         shapes=json.dumps({str(k): v for k, v in tr.shapes_by_class.items()},
                           separators=(",", ":")),
         seconds=f"{time.perf_counter() - t0:.1f}")
-    return scene, renderer, g
+    return scene, renderer, view
+
+
+def reference_gconst(scene, view):
+    return default_gconst(view, scene.num_emissive_triangles, refrence_mode=1)
+
+
+def di_gconst(scene, view):
+    """bench.py's ReSTIR DI validation config ("restir-di 4NEE+1BRDF
+    finalvis", bench.py:667-676): DI on, GI off, accumulation, 4 local-light
+    candidates from the RIS tiles and 1 BRDF candidate, final visibility."""
+    g = default_gconst(view, scene.num_emissive_triangles,
+                       enable_restir_di=1, enable_restir_gi=0,
+                       enable_accumulation=1, correct_specular_accumulation=1)
+    di = g.restir_di
+    isp = dataclasses.replace(di.initial_sampling_params,
+                              num_primary_local_light_samples=4)
+    shp = dataclasses.replace(di.shading_params, enable_final_visibility=1)
+    return g.replace(restir_di=dataclasses.replace(
+        di, initial_sampling_params=isp, shading_params=shp))
 
 
 def main_path_batches(scene, renderer, g):
@@ -139,15 +202,15 @@ def main_path_batches(scene, renderer, g):
     }
 
 
-def _prep(tracers, presorted, o, d, tn, tx):
-    cfg = tracers.shapes_by_class[presorted]
+def _prep(tracers, cls, o, d, tn, tx):
+    cfg = tracers.shapes_by_class[cls]
     if cfg["cull"] == "interval":
         prep = ct.prepare_bundles_interval(tracers.clusters, o, d, tn, tx,
                                            cfg["bundle_size"], cfg["k_cand"])
     else:
         prep = ct.prepare_bundles_exact(
             tracers.clusters, o, d, tn, tx, tracers.scene_min,
-            tracers.scene_max, cfg["bundle_size"], presorted, cfg["k_cand"])
+            tracers.scene_max, cfg["bundle_size"], bool(cls), cfg["k_cand"])
     rays8 = torch.cat([prep.o, prep.d, prep.tn[:, None], prep.tx[:, None]],
                       dim=1).contiguous()
     return (rays8, prep.cand_idx, prep.cand_t, prep.cand_count,
@@ -169,38 +232,112 @@ def _median_ms(fn, reps: int = 5) -> float:
     return statistics.median(times)
 
 
+def lane_real(tracers) -> torch.Tensor:
+    """[C, S_pad] bool: True on the lanes that hold a real triangle."""
+    sp = tracers.tables.wald_rows.shape[-1]
+    return (tracers.tables.meta_rows[:, 12] >= 0).reshape(-1, sp)
+
+
+def walk_bound(args, group: int, work: ct.WalkWork, real) -> dict:
+    """The least time the card could take for one walk call on these
+    inputs: the larger of (bytes it must move) / HBM rate and (FP32
+    operations its data needs) / FP32 rate. Bytes: rays read once, the
+    candidate entries the bundles walk, the Wald coefficients (12 floats)
+    of each real triangle of each distinct cluster walked, one i32 written
+    per ray. Operations: WALD_TEST_OPS per (ray, real triangle) test over
+    the steps each bundle takes, as the plain version counts them (padding
+    lanes left out; an any-hit ray counts up to its first hit)."""
+    rays8, cand_idx, _, cand_count, wald = args
+    walked = torch.minimum(work.steps * group, cand_count.long())
+    mask = (torch.arange(cand_idx.shape[1], device=cand_idx.device)[None, :]
+            < walked[:, None])
+    distinct = torch.unique(cand_idx[mask]).long()
+    tris = int(real[distinct].sum())
+    n_rays = rays8.shape[0]
+    nbytes = (n_rays * 8 * 4 + cand_count.numel() * 4 + int(mask.sum()) * 8
+              + tris * 12 * 4 + n_rays * 4)
+    ops = int(work.ray_lanes) * WALD_TEST_OPS
+    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    ops_ms = ops / FP32_OPS_PER_S * 1e3
+    return {"bound_ms": max(bytes_ms, ops_ms),
+            "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+            "bytes": nbytes, "ops": ops, "steps": int(work.steps.sum()),
+            "clusters_walked": int(distinct.numel()),
+            "triangles_walked": tris,
+            # what the bundles stage in all, padding lanes included (mostly
+            # from L2), for comparison
+            "staged_bytes": int(mask.sum()) * 12 * wald.shape[-1] * 4}
+
+
+def check_walk(kernel: str, cls: str, args, group: int, real) -> dict:
+    """One walk kernel against its plain version on one batch: outputs
+    bit for bit, both times (CUDA events, median of 5) and the bound.
+    Raises on any mismatch or on a batch that tests nothing."""
+    walk = getattr(ct, kernel)
+    reference = getattr(ct, f"{kernel}_reference")
+    got = walk(*args, group=group)
+    want, work = reference(*args, group=group, lane_real=real)
+    torch.cuda.synchronize()
+    ms = _median_ms(lambda: walk(*args, group=group))
+    plain_ms = _median_ms(lambda: reference(*args, group=group))
+    bound = walk_bound(args, group, work, real)
+    rays8, _, _, cand_count, _ = args
+    mismatches = int((got != want).sum())
+    if kernel == "walk_closest":
+        hits = int((got != ct.MISS_CODE).sum())
+        outcome = {"hits": hits}
+        trivial = hits == 0
+    else:
+        live = int((rays8[:, 7] > rays8[:, 6]).sum())
+        blocked = int(got.sum())
+        outcome = {"live_rays": live, "blocked": blocked,
+                   "blocked_share": f"{blocked / max(live, 1):.4f}"}
+        trivial = blocked in (0, live)
+    log("kernel-occlude" if kernel == "walk_occluded" else "kernel",
+        kernel=kernel, cls=cls, rays=rays8.shape[0],
+        bundles=cand_count.shape[0],
+        bundle_size=rays8.shape[0] // cand_count.shape[0], group=group,
+        cand_mean=f"{cand_count.float().mean().item():.2f}",
+        cand_max=int(cand_count.max()), **outcome, mismatches=mismatches,
+        kernel_ms=f"{ms:.3f}", plain_ms=f"{plain_ms:.3f}",
+        bound_ms=f"{bound['bound_ms']:.4f}", bound_by=bound["bound_by"],
+        steps=bound["steps"], clusters_walked=bound["clusters_walked"],
+        triangles_walked=bound["triangles_walked"],
+        mbytes=f"{bound['bytes'] / 1e6:.2f}",
+        gops=f"{bound['ops'] / 1e9:.3f}",
+        staged_mbytes=f"{bound['staged_bytes'] / 1e6:.2f}")
+    if mismatches:
+        raise RuntimeError(f"{kernel} ({cls}): kernel and plain version "
+                           f"disagree on {mismatches} of {rays8.shape[0]} "
+                           "rays")
+    if trivial:
+        raise RuntimeError(f"{kernel} ({cls}): the batch hits nothing or "
+                           "everything, it tests nothing")
+    return {"ms": ms, "plain_ms": plain_ms, "mismatches": mismatches,
+            "max_abs_err": int((got.long() - want.long()).abs().max()),
+            **bound}
+
+
+def _totals(classes: dict) -> dict:
+    out = {k: sum(c[k] for c in classes.values())
+           for k in ("ms", "plain_ms", "bound_ms", "mismatches")}
+    out["max_abs_err"] = max(c["max_abs_err"] for c in classes.values())
+    by_bytes = sum(c["bound_ms"] for c in classes.values()
+                   if c["bound_by"] == "bytes")
+    out["bound_by"] = ("bytes" if by_bytes >= out["bound_ms"] - by_bytes
+                       else "operations")
+    out["classes"] = classes
+    return out
+
+
 def phase_kernel(renderer, batches) -> dict:
     tracers = renderer.tracers
-    out = {"ms": 0.0, "plain_ms": 0.0, "max_abs_err": 0, "classes": {}}
+    real = lane_real(tracers)
+    classes = {}
     for cls, (presorted, o, d, tn, tx) in batches.items():
-        args, group, prep = _prep(tracers, presorted, o, d, tn, tx)
-        code = ct.walk_closest(*args, group=group)
-        want = ct.walk_closest_reference(*args, group=group)
-        torch.cuda.synchronize()
-        mismatches = int((code != want).sum())
-        err = int((code.long() - want.long()).abs().max())
-        ms = _median_ms(lambda: ct.walk_closest(*args, group=group))
-        plain_ms = _median_ms(
-            lambda: ct.walk_closest_reference(*args, group=group))
-        hits = int((code != ct.MISS_CODE).sum())
-        log("kernel", cls=cls, rays=o.shape[0], bundles=args[3].shape[0],
-            bundle_size=args[0].shape[0] // args[3].shape[0], group=group,
-            cand_mean=f"{args[3].float().mean().item():.2f}",
-            cand_max=int(args[3].max()),
-            overflowed_bundles=int(prep.overflowed.sum()), hits=hits,
-            mismatches=mismatches, kernel_ms=f"{ms:.3f}",
-            plain_ms=f"{plain_ms:.3f}")
-        if mismatches:
-            raise RuntimeError(f"{cls}: kernel and plain version disagree "
-                               f"on {mismatches} winner codes")
-        if hits == 0:
-            raise RuntimeError(f"{cls}: the batch hit nothing")
-        out["ms"] += ms
-        out["plain_ms"] += plain_ms
-        out["max_abs_err"] = max(out["max_abs_err"], err)
-        out["classes"][cls] = {"ms": ms, "plain_ms": plain_ms,
-                               "mismatches": mismatches}
-    return out
+        args, group, _ = _prep(tracers, presorted, o, d, tn, tx)
+        classes[cls] = check_walk("walk_closest", cls, args, group, real)
+    return classes
 
 
 def phase_oracle(scene, renderer, batches) -> None:
@@ -213,7 +350,7 @@ def phase_oracle(scene, renderer, batches) -> None:
             scene.tri_geometry, scene.tri_primitive, tn[sl], tx[sl])
         differ = got.triangle_index != ref.triangle_index
         tie = differ & (got.missed == ref.missed) & (
-            (got.t - ref.t).abs() <= 1e-5 * ref.t.abs())
+            (got.t - ref.t).abs() <= TIE_REL * ref.t.abs())
         bad = int((differ & ~tie).sum())
         log("oracle", cls=cls, rays=ORACLE_RAYS,
             hits=int((~ref.missed).sum()), same_triangle=int((~differ).sum()),
@@ -221,6 +358,91 @@ def phase_oracle(scene, renderer, batches) -> None:
         if bad:
             raise RuntimeError(f"{cls}: {bad} hits disagree with the "
                                "brute-force oracle beyond t-ties")
+
+
+class _Patch:
+    """Replaces a callable attribute with hook(original, *args, **kwargs);
+    restore() puts the original back. Other attributes (a walk's launch
+    count) read and write through to the original."""
+
+    _OWN = ("owner", "attr", "hook", "inner")
+
+    def __init__(self, owner, attr: str, hook):
+        self.owner, self.attr, self.hook = owner, attr, hook
+        self.inner = getattr(owner, attr)
+        setattr(owner, attr, self)
+
+    def __getattr__(self, name):
+        return getattr(self.inner, name)
+
+    def __setattr__(self, name, value):
+        if name in self._OWN:
+            object.__setattr__(self, name, value)
+        else:
+            setattr(self.inner, name, value)
+
+    def __call__(self, *args, **kwargs):
+        return self.hook(self.inner, *args, **kwargs)
+
+    def restore(self) -> None:
+        setattr(self.owner, self.attr, self.inner)
+
+
+class TraceLog:
+    """Hooks the tracers' two queries and the two walks for the DI frames.
+    It counts the visibility rays (the "shadow" class) and how many are
+    blocked. While `keep` is set it keeps, by class, a copy of the inputs
+    of each trace call's first walk launch (the main path's own batch, not
+    a fallback re-trace) and ORACLE_RAYS visibility rays from the middle of
+    the screen. It launches nothing itself."""
+
+    CLASSES = ("di_gbuffer", "di_brdf_candidate", "di_visibility")
+
+    def __init__(self, tracers):
+        self.keep = False
+        self.walks = {}  # class -> (walk name, args, group)
+        self.oracle_rays = None
+        self.rays = self.blocked = 0
+        self._cls = None
+        self.patches = [_Patch(tracers, "closest_hit", self._closest),
+                        _Patch(tracers, "occluded", self._occluded),
+                        _Patch(ct, "walk_closest", self._walk),
+                        _Patch(ct, "walk_occluded", self._walk)]
+
+    def _traced(self, cls, inner, *args, **kwargs):
+        self._cls = cls
+        try:
+            return inner(*args, **kwargs)
+        finally:
+            self._cls = None
+
+    def _closest(self, inner, o, d, t_min, t_max, presorted=False):
+        return self._traced(
+            "di_gbuffer" if presorted else "di_brdf_candidate", inner, o, d,
+            t_min, t_max, presorted=presorted)
+
+    def _occluded(self, inner, o, d, t_min, t_max, presorted=False):
+        shadow = presorted == "shadow"
+        blocked = self._traced("di_visibility" if shadow else None, inner, o,
+                               d, t_min, t_max, presorted=presorted)
+        if shadow:
+            self.rays += blocked.numel()
+            self.blocked += int(blocked.sum())
+            if self.keep and self.oracle_rays is None:
+                s = (blocked.numel() - ORACLE_RAYS) // 2 // 128 * 128
+                self.oracle_rays = tuple(
+                    x[s:s + ORACLE_RAYS].clone() for x in (o, d, t_min, t_max))
+        return blocked
+
+    def _walk(self, inner, *args, **kwargs):
+        # the trace path passes the walk's six arguments positionally
+        if self.keep and self._cls is not None and self._cls not in self.walks:
+            self.walks[self._cls] = (inner.__name__, tuple(
+                a.clone() for a in args[:5]), args[5])
+        return inner(*args, **kwargs)
+
+    def share(self) -> float:
+        return self.blocked / max(self.rays, 1)
 
 
 def _check_image(name, img, display: bool) -> None:
@@ -235,65 +457,305 @@ def _check_image(name, img, display: bool) -> None:
         raise RuntimeError(f"{name}: the display image is all black")
 
 
-def phase_frames(scene, renderer, g) -> int:
-    tracers = renderer.tracers
-    ct.walk_closest.launches = 0
-    tracers.fallback_bundles = 0
+def phase_capture(scene, renderer, g_di, trace_log: TraceLog) -> None:
+    """One DI frame that keeps its walks' inputs and the oracle's rays. It
+    also warms the path up."""
+    trace_log.keep = True
     state = fr.init_frame_state(WIDTH, HEIGHT, device=scene.device)
-    spp, bounces = 12, 5  # render_frame's reference defaults
-    for f in range(2):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        state, img = fr.render_frame(renderer, g.replace(frame=f), state)
-        torch.cuda.synchronize()
-        sec = time.perf_counter() - t0
-        log("render_frame", frame=f, spp=spp, bounces=bounces,
-            seconds=f"{sec:.3f}",
-            nominal_mrays_per_s=f"{WIDTH * HEIGHT * spp * bounces / sec / 1e6:.3f}",
-            walk_launches=ct.walk_closest.launches,
-            fallback_bundles=tracers.fallback_bundles)
-        _check_image("render_frame display", img, display=True)
-    _check_image("diffuse_lighting", state.diffuse_lighting, display=False)
+    t0 = time.perf_counter()
+    fr.render_frame(renderer, g_di.replace(frame=0, blend_factor=1.0), state)
+    torch.cuda.synchronize()
+    trace_log.keep = False
+    missing = set(TraceLog.CLASSES) - set(trace_log.walks)
+    if missing or trace_log.oracle_rays is None:
+        raise RuntimeError(f"the DI frame launched no walk for {missing}")
+    log("capture", seconds=f"{time.perf_counter() - t0:.3f}",
+        visibility_rays=trace_log.rays,
+        blocked_share=f"{trace_log.share():.4f}",
+        kept=json.dumps({k: v[1][0].shape[0]
+                         for k, v in trace_log.walks.items()},
+                        separators=(",", ":")))
 
-    spp, bounces = 8, 5  # bench.py's ladder reference cell
+
+def phase_kernel_di(renderer, trace_log: TraceLog) -> dict:
+    """Each walk on the inputs the DI frame gave it, against its plain
+    version: {kernel: {class: result}}."""
+    real = lane_real(renderer.tracers)
+    out = {"walk_closest": {}, "walk_occluded": {}}
+    for cls, (kernel, args, group) in sorted(trace_log.walks.items()):
+        out[kernel][cls] = check_walk(kernel, cls, args, group, real)
+    return out
+
+
+def _blocked_with_slack(scene, wald, o, d, tn, tx, s_edge: int, s_min: int,
+                        s_max: int) -> torch.Tensor:
+    """Moller-Trumbore any-hit of a few rays against every triangle, with
+    the triangle edges and the two segment ends each moved by the Wald
+    test's float32 rounding bound for that ray and triangle, outwards (+1)
+    or inwards (-1). wald: [T, 12] Wald coefficients per triangle."""
+    _, t, u, v = moller_trumbore(
+        o[:, None], d[:, None], scene.tri_v0[None], scene.tri_edge1[None],
+        scene.tri_edge2[None], -torch.inf, torch.inf)
+    ok = torch.isfinite(t) & (t != 0.0)
+    # |terms| of o'_c = W_c . (o, 1) and d'_c = W_c . d, c in (u, v, z)
+    aw, ao, ad = wald.abs()[None], o.abs()[:, None], d.abs()[:, None]
+    so = [ao[..., 0] * aw[..., c] + ao[..., 1] * aw[..., c + 3]
+          + ao[..., 2] * aw[..., c + 6] + aw[..., c + 9] for c in range(3)]
+    sd = [ad[..., 0] * aw[..., c] + ad[..., 1] * aw[..., c + 3]
+          + ad[..., 2] * aw[..., c + 6] for c in range(3)]
+    dz = (d[:, None, 0] * wald[None, :, 2] + d[:, None, 1] * wald[None, :, 5]
+          + d[:, None, 2] * wald[None, :, 8]).abs()
+    # t = -o'_z / d'_z: the rounding of o'_z, and that of d'_z times |t|
+    err_t = (WALD_ROUNDING * (so[2] + t.abs() * sd[2])
+             / torch.clamp_min(dz, 1e-30))
+    err_b = WALD_ROUNDING * (so[0] + so[1] + t.abs() * (sd[0] + sd[1]))
+    inside = ((u >= -s_edge * err_b) & (v >= -s_edge * err_b)
+              & (u + v <= 1.0 + s_edge * err_b))
+    seg = (t > tn[:, None] - s_min * err_t) & (t < tx[:, None] + s_max * err_t)
+    return (ok & inside & seg).any(dim=1)
+
+
+def phase_oracle_occlude(scene, renderer, batch) -> None:
+    """occluded_bundle against the brute-force any-hit oracle. A ray on
+    which they differ is a tie when the walk's answer lies between the
+    oracle's answers with every triangle edge and segment end moved
+    inwards and with every one moved outwards by the float32 rounding
+    bound of the walk's Wald test (large for a small triangle far from the
+    origin): blocked only if some such move blocks it, clear only if some
+    such move clears it. Anything else disagrees."""
+    o, d, tn, tx = batch
+    got = renderer.tracers.occluded(o, d, tn, tx, presorted="shadow")
+    ref = occluded_brute_force(o, d, scene.tri_v0, scene.tri_edge1,
+                               scene.tri_edge2, tn, tx)
+    differ = torch.nonzero(got != ref).reshape(-1)
+    meta = renderer.tracers.tables.meta_rows
+    real = meta[:, 12] >= 0
+    wald = torch.empty((scene.num_triangles, 12), device=o.device)
+    wald[meta[real, 12].long()] = meta[real, :12].contiguous().view(
+        torch.float32)
+    r = tuple(x[differ] for x in (o, d, tn, tx))
+    strict = _blocked_with_slack(scene, wald, *r, -1, -1, -1)
+    loose = _blocked_with_slack(scene, wald, *r, 1, 1, 1)
+    tied = torch.where(got[differ], loose, ~strict)
+    # which single bound, moved outwards, flips the oracle on a tie
+    ties = {name: int((tied & (_blocked_with_slack(scene, wald, *r, *signs)
+                               != strict)).sum())
+            for name, signs in (("t_max", (-1, -1, 1)), ("t_min", (-1, 1, -1)),
+                                ("edge", (1, -1, -1)))}
+    # rays from a sky pixel's surface at the background depth start
+    # outside the scene; their segments end within float32 rounding of
+    # the light sample, far below the segment's length
+    tr = renderer.tracers
+    outside = ((r[0] < tr.scene_min) | (r[0] > tr.scene_max)).any(dim=-1)
+    bad = int((~tied).sum())
+    live = int((tx > tn).sum())
+    log("oracle-occlude", cls="shadow", rays=ORACLE_RAYS, live_rays=live,
+        blocked=int(ref.sum()), same=ORACLE_RAYS - differ.numel(),
+        ties=int(tied.sum()), **{f"{k}_ties": v for k, v in ties.items()},
+        ties_from_outside_scene=int((tied & outside).sum()), disagree=bad)
+    if bad:
+        raise RuntimeError(f"{bad} visibility rays disagree with the "
+                           "brute-force oracle beyond ties")
+
+
+def _reset_counts(tracers) -> None:
+    ct.walk_closest.launches = 0
+    ct.walk_occluded.launches = 0
+    tracers.fallback_by_class.clear()
+
+
+def phase_di_frames(scene, renderer, g_di, trace_log: TraceLog) -> dict:
+    """Two DI frames from a fresh state (blend_factor 1/(f+1), as
+    bench.py's DI loop); every count is reset just before them."""
+    tracers = renderer.tracers
+    state = fr.init_frame_state(WIDTH, HEIGHT, device=scene.device)
+    _reset_counts(tracers)
     for f in range(2):
+        trace_log.rays = trace_log.blocked = 0
         torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
         t0 = time.perf_counter()
-        img, live = render_reference(
-            scene, g.replace(frame=f + 1), WIDTH, HEIGHT,
-            max_bounces=bounces, max_samples=spp,
-            trace_fn=tracers.closest_hit, with_ray_count=True)
+        state, img = fr.render_frame(
+            renderer, g_di.replace(frame=f, blend_factor=1.0 / (f + 1)),
+            state)
         torch.cuda.synchronize()
         sec = time.perf_counter() - t0
-        log("render_reference", frame=f + 1, spp=spp, bounces=bounces,
-            seconds=f"{sec:.3f}",
-            nominal_mrays_per_s=f"{WIDTH * HEIGHT * spp * bounces / sec / 1e6:.3f}",
-            live_rays=live, walk_launches=ct.walk_closest.launches,
-            fallback_bundles=tracers.fallback_bundles)
-        _check_image("render_reference radiance", img, display=False)
-    launches = ct.walk_closest.launches
-    if launches <= 0:
-        raise RuntimeError("the main path never launched the walk kernel")
+        log("di-frame", frame=f, seconds=f"{sec:.3f}",
+            walk_closest_launches=ct.walk_closest.launches,
+            walk_occluded_launches=ct.walk_occluded.launches,
+            fallback_bundles=json.dumps(
+                {str(k): v for k, v in tracers.fallback_by_class.items()},
+                separators=(",", ":")),
+            visibility_rays=trace_log.rays,
+            blocked_share=f"{trace_log.share():.4f}",
+            peak_gib=f"{torch.cuda.max_memory_allocated() / 2**30:.2f}")
+        _check_image("di display", img, display=True)
+    _check_image("di diffuse_lighting", state.diffuse_lighting, display=False)
+    _check_image("di specular_lighting", state.specular_lighting,
+                 display=False)
+    launches = {"walk_closest": ct.walk_closest.launches,
+                "walk_occluded": ct.walk_occluded.launches}
+    for name, n in launches.items():
+        if n <= 0:
+            raise RuntimeError(f"the DI frames never launched {name}")
     return launches
 
 
+def _timed(spent: dict, key):
+    """A _Patch hook that synchronises the card around each call and adds
+    its wall time to spent[key(kwargs)]."""
+    def hook(inner, *args, **kwargs):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = inner(*args, **kwargs)
+        torch.cuda.synchronize()
+        k = key(kwargs)
+        spent[k] = spent.get(k, 0.0) + time.perf_counter() - t0
+        return out
+    return hook
+
+
+def _busy_ms(events) -> float:
+    """Length of the union of the card's kernel intervals, in ms."""
+    spans = sorted((e.time_range.start, e.time_range.end) for e in events
+                   if e.device_type == torch.autograd.DeviceType.CUDA)
+    busy, end = 0.0, -float("inf")
+    for a, b in spans:
+        if b > end:
+            busy += b - max(a, end)
+            end = b
+    return busy / 1e3
+
+
+def phase_di_breakdown(scene, renderer, g_di) -> None:
+    """Where a DI frame's time goes, from two more frames after the
+    counted ones: one with every trace call and walk launch synchronised
+    and timed (so a little slower than the frames above), and one under
+    torch.profiler for the card's busy and idle shares."""
+    tracers = renderer.tracers
+    g = g_di.replace(frame=2, blend_factor=1.0 / 3)
+    state = fr.init_frame_state(WIDTH, HEIGHT, device=scene.device)
+    spent = {}
+    wraps = [
+        _Patch(tracers, "closest_hit", _timed(
+            spent, lambda kw: "gbuffer_trace" if kw.get("presorted")
+            else "brdf_candidate_trace")),
+        _Patch(tracers, "occluded", _timed(
+            spent, lambda kw: "visibility_trace")),
+        _Patch(ct, "walk_closest", _timed(spent, lambda kw: "walk_closest")),
+        _Patch(ct, "walk_occluded", _timed(
+            spent, lambda kw: "walk_occluded")),
+    ]
+    try:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fr.render_frame(renderer, g, state)
+        torch.cuda.synchronize()
+        frame_s = time.perf_counter() - t0
+    finally:
+        for w in reversed(wraps):
+            w.restore()
+    traces = sum(v for k, v in spent.items() if k.endswith("_trace"))
+    log("di-breakdown", frame_ms=f"{frame_s * 1e3:.1f}",
+        **{f"{k}_ms": f"{v * 1e3:.1f}" for k, v in sorted(spent.items())},
+        other_ms=f"{(frame_s - traces) * 1e3:.1f}")
+
+    activities = [torch.profiler.ProfilerActivity.CPU,
+                  torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=activities) as prof:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fr.render_frame(renderer, g, state)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    events = prof.events()
+    busy = _busy_ms(events)
+    kernels = sum(1 for e in events
+                  if e.device_type == torch.autograd.DeviceType.CUDA)
+    log("di-profile", wall_ms=f"{wall_ms:.1f}", busy_ms=f"{busy:.1f}",
+        idle_share=f"{1.0 - busy / wall_ms:.4f}", kernels=kernels)
+
+
+def phase_frames(scene, renderer, g) -> int:
+    """One reference-mode render_frame (12 spp, 5 bounces, its defaults)
+    and one render_reference frame at bench's ladder cell (8 spp)."""
+    tracers = renderer.tracers
+    state = fr.init_frame_state(WIDTH, HEIGHT, device=scene.device)
+    _reset_counts(tracers)
+    runs = (("render_frame", 12), ("render_reference", 8))
+    for name, spp in runs:
+        bounces = 5
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        if name == "render_frame":
+            state, img = fr.render_frame(renderer, g.replace(frame=0), state)
+            live = None
+        else:
+            img, live = render_reference(
+                scene, g.replace(frame=1), WIDTH, HEIGHT,
+                max_bounces=bounces, max_samples=spp,
+                trace_fn=tracers.closest_hit, with_ray_count=True)
+        torch.cuda.synchronize()
+        sec = time.perf_counter() - t0
+        log(name, spp=spp, bounces=bounces, seconds=f"{sec:.3f}",
+            nominal_mrays_per_s=f"{WIDTH * HEIGHT * spp * bounces / sec / 1e6:.3f}",
+            live_rays=live, walk_launches=ct.walk_closest.launches,
+            fallback_bundles=tracers.fallback_bundles,
+            peak_gib=f"{torch.cuda.max_memory_allocated() / 2**30:.2f}")
+        _check_image(f"{name} output", img, display=name == "render_frame")
+    launches = ct.walk_closest.launches
+    if launches <= 0:
+        raise RuntimeError("the reference path never launched the walk")
+    return launches
+
+
+def kernel_entry(name: str, classes: dict, launches: int,
+                 by_path: dict) -> dict:
+    t = _totals(classes)
+    return {"name": name, "route": "cuda", **KERNELS[name],
+            "launches": launches, "launches_by_path": by_path,
+            "max_abs_err": t["max_abs_err"], "mismatches": t["mismatches"],
+            "ms": t["ms"], "plain_ms": t["plain_ms"],
+            "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
+            # no single PyTorch call computes a bundle walk
+            "library_ms": None, "classes": t["classes"]}
+
+
 def main() -> None:
-    dev = phase_device()
+    dev, smi = phase_device()
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     phase_build()
-    scene, renderer, g = phase_scene(dev)
-    batches = main_path_batches(scene, renderer, g)
-    kernel = phase_kernel(renderer, batches)
+    scene, renderer, view = phase_scene(dev)
+    g_ref, g_di = reference_gconst(scene, view), di_gconst(scene, view)
+
+    batches = main_path_batches(scene, renderer, g_ref)
+    classes = {"walk_closest": phase_kernel(renderer, batches)}
     phase_oracle(scene, renderer, batches)
-    launches = phase_frames(scene, renderer, g)
-    log("memory", peak_gib=f"{torch.cuda.max_memory_allocated() / 2**30:.2f}")
-    print(json.dumps({"kernels": [{
-        "name": "walk_closest", "route": "cuda", "source": KERNEL_SOURCE,
-        "replaces": REPLACES, "launches": launches,
-        "max_abs_err": kernel["max_abs_err"], "ms": kernel["ms"],
-        "plain_ms": kernel["plain_ms"], "classes": kernel["classes"]}]}),
-        flush=True)
+    del batches
+
+    trace_log = TraceLog(renderer.tracers)
+    phase_capture(scene, renderer, g_di, trace_log)
+    for kernel, by_cls in phase_kernel_di(renderer, trace_log).items():
+        classes.setdefault(kernel, {}).update(by_cls)
+    phase_oracle_occlude(scene, renderer, trace_log.oracle_rays)
+    trace_log.walks.clear()
+    trace_log.oracle_rays = None
+    di_launches = phase_di_frames(scene, renderer, g_di, trace_log)
+    phase_di_breakdown(scene, renderer, g_di)
+    ref_launches = phase_frames(scene, renderer, g_ref)
+
+    print(smi, flush=True)
+    print(json.dumps({"kernels": [
+        kernel_entry("walk_closest", classes["walk_closest"],
+                     di_launches["walk_closest"],
+                     {"di_frames": di_launches["walk_closest"],
+                      "reference_frames": ref_launches}),
+        kernel_entry("walk_occluded", classes["walk_occluded"],
+                     di_launches["walk_occluded"],
+                     {"di_frames": di_launches["walk_occluded"]}),
+    ]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

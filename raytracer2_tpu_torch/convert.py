@@ -14,9 +14,13 @@ from typing import Mapping
 import numpy as np
 import torch
 
+from raytracer2_tpu_torch.lights.polymorphic import LightInfo
+from raytracer2_tpu_torch.lights.prepare import SceneLights
 from raytracer2_tpu_torch.ops.cluster import Clusters, clusters_from_arrays
 from raytracer2_tpu_torch.ops.intersect import HitRecord
 from raytracer2_tpu_torch.params import GConst, PlanarViewConstants
+from raytracer2_tpu_torch.render.gbuffer import GBuffer
+from raytracer2_tpu_torch.restir.di_reservoir import DIReservoir
 from raytracer2_tpu_torch.scene.scene import Scene, scene_from_arrays
 
 
@@ -57,6 +61,52 @@ def hit_record_from_numpy(arrays: Mapping, *, device) -> HitRecord:
         geometry_index=dev("geometry_index", np.int64),
         primitive_id=dev("primitive_id", np.int64),
         triangle_index=dev("triangle_index", np.int32))
+
+
+def tensor_from_numpy(a, *, device) -> torch.Tensor:
+    """One array as a tensor: uint32 becomes int64 holding the same values
+    (the port's uint32 convention), other types keep theirs."""
+    a = np.asarray(a)
+    if a.dtype == np.uint32:
+        a = a.astype(np.int64)
+    return torch.from_numpy(np.array(a)).to(device)
+
+
+def _tuple_from(cls, arrays: Mapping, device):
+    return cls(*(tensor_from_numpy(arrays[f], device=device)
+                 for f in cls._fields))
+
+
+def gbuffer_from_numpy(arrays: Mapping, *, device) -> GBuffer:
+    """GBuffer from the JAX GBuffer's fields."""
+    return _tuple_from(GBuffer, arrays, device)
+
+
+def di_reservoir_from_numpy(arrays: Mapping, *, device) -> DIReservoir:
+    """DIReservoir from the JAX DIReservoir's fields."""
+    return _tuple_from(DIReservoir, arrays, device)
+
+
+def scene_lights_from_numpy(arrays: Mapping, *, device) -> SceneLights:
+    """SceneLights from the JAX SceneLights' fields: `lights` a mapping of
+    LightInfo fields, the pdf mips as sequences of arrays (env None when
+    the scene has no environment pdf)."""
+    def mips(m):
+        return None if m is None else tuple(
+            tensor_from_numpy(a, device=device) for a in m)
+
+    return SceneLights(
+        lights=_tuple_from(LightInfo, arrays["lights"], device),
+        geometry_to_light=tensor_from_numpy(arrays["geometry_to_light"],
+                                            device=device),
+        num_local_lights=int(arrays["num_local_lights"]),
+        local_pdf_mips=mips(arrays["local_pdf_mips"]),
+        env_pdf_mips=mips(arrays["env_pdf_mips"]))
+
+
+def ris_buffer_from_numpy(a, *, device) -> torch.Tensor:
+    """The RIS tile buffer, [S, 2] uint32 words, as int64."""
+    return tensor_from_numpy(a, device=device)
 
 
 def _view(arrays: Mapping | None) -> PlanarViewConstants | None:

@@ -2,9 +2,9 @@
 
 `nvcc` compiles the `.cu` sources under raytracer2_tpu_torch/csrc (and
 nothing else) into one shared library with a plain C interface, at first
-use, into build/kernels/ at the repository root. The output name carries a
-hash of the sources and flags, so an edited kernel never loads a stale
-library. The library is loaded with ctypes; every pointer argument is
+use, into build/kernels/ at the repository root: one `nvcc -c` per source,
+all started together, then one link. The output name carries a hash of the
+sources and flags, so an edited kernel never loads a stale library. The library is loaded with ctypes; every pointer argument is
 declared c_void_p (an undeclared pointer would be cut to 32 bits).
 
 --fmad=false keeps every multiply and add separately rounded, in the order
@@ -27,9 +27,9 @@ from pathlib import Path
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent.parent.parent / "build" / "kernels"
 
-NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-O3",
-              "--fmad=false", "-std=c++17", "-shared", "-Xcompiler", "-fPIC",
-              "-Xptxas", "-v")
+ARCH = ("-gencode", "arch=compute_90a,code=sm_90a")
+NVCC_FLAGS = (*ARCH, "-O3", "--fmad=false", "-std=c++17", "-Xcompiler",
+              "-fPIC", "-Xptxas", "-v")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -64,16 +64,36 @@ def build() -> Build:
     if out.exists():
         return Build(out, 0.0, "")
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *map(str, sources)]
+    nvcc = _nvcc()
+    tag = f"{digest.hexdigest()[:16]}.{os.getpid()}"
+    objs = [BUILD_DIR / f"{src.stem}_{tag}.o" for src in sources]
     t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True)
+    procs = [subprocess.Popen([nvcc, *NVCC_FLAGS, "-c", "-o", str(obj),
+                               str(src)], stdout=subprocess.PIPE,
+                              stderr=subprocess.PIPE, text=True)
+             for src, obj in zip(sources, objs)]
+    logs, failed = [], []
+    for src, proc in zip(sources, procs):
+        _, err = proc.communicate()
+        logs.append(err)
+        if proc.returncode != 0:
+            failed.append(f"{src.name} ({proc.returncode}):\n{err}")
+    tmp = out.with_suffix(f".{os.getpid()}.tmp")
+    try:
+        if failed:
+            raise RuntimeError("nvcc failed: " + "\n".join(failed))
+        link = subprocess.run([nvcc, *ARCH, "-shared", "-o", str(tmp),
+                               *map(str, objs)], capture_output=True,
+                              text=True)
+        if link.returncode != 0:
+            raise RuntimeError(f"nvcc link failed ({link.returncode}):\n"
+                               f"{link.stderr}")
+    finally:
+        for obj in objs:
+            obj.unlink(missing_ok=True)
     seconds = time.perf_counter() - t0
-    if proc.returncode != 0:
-        raise RuntimeError(
-            f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n{proc.stderr}")
     tmp.replace(out)
-    return Build(out, seconds, proc.stderr)
+    return Build(out, seconds, "".join(logs))
 
 
 @functools.cache
@@ -81,12 +101,14 @@ def library() -> ctypes.CDLL:
     """The loaded kernel library with every entry point's signature set."""
     lib = ctypes.CDLL(str(build().path))
     vp, ci = ctypes.c_void_p, ctypes.c_int
-    lib.rt2_walk_closest.restype = ci
-    lib.rt2_walk_closest.argtypes = [
-        vp, vp, vp, vp, vp, vp,  # rays8, cand_idx, cand_t, cand_count, wald, out
-        ci, ci, ci, ci, ci,  # n_bundles, p, k, s_pad, group
-        vp,  # stream
-    ]
+    for walk in (lib.rt2_walk_closest, lib.rt2_walk_occluded):
+        walk.restype = ci
+        walk.argtypes = [
+            vp, vp, vp, vp, vp, vp,  # rays8, cand_idx, cand_t, cand_count,
+            #                          wald, out
+            ci, ci, ci, ci, ci,  # n_bundles, p, k, s_pad, group
+            vp,  # stream
+        ]
     lib.rt2_error_string.restype = ctypes.c_char_p
     lib.rt2_error_string.argtypes = [ci]
     return lib

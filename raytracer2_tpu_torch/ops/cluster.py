@@ -1,10 +1,10 @@
 """Triangle clusters + unit-triangle-space (Wald) transforms, port of the
 part of raytracer2_tpu/ops/cluster.py the closest-hit walk needs.
 
-Triangles are grouped into fixed-size clusters with AABBs (by the shared
-native binned-SAH builder, raytracer2_tpu/ops/native.py, or a Morton
-fallback) and each triangle gets the affine map W = [A | b] that carries
-world space into its unit space. For a ray (o, d):
+Triangles are grouped into fixed-size clusters with AABBs (by the native
+binned-SAH builder, ops/native.py, or a Morton fallback) and each triangle
+gets the affine map W = [A | b] that carries world space into its unit
+space. For a ray (o, d):
 
     o' = A @ o + b        d' = A @ d
     t  = -o'_z / d'_z     u = o'_x + t * d'_x     v = o'_y + t * d'_y
@@ -90,7 +90,7 @@ def cluster_arrays(tri_v0, tri_edge1, tri_edge2, cluster_size: int = 64
                    ) -> dict:
     """The host build as numpy arrays: the native binned-SAH builder when
     its library loads, else a Morton order in numpy
-    (raytracer2_tpu.ops.native.available() says which ran)."""
+    (ops.native.available() says which ran)."""
     v0 = np.asarray(tri_v0, np.float64)
     e1 = np.asarray(tri_edge1, np.float64)
     e2 = np.asarray(tri_edge2, np.float64)
@@ -104,7 +104,7 @@ def cluster_arrays(tri_v0, tri_edge1, tri_edge2, cluster_size: int = 64
 
     ranges = None
     if t > 0:
-        from raytracer2_tpu.ops import native
+        from raytracer2_tpu_torch.ops import native
 
         sah = native.build_sah_clusters(
             v0.astype(np.float32), e1.astype(np.float32),

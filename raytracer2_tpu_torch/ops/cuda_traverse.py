@@ -1,9 +1,10 @@
-"""Closest-hit traversal through the hand-written CUDA bundle walk.
+"""Closest-hit and any-hit traversal through the hand-written CUDA walks.
 
 Port of the host side of raytracer2_tpu/ops/pallas_traverse.py
-(closest_hit_bundle_pallas) for the two ray classes the reference frame
-traces, plus the wrapper of the kernel that replaces its Pallas walk
-(csrc/bundle_walk.cu) and that kernel's plain torch version.
+(closest_hit_bundle_pallas, occluded_bundle_pallas) for the ray classes
+the frame traces, plus the wrappers of the kernels that replace its Pallas
+walks (csrc/bundle_walk.cu, csrc/bundle_occlude.cu) and those kernels'
+plain torch versions.
 
 - Pixel tiles (presorted=True, cull="interval"): rays arrive in screen
   Z-order; each bundle's candidates come from the conservative interval
@@ -13,6 +14,8 @@ traces, plus the wrapper of the kernel that replaces its Pallas walk
   are sorted by the cand0 key (nearest overlapped cluster | t_max bucket |
   octant | origin Morton), and each bundle's candidate list is the union
   of its rays' overlaps, ranked nearest first.
+- Visibility rays (any hit, presorted in pixel Z-order, cull="exact"):
+  the exact cull without the sort; each ray stops at its first hit.
 
 Ranking uses a stable argsort and keeps the first k: jax.lax.top_k breaks
 ties by lower index and jnp.argsort is stable, so the candidate order
@@ -49,6 +52,7 @@ CULL_CHUNK_BYTES = 48 << 20  # bound on one [rays, C] f32 cull temporary (CPU)
 # elements of one [bundles, P, group*S_pad] temporary of the plain walk
 REFERENCE_CHUNK_ELEMS = {"cuda": 1 << 25, "cpu": 1 << 22}
 FALLBACK_BUNDLES = 32  # past this many overflowed bundles, re-trace the batch
+MAX_BUNDLE = 256  # rays per bundle a kernel takes (csrc/walk_common.cuh)
 
 
 # ---------------------------------------------------------------------------
@@ -143,6 +147,92 @@ def _check_walk_args(rays8, cand_idx, cand_t, cand_count, wald, group):
     return b, k, p, sp
 
 
+def _launch(entry, name, rays8, cand_idx, cand_t, cand_count, wald_rows,
+            b, p, k, sp, group):
+    """Launch one walk kernel of the library on the current stream and
+    return its [B*P] i32 output; raises if the launch is refused."""
+    if p > MAX_BUNDLE or p % 32:
+        raise ValueError(f"bundle size {p} must be a multiple of 32, "
+                         f"<= {MAX_BUNDLE}")
+    from raytracer2_tpu_torch.ops import _build
+
+    lib = _build.library()
+    out = torch.empty(b * p, dtype=torch.int32, device=rays8.device)
+    with torch.cuda.device(rays8.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = getattr(lib, entry)(
+            rays8.data_ptr(), cand_idx.data_ptr(), cand_t.data_ptr(),
+            cand_count.data_ptr(), wald_rows.data_ptr(), out.data_ptr(),
+            b, p, k, sp, group, ctypes.c_void_p(stream))
+    if err != 0:
+        raise RuntimeError(f"{name} launch failed: "
+                           f"{lib.rt2_error_string(err).decode()} ({err})")
+    return out
+
+
+class WalkWork(NamedTuple):
+    """What a walk does on given inputs, as its plain version counts it:
+    the steps each bundle takes and the (ray, triangle) Wald tests of all
+    of them. Only real triangles count: a cluster's padding lanes and the
+    group members past a bundle's candidates are left out, and a ray of
+    the any-hit walk counts the triangles of its last step only up to its
+    first hit, where the kernel stops it."""
+
+    steps: torch.Tensor  # [B] i64
+    ray_lanes: torch.Tensor  # i64 scalar
+
+
+def _new_work(b: int, dev) -> WalkWork:
+    return WalkWork(torch.zeros(b, dtype=torch.int64, device=dev),
+                    torch.zeros((), dtype=torch.int64, device=dev))
+
+
+def _chunk_bundles(dev, p: int, w: int) -> int:
+    """Bundles per chunk of a plain walk (REFERENCE_CHUNK_ELEMS bounds its
+    [bundles, P, group*S_pad] temporaries)."""
+    return max(1, REFERENCE_CHUNK_ELEMS[dev.type] // (p * w))
+
+
+def _step_rows(cand_idx, wald_rows, k0: int, group: int):
+    """Step k0 of each bundle: its `group` candidate clusters [nb, group]
+    (past the list: clamped, the caller masks them) and their Wald rows
+    [nb, 12, 1, group*S_pad], cluster g at lanes g*S_pad + lane."""
+    nb = cand_idx.shape[0]
+    ci = cand_idx[:, k0:k0 + group]
+    if ci.shape[1] < group:
+        ci = torch.nn.functional.pad(ci, (0, group - ci.shape[1]))
+    ci = torch.clamp(ci, 0, wald_rows.shape[0] - 1)
+    wr = (wald_rows[ci.long(), :12, :]  # [nb, group, 12, S_pad]
+          .permute(0, 2, 1, 3).reshape(nb, 12, 1, -1))
+    return ci, wr
+
+
+def _wald_test(r, wr):
+    """The Wald unit-triangle test of rays r [nb, P, 8] against rows wr
+    [nb, 12, 1, W]: (t, hit) [nb, P, W] with hit = |d'_z| > 1e-12, u >= 0,
+    v >= 0, u + v <= 1, t > t_min. The affines are unfused, in the order of
+    the kernels' csrc/walk_common.cuh, so the two agree bit for bit."""
+    ox, oy, oz, dx, dy, dz, tn = (r[..., i:i + 1] for i in range(7))
+    op_u = ox * wr[:, 0] + oy * wr[:, 3] + oz * wr[:, 6] + wr[:, 9]
+    op_v = ox * wr[:, 1] + oy * wr[:, 4] + oz * wr[:, 7] + wr[:, 10]
+    op_z = ox * wr[:, 2] + oy * wr[:, 5] + oz * wr[:, 8] + wr[:, 11]
+    dp_u = dx * wr[:, 0] + dy * wr[:, 3] + dz * wr[:, 6]
+    dp_v = dx * wr[:, 1] + dy * wr[:, 4] + dz * wr[:, 7]
+    dp_z = dx * wr[:, 2] + dy * wr[:, 5] + dz * wr[:, 8]
+    t = -op_z / dp_z
+    uu = op_u + t * dp_u
+    vv = op_v + t * dp_v
+    hit = ((torch.abs(dp_z) > 1e-12) & (uu >= 0.0) & (vv >= 0.0)
+           & (uu + vv <= 1.0) & (t > tn))
+    return t, hit
+
+
+def _real_lanes(lane_real, ci, live):
+    """[nb, W] bool: the step's lanes that hold a real triangle of a live
+    candidate. lane_real [C, S_pad] marks each cluster's real triangles."""
+    return lane_real[ci.long()].reshape(live.shape) & live
+
+
 def walk_closest(rays8, cand_idx, cand_t, cand_count, wald_rows, group):
     """Closest-hit bundle walk: winner code [B*P] i32 per ray (cluster *
     S_pad + slot, 0x7FFFFFFF on a miss). rays8 [B*P, 8] f32 rows (ox oy oz
@@ -160,21 +250,8 @@ def walk_closest(rays8, cand_idx, cand_t, cand_count, wald_rows, group):
     if rays8.device.type != "cuda":
         raise ValueError(f"walk_closest runs on cuda or cpu, "
                          f"not {rays8.device}")
-    if p > 1024 or p % 32:
-        raise ValueError(f"bundle size {p} must be a multiple of 32, <= 1024")
-    from raytracer2_tpu_torch.ops import _build
-
-    lib = _build.library()
-    out = torch.empty(b * p, dtype=torch.int32, device=rays8.device)
-    with torch.cuda.device(rays8.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        err = lib.rt2_walk_closest(
-            rays8.data_ptr(), cand_idx.data_ptr(), cand_t.data_ptr(),
-            cand_count.data_ptr(), wald_rows.data_ptr(), out.data_ptr(),
-            b, p, k, sp, group, ctypes.c_void_p(stream))
-    if err != 0:
-        raise RuntimeError(f"walk_closest launch failed: "
-                           f"{lib.rt2_error_string(err).decode()} ({err})")
+    out = _launch("rt2_walk_closest", "walk_closest", rays8, cand_idx,
+                  cand_t, cand_count, wald_rows, b, p, k, sp, group)
     walk_closest.launches += 1
     return out
 
@@ -183,26 +260,26 @@ walk_closest.launches = 0
 
 
 def walk_closest_reference(rays8, cand_idx, cand_t, cand_count, wald_rows,
-                           group):
+                           group, lane_real=None):
     """Plain torch version of the walk, batched over bundles: the same
     steps, predicates, packed keys, tie rule and early exit as the kernel,
     with the Wald affines in the same unfused order, so the two agree bit
-    for bit. REFERENCE_CHUNK_ELEMS bounds its temporaries."""
+    for bit. Given lane_real ([C, S_pad] bool, True on a real triangle's
+    lane), it also returns the WalkWork these inputs need."""
     b, k, p, sp = _check_walk_args(rays8, cand_idx, cand_t, cand_count,
                                    wald_rows, group)
     dev = rays8.device
     w = group * sp
-    bc = max(1, REFERENCE_CHUNK_ELEMS[dev.type] // (p * w))
+    bc = _chunk_bundles(dev, p, w)
     lane = torch.arange(w, device=dev)
     grp = lane // sp
     lane_in = lane % sp
-    last = wald_rows.shape[0] - 1
     out = torch.empty((b, p), dtype=torch.int32, device=dev)
+    work = _new_work(b, dev)
     rays = rays8.reshape(b, p, 8)
     for b0 in range(0, b, bc):
         r = rays[b0:b0 + bc]
         nb = r.shape[0]
-        ox, oy, oz, dx, dy, dz, tn = (r[..., i:i + 1] for i in range(7))
         best_key = (r[..., 7].view(torch.int32) & ~SLOT_MASK) | SLOT_MASK
         best_code = torch.full((nb, p), MISS_CODE, dtype=torch.int32,
                                device=dev)
@@ -213,24 +290,14 @@ def walk_closest_reference(rays8, cand_idx, cand_t, cand_count, wald_rows,
             alive &= (k0 < n) & (cand_t[b0:b0 + bc, k0] <= worst)
             if not bool(alive.any()):
                 break
-            ci = cand_idx[b0:b0 + bc, k0:k0 + group]
-            if ci.shape[1] < group:
-                ci = torch.nn.functional.pad(ci, (0, group - ci.shape[1]))
-            ci = torch.clamp(ci, 0, last)
-            wr = (wald_rows[ci.long(), :12, :]  # [nb, group, 12, S_pad]
-                  .permute(0, 2, 1, 3).reshape(nb, 12, 1, w))
-            op_u = ox * wr[:, 0] + oy * wr[:, 3] + oz * wr[:, 6] + wr[:, 9]
-            op_v = ox * wr[:, 1] + oy * wr[:, 4] + oz * wr[:, 7] + wr[:, 10]
-            op_z = ox * wr[:, 2] + oy * wr[:, 5] + oz * wr[:, 8] + wr[:, 11]
-            dp_u = dx * wr[:, 0] + dy * wr[:, 3] + dz * wr[:, 6]
-            dp_v = dx * wr[:, 1] + dy * wr[:, 4] + dz * wr[:, 7]
-            dp_z = dx * wr[:, 2] + dy * wr[:, 5] + dz * wr[:, 8]
-            t = -op_z / dp_z
-            uu = op_u + t * dp_u
-            vv = op_v + t * dp_v
+            ci, wr = _step_rows(cand_idx[b0:b0 + bc], wald_rows, k0, group)
+            t, hit = _wald_test(r, wr)
             live = (lane[None, :] < (n[:, None] - k0) * sp) & alive[:, None]
-            hit = ((torch.abs(dp_z) > 1e-12) & (uu >= 0.0) & (vv >= 0.0)
-                   & (uu + vv <= 1.0) & (t > tn) & live[:, None, :])
+            if lane_real is not None:
+                work.steps[b0:b0 + nb] += alive
+                work.ray_lanes.add_(
+                    p * _real_lanes(lane_real, ci, live).sum())
+            hit &= live[:, None, :]
             key = torch.where(
                 hit, (t.view(torch.int32) & ~SLOT_MASK) | lane.to(torch.int32),
                 NO_HIT_KEY)
@@ -242,7 +309,82 @@ def walk_closest_reference(rays8, cand_idx, cand_t, cand_count, wald_rows,
             best_code = torch.where(better, step_code.to(torch.int32),
                                     best_code)
         out[b0:b0 + nb] = best_code
-    return out.reshape(b * p)
+    out = out.reshape(b * p)
+    return out if lane_real is None else (out, work)
+
+
+def walk_occluded(rays8, cand_idx, cand_t, cand_count, wald_rows, group):
+    """Any-hit bundle walk: [B*P] i32 per ray, 1 where a triangle blocks
+    the open segment (t_min, t_max), else 0; rays with t_max <= t_min
+    (padding) report 0. Arguments as walk_closest's.
+
+    A CUDA tensor launches csrc/bundle_occlude.cu on the current stream
+    (and counts the launch in walk_occluded.launches); a CPU tensor runs
+    walk_occluded_reference. Anything else raises."""
+    b, k, p, sp = _check_walk_args(rays8, cand_idx, cand_t, cand_count,
+                                   wald_rows, group)
+    if rays8.device.type == "cpu":
+        return walk_occluded_reference(rays8, cand_idx, cand_t, cand_count,
+                                       wald_rows, group)
+    if rays8.device.type != "cuda":
+        raise ValueError(f"walk_occluded runs on cuda or cpu, "
+                         f"not {rays8.device}")
+    out = _launch("rt2_walk_occluded", "walk_occluded", rays8, cand_idx,
+                  cand_t, cand_count, wald_rows, b, p, k, sp, group)
+    walk_occluded.launches += 1
+    return out
+
+
+walk_occluded.launches = 0
+
+
+def walk_occluded_reference(rays8, cand_idx, cand_t, cand_count, wald_rows,
+                            group, lane_real=None):
+    """Plain torch version of the any-hit walk, batched over bundles: the
+    same steps, predicates and exits as the kernel (a ray is done at its
+    first hit; a bundle stops when every ray is done, its candidates run
+    out, or the next entry distance exceeds the largest t_max of its live
+    rays, NaN ending the walk), with the kernel's Wald test, so the two
+    agree bit for bit. Given lane_real, it also returns the WalkWork, as
+    walk_closest_reference does."""
+    b, k, p, sp = _check_walk_args(rays8, cand_idx, cand_t, cand_count,
+                                   wald_rows, group)
+    dev = rays8.device
+    w = group * sp
+    bc = _chunk_bundles(dev, p, w)
+    lane = torch.arange(w, device=dev)
+    out = torch.empty((b, p), dtype=torch.int32, device=dev)
+    work = _new_work(b, dev)
+    rays = rays8.reshape(b, p, 8)
+    for b0 in range(0, b, bc):
+        r = rays[b0:b0 + bc]
+        nb = r.shape[0]
+        done = (r[..., 7] <= r[..., 6])
+        n = cand_count[b0:b0 + bc]
+        alive = torch.ones(nb, dtype=torch.bool, device=dev)
+        for k0 in range(0, int(n.max()), group):
+            worst = torch.where(done, -torch.inf, r[..., 7]).amax(dim=1)
+            alive &= (k0 < n) & (cand_t[b0:b0 + bc, k0] <= worst)
+            if not bool(alive.any()):
+                break
+            ci, wr = _step_rows(cand_idx[b0:b0 + bc], wald_rows, k0, group)
+            t, hit = _wald_test(r, wr)
+            live = (lane[None, :] < (n[:, None] - k0) * sp) & alive[:, None]
+            hit &= (t < r[..., 7:8]) & live[:, None, :]
+            step_hit = hit.any(dim=-1)
+            if lane_real is not None:
+                # real triangles a testing ray tests: up to and including
+                # its first hit, else all of the step's
+                upto = _real_lanes(lane_real, ci, live).cumsum(dim=-1)
+                first = hit.to(torch.uint8).argmax(dim=-1)  # [nb, P]
+                tested = torch.where(step_hit, torch.gather(upto, 1, first),
+                                     upto[:, -1:])
+                work.steps[b0:b0 + nb] += alive
+                work.ray_lanes.add_((tested * ~done).sum())
+            done |= step_hit
+        out[b0:b0 + nb] = (done & (r[..., 7] > r[..., 6])).to(torch.int32)
+    out = out.reshape(b * p)
+    return out if lane_real is None else (out, work)
 
 
 # ---------------------------------------------------------------------------
@@ -426,6 +568,14 @@ def _per_ray(x, n: int, ref: torch.Tensor) -> torch.Tensor:
                            device=ref.device).expand(n).contiguous()
 
 
+def _fma(a: torch.Tensor, b: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
+    """float32 a * b + c rounded once: the float64 product of two float32
+    values is exact, so only the sum rounds (twice, to float64 and then to
+    float32, which differs from one rounding on a vanishing share of
+    inputs)."""
+    return (a.double() * b.double() + c.double()).float()
+
+
 def _decode(code, meta_rows, on, dn, t_max_orig) -> HitRecord:
     """Winner code -> payload ids via one meta-row gather, then the 12-term
     re-evaluation of the winner's exact (t, u, v) in the caller's order."""
@@ -435,26 +585,22 @@ def _decode(code, meta_rows, on, dn, t_max_orig) -> HitRecord:
     geom_r = torch.where(missed, -1, meta[:, 13])
     prim_r = torch.where(missed, 0, meta[:, 14])
 
-    # in float64, rounded once at the end. XLA evaluates these affines with
-    # fused multiply-adds, which torch's elementwise ops do not offer: in
-    # unfused float32 steps, u and v (small differences of large affine
-    # terms) land up to 1.5e-5 relative from the JAX package's values, while
-    # float64 rounded once lands within 1e-6 of them.
-    wf = meta[:, 0:12].contiguous().view(torch.float32).double()
-    on, dn = on.double(), dn.double()
-    op_u = wf[:, 0] * on[:, 0] + wf[:, 3] * on[:, 1] + wf[:, 6] * on[:, 2] \
-        + wf[:, 9]
-    op_v = wf[:, 1] * on[:, 0] + wf[:, 4] * on[:, 1] + wf[:, 7] * on[:, 2] \
-        + wf[:, 10]
-    op_z = wf[:, 2] * on[:, 0] + wf[:, 5] * on[:, 1] + wf[:, 8] * on[:, 2] \
-        + wf[:, 11]
-    dp_u = wf[:, 0] * dn[:, 0] + wf[:, 3] * dn[:, 1] + wf[:, 6] * dn[:, 2]
-    dp_v = wf[:, 1] * dn[:, 0] + wf[:, 4] * dn[:, 1] + wf[:, 7] * dn[:, 2]
-    dzv = wf[:, 2] * dn[:, 0] + wf[:, 5] * dn[:, 1] + wf[:, 8] * dn[:, 2]
+    # XLA contracts these affines into fused multiply-adds, which torch's
+    # elementwise ops do not offer; _fma rounds each of them once, as XLA
+    # does, in XLA's order, so (t, u, v) equal the JAX package's bit for bit
+    wf = meta[:, 0:12].contiguous().view(torch.float32)
+
+    def affine(r, x, bias=None):
+        # ((w_r x0 + w_r+3 x1) + w_r+6 x2) [+ bias] as XLA fuses it
+        acc = _fma(wf[:, r + 6], x[:, 2],
+                   _fma(wf[:, r], x[:, 0], wf[:, r + 3] * x[:, 1]))
+        return acc if bias is None else acc + wf[:, bias]
+
+    op_u, op_v, op_z = (affine(r, on, r + 9) for r in range(3))
+    dp_u, dp_v, dzv = (affine(r, dn) for r in range(3))
     t_r = -op_z / torch.where(dzv == 0.0, 1.0, dzv)
-    u_r = (op_u + t_r * dp_u).float()
-    v_r = (op_v + t_r * dp_v).float()
-    t_r = t_r.float()
+    u_r = _fma(t_r, dp_u, op_u)
+    v_r = _fma(t_r, dp_v, op_v)
     missed_r = tri_r < 0
 
     return HitRecord(
@@ -464,6 +610,44 @@ def _decode(code, meta_rows, on, dn, t_max_orig) -> HitRecord:
         geometry_index=torch.where(missed_r, INVALID_INDEX, geom_r.long()),
         primitive_id=torch.where(missed_r, 0, prim_r.long()),
         triangle_index=tri_r)
+
+
+def _prepare(clusters: Clusters, origins, directions, tn_o, tx_o,
+             scene_min, scene_max, p: int, presorted: bool, cull: str,
+             k_cand: int) -> Prep:
+    if cull == "interval":
+        if not presorted:
+            raise NotImplementedError(
+                "the interval cull is ported for presorted rays only")
+        return prepare_bundles_interval(clusters, origins, directions, tn_o,
+                                        tx_o, p, k_cand)
+    if cull == "exact":
+        return prepare_bundles_exact(clusters, origins, directions, tn_o,
+                                     tx_o, scene_min, scene_max, p,
+                                     presorted, k_cand)
+    raise ValueError(f"cull must be 'exact' or 'interval', not {cull!r}")
+
+
+def _rays8(prep: Prep) -> torch.Tensor:
+    return torch.cat([prep.o, prep.d, prep.tn[:, None], prep.tx[:, None]],
+                     dim=1).contiguous()
+
+
+def _unsort(x: torch.Tensor, prep: Prep) -> torch.Tensor:
+    """Bundle order -> caller order with one scatter (identity when the
+    rays were presorted)."""
+    if prep.perm is None:
+        return x
+    return torch.empty_like(x).index_put_((prep.perm,), x)
+
+
+def _overflowed_rays(prep: Prep, p: int, n_orig: int) -> torch.Tensor:
+    """Caller rows of the rays of the bundles whose union overflowed, in
+    their bundle order."""
+    bidx = torch.nonzero(prep.overflowed).reshape(-1)
+    j = (bidx[:, None] * p + torch.arange(p, device=bidx.device)).reshape(-1)
+    j = j[j < n_orig]
+    return prep.perm[j] if prep.perm is not None else j
 
 
 def closest_hit_bundle(clusters: Clusters, tables: WalkTables,
@@ -485,27 +669,13 @@ def closest_hit_bundle(clusters: Clusters, tables: WalkTables,
     group = max(1, min(group, (1 << SLOT_BITS) // sp))
     tn_o = _per_ray(t_min, n_orig, origins)
     tx_o = _per_ray(t_max, n_orig, origins)
-    if cull == "interval":
-        if not presorted:
-            raise NotImplementedError(
-                "the interval cull is ported for presorted rays only")
-        prep = prepare_bundles_interval(clusters, origins, directions, tn_o,
-                                        tx_o, p, k_cand)
-    elif cull == "exact":
-        prep = prepare_bundles_exact(clusters, origins, directions, tn_o,
-                                     tx_o, scene_min, scene_max, p,
-                                     presorted, k_cand)
-    else:
-        raise ValueError(f"cull must be 'exact' or 'interval', not {cull!r}")
-
-    rays8 = torch.cat([prep.o, prep.d, prep.tn[:, None], prep.tx[:, None]],
-                      dim=1).contiguous()
-    code = walk_closest(rays8, prep.cand_idx, prep.cand_t, prep.cand_count,
-                        tables.wald_rows, group)[:n_orig]
-    if prep.perm is not None:
-        # un-sort the codes with one scatter, then decode in caller order
-        code = torch.empty_like(code).index_put_((prep.perm,), code)
-    rec = _decode(code, tables.meta_rows, origins, directions, tx_o)
+    prep = _prepare(clusters, origins, directions, tn_o, tx_o, scene_min,
+                    scene_max, p, presorted, cull, k_cand)
+    code = walk_closest(_rays8(prep), prep.cand_idx, prep.cand_t,
+                        prep.cand_count, tables.wald_rows, group)[:n_orig]
+    # un-sort the codes, then decode in caller order
+    rec = _decode(_unsort(code, prep), tables.meta_rows, origins,
+                  directions, tx_o)
 
     n_ovf = int(prep.overflowed.sum())
     if not overflow_fallback or n_ovf == 0:
@@ -519,10 +689,7 @@ def closest_hit_bundle(clusters: Clusters, tables: WalkTables,
         return rec, n_ovf
     # re-trace only the overflowed bundles' rays, in their bundle order,
     # with full-length candidate lists (cannot truncate => exact)
-    bidx = torch.nonzero(prep.overflowed).reshape(-1)
-    j = (bidx[:, None] * p + torch.arange(p, device=bidx.device)).reshape(-1)
-    j = j[j < n_orig]
-    oi = prep.perm[j] if prep.perm is not None else j
+    oi = _overflowed_rays(prep, p, n_orig)
     sub, _ = closest_hit_bundle(
         clusters, tables, origins[oi], directions[oi], tn_o[oi], tx_o[oi],
         scene_min, scene_max, bundle_size=p, presorted=True, cull="exact",
@@ -530,3 +697,49 @@ def closest_hit_bundle(clusters: Clusters, tables: WalkTables,
     rec = HitRecord(*(field.index_put((oi,), sub_field)
                       for field, sub_field in zip(rec, sub)))
     return rec, n_ovf
+
+
+# ---------------------------------------------------------------------------
+# Any hit
+# ---------------------------------------------------------------------------
+
+def occluded_bundle(clusters: Clusters, tables: WalkTables,
+                    origins: torch.Tensor, directions: torch.Tensor,
+                    t_min, t_max, scene_min: torch.Tensor,
+                    scene_max: torch.Tensor, *, bundle_size: int = 128,
+                    presorted: bool = False, group: int = 4,
+                    k_cand: int = 256, overflow_fallback: bool = True
+                    ) -> tuple[torch.Tensor, int]:
+    """Any-hit visibility batch through the bundle walk (the exact cull;
+    cand0-sorted unless presorted): (blocked bool [N], number of bundles
+    that overflowed k_cand and took the fallback). The fallback is the
+    closest-hit one: the overflowed bundles' rays re-trace through the same
+    kernel at k_cand = C, or the whole batch does past FALLBACK_BUNDLES."""
+    n_orig = origins.shape[0]
+    p = bundle_size
+    sp = tables.wald_rows.shape[-1]
+    group = max(1, min(group, (1 << SLOT_BITS) // sp))
+    tn_o = _per_ray(t_min, n_orig, origins)
+    tx_o = _per_ray(t_max, n_orig, origins)
+    prep = _prepare(clusters, origins, directions, tn_o, tx_o, scene_min,
+                    scene_max, p, presorted, "exact", k_cand)
+    hit = walk_occluded(_rays8(prep), prep.cand_idx, prep.cand_t,
+                        prep.cand_count, tables.wald_rows, group)[:n_orig]
+    blocked = _unsort(hit, prep) != 0
+
+    n_ovf = int(prep.overflowed.sum())
+    if not overflow_fallback or n_ovf == 0:
+        return blocked, n_ovf
+    full_k = clusters.num_clusters
+    if n_ovf > FALLBACK_BUNDLES:
+        blocked, _ = occluded_bundle(
+            clusters, tables, origins, directions, tn_o, tx_o, scene_min,
+            scene_max, bundle_size=p, presorted=presorted, group=group,
+            k_cand=full_k, overflow_fallback=False)
+        return blocked, n_ovf
+    oi = _overflowed_rays(prep, p, n_orig)
+    sub, _ = occluded_bundle(
+        clusters, tables, origins[oi], directions[oi], tn_o[oi], tx_o[oi],
+        scene_min, scene_max, bundle_size=p, presorted=True, group=group,
+        k_cand=full_k, overflow_fallback=False)
+    return blocked.index_put((oi,), sub), n_ovf

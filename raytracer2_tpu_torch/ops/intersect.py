@@ -1,10 +1,10 @@
-"""Hit records and the brute-force closest-hit oracle, port of
-raytracer2_tpu/ops/intersect.py.
+"""Hit records and the brute-force closest-hit and any-hit oracles, port
+of raytracer2_tpu/ops/intersect.py.
 
 The traversal result is the reference's payload (common.glsl:23-28):
 {t, barycentric uv, geometryIndex, primitiveId} with geometryIndex ==
 INVALID_INDEX on a miss, no backface culling. uint32 ids are carried in
-int64 tensors. The any-hit oracle comes with the DI slice.
+int64 tensors.
 """
 
 from __future__ import annotations
@@ -97,3 +97,22 @@ def intersect_brute_force(origins, directions, tri_v0, tri_edge1, tri_edge2,
     return HitRecord(
         t=torch.where(missed, t_cap, best_t), u=best_u, v=best_v,
         geometry_index=geom, primitive_id=prim, triangle_index=best_tri)
+
+
+def occluded_brute_force(origins, directions, tri_v0, tri_edge1, tri_edge2,
+                         t_min, t_max, chunk: int = 512) -> torch.Tensor:
+    """Any-hit visibility query over every triangle: True where a triangle
+    blocks the open segment (t_min, t_max)."""
+    n = origins.shape[0]
+    t_hi = _per_ray(t_max, n, origins)[:, None]
+    t_lo = _per_ray(t_min, n, origins)[:, None]
+    blocked = torch.zeros(n, dtype=torch.bool, device=origins.device)
+    o = origins[:, None, :]
+    d = directions[:, None, :]
+    for start in range(0, tri_v0.shape[0], chunk):
+        stop = min(start + chunk, tri_v0.shape[0])
+        hit, _, _, _ = moller_trumbore(
+            o, d, tri_v0[None, start:stop], tri_edge1[None, start:stop],
+            tri_edge2[None, start:stop], t_lo, t_hi)
+        blocked |= hit.any(dim=-1)
+    return blocked

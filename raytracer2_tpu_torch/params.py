@@ -15,9 +15,13 @@ from typing import NamedTuple
 
 import numpy as np
 
-NEIGHBOR_OFFSET_COUNT = 8192  # (ref: src/main.rs:56-58)
+# Compile-time constants (ref: src/main.rs:56-58)
+NEIGHBOR_OFFSET_COUNT = 8192
+RTXDI_RESERVOIR_BLOCK_SIZE = 16
 
 BACKGROUND_DEPTH = 100000.0  # (ref: ShaderParameters.glsl:12)
+
+RTXDI_INVALID_LIGHT_INDEX = 0xFFFFFFFF
 
 _frozen = dataclasses.dataclass(frozen=True)
 
@@ -58,6 +62,20 @@ class ReservoirBufferParameters:
 
     reservoir_block_row_pitch: int = 0
     reservoir_array_pitch: int = 0
+
+
+def calculate_reservoir_buffer_parameters(
+    render_width: int, render_height: int,
+    block_size: int = RTXDI_RESERVOIR_BLOCK_SIZE,
+) -> ReservoirBufferParameters:
+    """Port of light_passes.rs:718-731."""
+    render_width_blocks = (render_width + block_size - 1) // block_size
+    render_height_blocks = (render_height + block_size - 1) // block_size
+    block_row_pitch = render_width_blocks * block_size * block_size
+    return ReservoirBufferParameters(
+        reservoir_block_row_pitch=block_row_pitch,
+        reservoir_array_pitch=block_row_pitch * render_height_blocks,
+    )
 
 
 # ---------------------------------------------------------------------------

@@ -1,11 +1,12 @@
-"""The frame entry point, port of the reference-mode part of
-raytracer2_tpu/render/frame.py: Renderer, create_renderer, the frame state
-the reference branch reads and writes, and render_frame.
+"""The frame entry point, port of raytracer2_tpu/render/frame.py:
+Renderer, create_renderer, FrameState, init_frame_state and render_frame.
 
-Only the reference branch (GConst.refrence_mode=1, frame.py:242-267 of
-the JAX package) is ported. The ReSTIR frame (G-buffer, lights, DI, GI)
-lands slice by slice (ROADMAP queue A, items 2-5); until then
-render_frame raises rather than render anything in its place.
+Two branches are ported: the reference mode (GConst.refrence_mode=1,
+frame.py:242-267 of the JAX package) and the ReSTIR frame with GI off
+(G-buffer, DI fused pass in mode 0, post-process; frame.py:269-414). The
+GI chain (ROADMAP queue A5), DI spatio-temporal resampling,
+checkerboard fields and ReGIR (A6) raise rather than render anything in
+their place.
 """
 
 from __future__ import annotations
@@ -15,72 +16,181 @@ from typing import NamedTuple
 
 import torch
 
-from raytracer2_tpu_torch.params import GConst
-from raytracer2_tpu_torch.render.app_bridge import Tracers, make_tracers
+from raytracer2_tpu_torch.lights.pdf_texture import fill_neighbor_offsets
+from raytracer2_tpu_torch.lights.prepare import (
+    SceneLights, prepare_lights, presample_local_lights)
+from raytracer2_tpu_torch.params import BACKGROUND_DEPTH, GConst
+from raytracer2_tpu_torch.render.app_bridge import (
+    Tracers, make_bridge, make_tracers)
+from raytracer2_tpu_torch.render.di_passes import di_fused_resampling_pass
+from raytracer2_tpu_torch.render.gbuffer import (
+    GBuffer, empty_gbuffer, gbuffer_pass, surface_from_gbuffer_grid)
 from raytracer2_tpu_torch.render.postprocess import (
     PostProcessInputs, post_process)
 from raytracer2_tpu_torch.render.reference import render_reference
 from raytracer2_tpu_torch.render.shading import store_shading_output
+from raytracer2_tpu_torch.restir.di_reservoir import (
+    DIReservoir, empty_di_reservoir)
+from raytracer2_tpu_torch.restir.initial_sampling import LightSamplingContext
 from raytracer2_tpu_torch.scene.scene import Scene
+from raytracer2_tpu_torch.utils import packing as pk
 
 
 class FrameState(NamedTuple):
-    """Persistent cross-frame state: the lighting images the reference
-    branch blends into. G-buffers, motion and reservoirs join with their
-    slices."""
+    """Persistent cross-frame state (render_resources.rs:130-342): the
+    G-buffers (current, which becomes the previous one next frame), motion,
+    the lighting images and the two DI reservoir slots. The GI reservoirs
+    and the secondary G-buffer come with the GI slice."""
 
+    gbuffer: GBuffer
+    prev_gbuffer: GBuffer
+    motion: torch.Tensor  # [H, W, 3]
     diffuse_lighting: torch.Tensor  # [H, W, 3]
     specular_lighting: torch.Tensor  # [H, W, 3]
+    di_reservoirs: tuple[DIReservoir, DIReservoir]
 
 
 def init_frame_state(width: int, height: int, *, device) -> FrameState:
+    def img3():
+        return torch.zeros((height, width, 3), device=device)
+
     return FrameState(
-        diffuse_lighting=torch.zeros((height, width, 3), device=device),
-        specular_lighting=torch.zeros((height, width, 3), device=device))
+        gbuffer=empty_gbuffer(height, width, device=device),
+        prev_gbuffer=empty_gbuffer(height, width, device=device),
+        motion=img3(), diffuse_lighting=img3(), specular_lighting=img3(),
+        di_reservoirs=(empty_di_reservoir((height, width), device=device),
+                       empty_di_reservoir((height, width), device=device)))
 
 
 @dataclasses.dataclass(frozen=True)
 class Renderer:
-    """Per-scene resources: the scene tensors and traversal closures. Light
-    tables and RIS presampling come with the DI slice."""
+    """Per-scene resources, built once at load (the reference's frame-1
+    prepare/presample block, main.rs:663-697): the scene tensors, the
+    traversal closures, the light table, the neighbour offsets and the
+    presampled RIS tiles (local tiles at segment offset 0, environment
+    tiles after them; None when presampling is off)."""
 
     scene: Scene
     tracers: Tracers
+    scene_lights: SceneLights
+    neighbor_offsets: torch.Tensor
     width: int
     height: int
+    ris_buffer: torch.Tensor | None = None
+
+    def light_ctx(self, g_const: GConst) -> LightSamplingContext:
+        return LightSamplingContext(
+            lights=self.scene_lights.lights,
+            light_buffer_params=g_const.light_buffer_params,
+            local_light_sampling_mode=(
+                g_const.restir_di.initial_sampling_params
+                .local_light_sampling_mode),
+            enable_presampling=self.ris_buffer is not None,
+            ris_buffer=self.ris_buffer,
+            local_ris_params=g_const.local_lights_risbuffer_segment_params,
+            env_ris_params=g_const.environment_light_risbuffer_segment_params)
 
 
 def create_renderer(scene: Scene, width: int, height: int,
-                    backend: str = "auto") -> Renderer:
-    return Renderer(scene=scene, tracers=make_tracers(scene, backend=backend),
-                    width=width, height=height)
+                    backend: str = "auto", presample: bool = True,
+                    presample_seed: int = 0) -> Renderer:
+    """presample=True fills the RIS tile buffer once at creation, the
+    static-scene equivalent of the reference's frame-1 presample dispatch
+    (light_passes.rs:538-547)."""
+    scene_lights = prepare_lights(scene)
+    ris_buffer = None
+    if presample and scene_lights.num_local_lights > 0:
+        if scene_lights.env_pdf_mips is not None:
+            raise NotImplementedError(
+                "environment-map presampling (a scene with a skybox) comes "
+                "with the environment slice (ROADMAP queue A)")
+        local = presample_local_lights(presample_seed, scene_lights)
+        # a scene without a skybox has no environment pdf: its tiles are
+        # zeros, as frame.py:167 of the JAX package fills them
+        ris_buffer = torch.cat([local, torch.zeros_like(local)])
+    return Renderer(
+        scene=scene, tracers=make_tracers(scene, backend=backend),
+        scene_lights=scene_lights,
+        neighbor_offsets=fill_neighbor_offsets(device=scene.device),
+        width=width, height=height, ris_buffer=ris_buffer)
 
 
 def render_frame(renderer: Renderer, g_const: GConst, state: FrameState
                  ) -> tuple[FrameState, torch.Tensor]:
-    """One frame: (new state, display image [H, W, 3] in [0, 1])."""
-    if not g_const.refrence_mode:
-        raise NotImplementedError(
-            "render_frame runs the reference mode (refrence_mode=1) only; "
-            "the ReSTIR DI/GI frame arrives with ROADMAP queue A items 2-5 "
-            "(G-buffer, lights, DI, GI)")
+    """One frame (light_passes.rs:550-663 + post-process + frame-state
+    rotation): (new state, display image [H, W, 3] in [0, 1])."""
     scene = renderer.scene
     width, height = renderer.width, renderer.height
-    radiance = render_reference(scene, g_const, width, height,
-                                trace_fn=renderer.tracers.closest_hit)
-    diffuse, specular = store_shading_output(
-        state.diffuse_lighting, state.specular_lighting,
-        radiance, torch.zeros_like(radiance), is_first_pass=True,
-        enable_accumulation=g_const.enable_accumulation,
-        blend_factor=g_const.blend_factor,
-        correct_specular_accumulation=bool(
-            g_const.correct_specular_accumulation))
-    new_state = state._replace(diffuse_lighting=diffuse,
-                               specular_lighting=specular)
-    zeros3 = torch.zeros_like(radiance)
+    prev_gbuffer = state.gbuffer
+
+    if g_const.refrence_mode:
+        radiance = render_reference(scene, g_const, width, height,
+                                    trace_fn=renderer.tracers.closest_hit)
+        diffuse, specular = store_shading_output(
+            state.diffuse_lighting, state.specular_lighting,
+            radiance, torch.zeros_like(radiance), is_first_pass=True,
+            enable_accumulation=g_const.enable_accumulation,
+            blend_factor=g_const.blend_factor,
+            correct_specular_accumulation=bool(
+                g_const.correct_specular_accumulation))
+        new_state = state._replace(prev_gbuffer=prev_gbuffer,
+                                   diffuse_lighting=diffuse,
+                                   specular_lighting=specular)
+        zeros3 = torch.zeros_like(radiance)
+        inputs = PostProcessInputs(
+            depth=torch.zeros((height, width), device=radiance.device),
+            diffuse_albedo=zeros3, specular_f0=zeros3, emissive=zeros3,
+            diffuse=diffuse, specular=specular)
+        output, _ = post_process(scene, g_const, inputs)
+        return new_state, output
+
+    if g_const.enable_restir_gi:
+        raise NotImplementedError(
+            "the ReSTIR GI chain (enable_restir_gi=1) comes with the GI "
+            "slice (ROADMAP queue A5)")
+    if g_const.runtime_params.active_checkerboard_field:
+        raise NotImplementedError("checkerboard rendering is not ported "
+                                  "(ROADMAP queue A6)")
+    if (g_const.restir_di.initial_sampling_params.local_light_sampling_mode
+            == 2):
+        raise NotImplementedError("ReGIR local-light sampling (mode 2) is "
+                                  "not ported (ROADMAP queue A6)")
+
+    # 1. G-buffer pass (light_passes.rs:598-606)
+    gbuffer, motion = gbuffer_pass(scene, g_const,
+                                   renderer.tracers.closest_hit, width,
+                                   height)
+    diffuse, specular = state.diffuse_lighting, state.specular_lighting
+    di_slots = list(state.di_reservoirs)
+
+    # 2. DI fused resampling (light_passes.rs:608-619)
+    if g_const.enable_restir_di:
+        lights = renderer.scene_lights
+        bridge = make_bridge(
+            scene, renderer.tracers, gbuffer, prev_gbuffer, g_const,
+            lights.lights, lights.geometry_to_light, lights.local_pdf_mips,
+            lights.env_pdf_mips, renderer.neighbor_offsets, width, height)
+        di_res, diffuse, specular = di_fused_resampling_pass(
+            g_const, bridge, renderer.light_ctx(g_const), diffuse, specular,
+            width, height,
+            primary_surface=surface_from_gbuffer_grid(gbuffer,
+                                                      g_const.view))
+        di_slots[g_const.restir_di.buffer_indices
+                 .shading_input_buffer_index] = di_res
+
+    # 3. post-process (post_processing.comp)
     inputs = PostProcessInputs(
-        depth=torch.zeros((height, width), device=radiance.device),
-        diffuse_albedo=zeros3, specular_f0=zeros3, emissive=zeros3,
-        diffuse=diffuse, specular=specular)
-    output, _ = post_process(scene, g_const, inputs)
+        depth=gbuffer.depth,
+        diffuse_albedo=pk.unpack_r11g11b10_ufloat(gbuffer.diffuse_albedo),
+        specular_f0=pk.unpack_rgba8_gamma_ufloat(
+            gbuffer.specular_rough)[..., :3],
+        emissive=gbuffer.emissive, diffuse=diffuse, specular=specular)
+    output, env_motion = post_process(scene, g_const, inputs)
+    background = (gbuffer.depth == BACKGROUND_DEPTH)[..., None]
+    motion = torch.cat([torch.where(background, env_motion, motion[..., :2]),
+                        motion[..., 2:]], dim=-1)
+    new_state = FrameState(
+        gbuffer=gbuffer, prev_gbuffer=prev_gbuffer, motion=motion,
+        diffuse_lighting=diffuse, specular_lighting=specular,
+        di_reservoirs=(di_slots[0], di_slots[1]))
     return new_state, output

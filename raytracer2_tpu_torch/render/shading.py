@@ -1,11 +1,90 @@
-"""Shading output glue, port of store_shading_output from
-raytracer2_tpu/render/shading.py (ShadingHelpers.glsl:61-88). Light-sample
-shading and visibility rays come with the DI slice (ROADMAP queue A).
+"""Shading glue: light-sample shading and output accumulation, port of
+raytracer2_tpu/render/shading.py (src/shaders/ShadingHelpers.glsl). The
+final visibility ray inside ShadeSurfaceWithLightSample
+(ShadingHelpers.glsl:34-38) is one batched occlusion query through the
+bridge.
 """
 
 from __future__ import annotations
 
 import torch
+
+from raytracer2_tpu_torch.lights.polymorphic import LightSample
+from raytracer2_tpu_torch.params import (
+    DIShadingParameters, DITemporalResamplingParameters)
+from raytracer2_tpu_torch.render.surface import Surface, evaluate_brdf
+from raytracer2_tpu_torch.restir import di_reservoir as dires
+from raytracer2_tpu_torch.restir.bridge import Bridge
+
+
+def setup_visibility_ray(surface: Surface, sample_position: torch.Tensor,
+                         offset: float = 0.001):
+    """(RtxdiApplicationBridge.glsl:191-217). Returns (origin, dir, tmin,
+    tmax)."""
+    l = sample_position - surface.world_pos
+    dist = torch.linalg.vector_norm(l, dim=-1)
+    direction = l / torch.clamp_min(dist, 1e-30)[..., None]
+    t_min = torch.full_like(dist, offset)
+    t_max = torch.clamp_min(dist - offset * 2.0, offset)
+    return surface.world_pos, direction, t_min, t_max
+
+
+def shade_surface_with_light_sample(
+    reservoir: dires.DIReservoir,
+    surface: Surface,
+    light_sample: LightSample,
+    shading_params: DIShadingParameters,
+    temporal_params: DITemporalResamplingParameters,
+    bridge: Bridge,
+    enable_visibility_reuse: bool,
+    known_visibility: torch.Tensor | None = None,
+) -> tuple[dires.DIReservoir, torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Port of ShadeSurfaceWithLightSample (ShadingHelpers.glsl:2-58).
+
+    known_visibility: an earlier get_conservative_visibility(surface,
+    light_sample.position) of the same sample in this pass (the fused DI
+    pass's initial-visibility ray, with no resampling in between); it
+    stands in for the shading ray, which would trace the same rays.
+    Returns (reservoir, diffuse [...,3], specular [...,3], light_distance)."""
+    shape = surface.view_depth.shape
+    dev = surface.view_depth.device
+    live = light_sample.solid_angle_pdf > 0.0
+    radiance = light_sample.radiance
+
+    if shading_params.enable_final_visibility:
+        if shading_params.reuse_final_visibility and enable_visibility_reuse:
+            reused, vis = dires.get_reservoir_visibility(
+                reservoir, shading_params.final_visibility_max_age,
+                shading_params.final_visibility_max_distance)
+        else:
+            reused = torch.zeros(shape, dtype=torch.bool, device=dev)
+            vis = torch.zeros(shape + (3,), device=dev)
+        # one batched visibility ray for lanes without reusable visibility
+        visible = known_visibility
+        if visible is None:
+            visible = bridge.get_conservative_visibility(
+                surface, light_sample.position)
+        traced_vis = torch.where(visible[..., None], 1.0, 0.0)
+        need_trace = live & ~reused
+        vis = torch.where(need_trace[..., None], traced_vis, vis)
+        reservoir = dires.store_visibility(
+            reservoir, vis, bool(temporal_params.discard_invisible_samples),
+            active=need_trace)
+        radiance = radiance * vis
+
+    radiance = radiance * (dires.inv_pdf(reservoir)
+                           / torch.clamp_min(light_sample.solid_angle_pdf,
+                                             1e-30))[..., None]
+
+    lit = live & (radiance > 0.0).any(dim=-1)
+    brdf = evaluate_brdf(surface, light_sample.position)
+    diffuse = torch.where(lit[..., None],
+                          brdf.demodulated_diffuse[..., None] * radiance, 0.0)
+    specular = torch.where(lit[..., None], brdf.specular * radiance, 0.0)
+    light_distance = torch.where(
+        lit, torch.linalg.vector_norm(light_sample.position
+                                      - surface.world_pos, dim=-1), 0.0)
+    return reservoir, diffuse, specular, light_distance
 
 
 def store_shading_output(

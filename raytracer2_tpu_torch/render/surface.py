@@ -1,7 +1,7 @@
-"""RAB_Surface and the scene-access functions of the reference path,
-port of the part of raytracer2_tpu/render/surface.py the reference frame
-calls. BRDF evaluation and pdf, material similarity and the view-clamp
-helper come with the DI slice (ROADMAP queue A).
+"""RAB_Surface and the scene-access bridge functions, port of
+raytracer2_tpu/render/surface.py (RtxdiApplicationBridge.glsl): surfaces
+from hits, BRDF sampling, pdf and evaluation, material similarity and the
+view clamp.
 """
 
 from __future__ import annotations
@@ -12,6 +12,7 @@ import torch
 
 from raytracer2_tpu_torch.ops.intersect import HitRecord
 from raytracer2_tpu_torch.params import BACKGROUND_DEPTH
+from raytracer2_tpu_torch.restir.helpers import compare_relative_difference
 from raytracer2_tpu_torch.scene.scene import Scene, get_geometry_from_hit
 from raytracer2_tpu_torch.utils import brdf
 from raytracer2_tpu_torch.utils import rng as rtrng
@@ -101,3 +102,56 @@ def get_surface_brdf_sample(surface: Surface, state: rtrng.RngState
     direction = torch.where(use_diffuse[..., None], dir_diffuse, dir_specular)
     valid = brdf.dot3(surface.normal, direction) > 0.0
     return direction, valid, state
+
+
+def get_surface_brdf_pdf(surface: Surface, direction: torch.Tensor
+                         ) -> torch.Tensor:
+    """Port of RAB_GetSurfaceBrdfPdf (bridge:463-470)."""
+    cos_theta = brdf.saturate(brdf.dot3(surface.normal, direction))
+    diffuse_pdf = cos_theta / brdf.PI
+    specular_pdf = brdf.importance_sample_ggx_vndf_pdf(
+        torch.clamp_min(surface.roughness, brdf.K_MIN_ROUGHNESS),
+        surface.normal, surface.view_dir, direction)
+    pdf = (specular_pdf
+           + (diffuse_pdf - specular_pdf) * surface.diffuse_probability)
+    return torch.where(cos_theta > 0.0, pdf, 0.0)
+
+
+class SplitBrdf(NamedTuple):
+    """(ref: bridge:140-144)."""
+
+    demodulated_diffuse: torch.Tensor  # [...]
+    specular: torch.Tensor  # [..., 3]
+
+
+def evaluate_brdf(surface: Surface, sample_position: torch.Tensor
+                  ) -> SplitBrdf:
+    """Port of EvaluateBrdf (bridge:146-159)."""
+    l = brdf.normalize(sample_position - surface.world_pos)
+    demod_diffuse = brdf.lambert(surface.normal, -l)
+    spec = brdf.ggx_times_ndotl(
+        surface.view_dir, l, surface.normal,
+        torch.clamp_min(surface.roughness, brdf.K_MIN_ROUGHNESS),
+        surface.specular_f0)
+    spec = torch.where((surface.roughness == 0.0)[..., None], 0.0, spec)
+    return SplitBrdf(demodulated_diffuse=demod_diffuse, specular=spec)
+
+
+def are_materials_similar(a: Surface, b: Surface) -> torch.Tensor:
+    """Port of RAB_AreMaterialsSimilar (bridge:600-616)."""
+    ok = compare_relative_difference(a.roughness, b.roughness, 0.5)
+    ok &= (torch.abs(brdf.luminance(a.specular_f0)
+                     - brdf.luminance(b.specular_f0)) <= 0.25)
+    ok &= (torch.abs(brdf.luminance(a.diffuse_albedo)
+                     - brdf.luminance(b.diffuse_albedo)) <= 0.25)
+    return ok
+
+
+def clamp_sample_position_into_view(px, py, width: int, height: int):
+    """Port of RAB_ClampSamplePositionIntoView (bridge:252-265): reflect
+    off-screen positions across the nearest edge."""
+    px = torch.where(px < 0, -px, px)
+    py = torch.where(py < 0, -py, py)
+    px = torch.where(px >= width, 2 * width - px - 1, px)
+    py = torch.where(py >= height, 2 * height - py - 1, py)
+    return px, py

@@ -1,0 +1,50 @@
+"""The resampling-library <-> application bridge contract, port of
+raytracer2_tpu/restir/bridge.py (lighting_passes/RtxdiApplicationBridge.glsl).
+
+The ReSTIR library is written against this NamedTuple of closures; scene
+access, G-buffer reads and ray tracing are injected by the renderer
+(render/app_bridge.py::make_bridge). Every closure works on whole pixel
+tensors, and each pass calls the visibility closures a fixed number of
+times on full batches. The GI members (the GI target pdf, the Jacobian
+check) come with the GI slice.
+"""
+
+from __future__ import annotations
+
+from typing import Callable, NamedTuple
+
+import torch
+
+
+class Bridge(NamedTuple):
+    """RAB_* closure bundle; members mirror RtxdiApplicationBridge.glsl."""
+
+    # RAB_GetGBufferSurface (bridge:328-344): (px, py, previous_frame) -> Surface
+    get_gbuffer_surface: Callable
+    # RAB_GetLightSampleTargetPdfForSurface (bridge:478-500)
+    get_light_sample_target_pdf: Callable
+    # RAB_GetConservativeVisibility (bridge:700-703):
+    # (surface, sample_position) -> visible mask
+    get_conservative_visibility: Callable
+    # RAB_GetTemporalConservativeVisibility (bridge:708-711)
+    get_temporal_conservative_visibility: Callable
+    # RAB_AreMaterialsSimilar (bridge:600-616)
+    are_materials_similar: Callable
+    # RAB_SamplePolymorphicLight (bridge:514-525): (info, surface, uv)
+    sample_polymorphic_light: Callable
+    # RAB_LoadLightInfo (bridge:556-559): (index, previous_frame) -> LightInfo
+    load_light_info: Callable
+    # RAB_GetSurfaceBrdfSample / Pdf (bridge:437-470)
+    get_surface_brdf_sample: Callable
+    get_surface_brdf_pdf: Callable
+    # RAB_TraceRayForLocalLight (bridge:639-669):
+    # (origins, directions, t_min, t_max) -> (hit_anything, light_index, rand_xy)
+    trace_ray_for_local_light: Callable
+    # RAB_EvaluateLocalLightSourcePdf / EnvironmentMapSamplingPdf
+    # (bridge:397-434)
+    evaluate_local_light_source_pdf: Callable
+    evaluate_environment_map_sampling_pdf: Callable
+    # low-discrepancy neighbour offsets [N, 2] in [-1, 1]
+    neighbor_offsets: torch.Tensor
+    # (width, height) for RAB_ClampSamplePositionIntoView
+    viewport: tuple[int, int]

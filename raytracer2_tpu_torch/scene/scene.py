@@ -16,7 +16,7 @@ from typing import Mapping, NamedTuple
 import numpy as np
 import torch
 
-from raytracer2_tpu.scene.gltf import CpuModel
+from raytracer2_tpu_torch.scene.gltf import CpuModel
 from raytracer2_tpu_torch.utils.brdf import normalize as v_normalize
 
 # Reference quirks (Hit.glsl:40-41), kept for image parity: every surface's
@@ -195,7 +195,7 @@ def scene_arrays(model: CpuModel, skybox: np.ndarray | None = None) -> dict:
     # textures -> linear float, stacked zero-padded (dummy 1x1 white if none,
     # model.rs:289-355)
     if model.images and model.textures:
-        from raytracer2_tpu.scene.gltf import (
+        from raytracer2_tpu_torch.scene.gltf import (
             FILTER_NEAREST, WRAP_CLAMP_TO_EDGE, WRAP_MIRRORED_REPEAT)
 
         def wrap_code(mode):

@@ -1,12 +1,11 @@
-"""Sampling / BRDF helpers, port of the part of raytracer2_tpu/utils/brdf.py
-that the reference path tracer and the scene's environment lookup call
-(vectors in a trailing dim of 3, broadcasting over leading dims).
+"""Sampling / BRDF / spherical-geometry helpers, port of
+raytracer2_tpu/utils/brdf.py (src/shaders/Helpers.glsl, common.glsl;
+vectors in a trailing dim of 3, broadcasting over leading dims).
 
 GGX_MACRO_QUIRK keeps the reference's unparenthesized `square` macro in
 the GGX D denominator (common.glsl:2, Helpers.glsl:189/226), as the JAX
-package does; the DI slice's BRDF evaluation and pdf read it. The rest of
-the module (luminance, Schlick/Smith terms, sphere/triangle sampling)
-comes with that slice (ROADMAP queue A).
+package does. Luminance is the app shaders' Rec.601 variant; the
+resampling library's Rec.709 one is luminance_rec709.
 """
 
 from __future__ import annotations
@@ -48,6 +47,45 @@ def cross(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
                         ax * by - ay * bx], dim=-1)
 
 
+def luminance(color: torch.Tensor) -> torch.Tensor:
+    """Rec.601 luminance used by app shaders (ref: Helpers.glsl:94-97)."""
+    w = torch.tensor([0.299, 0.587, 0.114], dtype=color.dtype,
+                     device=color.device)
+    return (color * w).sum(dim=-1)
+
+
+def luminance_rec709(color: torch.Tensor) -> torch.Tensor:
+    """Rec.709 luminance of the resampling library (RtxdiMath.hlsli:120-123)."""
+    w = torch.tensor([0.2126, 0.7152, 0.0722], dtype=color.dtype,
+                     device=color.device)
+    return (color * w).sum(dim=-1)
+
+
+def sample_triangle(rnd: torch.Tensor) -> torch.Tensor:
+    """[..., 2] uniforms -> [..., 3] barycentrics (ref: Helpers.glsl:66-74)."""
+    sqrtx = torch.sqrt(rnd[..., 0])
+    return torch.stack([1.0 - sqrtx, sqrtx * (1.0 - rnd[..., 1]),
+                        sqrtx * rnd[..., 1]], dim=-1)
+
+
+def hit_uv_to_barycentric(uv: torch.Tensor) -> torch.Tensor:
+    """[..., 2] hit attribs -> [..., 3] barycentrics (ref: Helpers.glsl:76-79)."""
+    return torch.stack([1.0 - uv[..., 0] - uv[..., 1], uv[..., 0],
+                        uv[..., 1]], dim=-1)
+
+
+def random_from_barycentric(bary: torch.Tensor) -> torch.Tensor:
+    """Inverse of sample_triangle (ref: Helpers.glsl:81-86)."""
+    sqrtx = 1.0 - bary[..., 0]
+    return torch.stack([sqrtx * sqrtx,
+                        bary[..., 2] / torch.clamp_min(sqrtx, 1e-20)], dim=-1)
+
+
+def pdf_area_to_solid_angle(pdf_a, distance, cos_theta):
+    """Area-measure pdf -> solid-angle-measure (ref: Helpers.glsl:88-92)."""
+    return pdf_a * (distance * distance) / cos_theta
+
+
 def sample_disk(random: torch.Tensor) -> torch.Tensor:
     """[..., 2] uniforms -> [..., 2] point on unit disk (ref: Helpers.glsl:122-126)."""
     angle = 2.0 * PI * random[..., 0]
@@ -64,6 +102,14 @@ def sample_cos_hemisphere(random: torch.Tensor
     elevation = torch.sqrt(saturate(1.0 - random[..., 1]))
     pdf = elevation / PI
     return torch.cat([tangential, elevation[..., None]], dim=-1), pdf
+
+
+def sample_sphere(rand: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """[..., 2] uniforms -> (unit dir, pdf=1/4pi) (ref: Helpers.glsl:347-359)."""
+    y = rand[..., 1] * 2.0 - 1.0
+    tangential = sample_disk(torch.stack([rand[..., 0], 1.0 - y * y], dim=-1))
+    dirs = torch.cat([tangential, y[..., None]], dim=-1)
+    return dirs, torch.full_like(y, 0.25 / PI)
 
 
 def construct_onb(normal: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
@@ -140,8 +186,72 @@ def importance_sample_ggx_vndf(random: torch.Tensor, roughness: torch.Tensor,
          torch.clamp_min(nh[..., 2:3], 0.0)], dim=-1)
 
 
+def importance_sample_ggx_vndf_pdf(roughness, n, v, l, quirk=None):
+    """Solid-angle pdf of VNDF sampling (ref: Helpers.glsl:182-191)."""
+    h = normalize(l + v)
+    noh = saturate(dot3(n, h))
+    voh = saturate(dot3(v, h))
+    alpha = roughness * roughness
+    d = ggx_d(noh, alpha, quirk)
+    return torch.where(voh > 0.0, d / (4.0 * voh), 0.0)
+
+
+def schlick_fresnel(f0: torch.Tensor, voh: torch.Tensor) -> torch.Tensor:
+    """Schlick approximation; f0 scalar-shaped or [...,3]
+    (ref: Helpers.glsl:194-202)."""
+    p = torch.pow(torch.clamp_min(1.0 - voh, 0.0), 5.0)
+    if f0.dim() == voh.dim() + 1:
+        p = p[..., None]
+    return f0 + (1.0 - f0) * p
+
+
+def g_smith_over_ndotv(roughness, ndotv, ndotl):
+    """Height-correlated Smith G / NdotV (ref: Helpers.glsl:205-211)."""
+    alpha = roughness * roughness
+    a2 = alpha * alpha
+    g1 = ndotv * torch.sqrt(a2 + (1.0 - a2) * ndotl * ndotl)
+    g2 = ndotl * torch.sqrt(a2 + (1.0 - a2) * ndotv * ndotv)
+    return 2.0 * ndotl / torch.clamp_min(g1 + g2, 1e-20)
+
+
+def ggx_times_ndotl(v, l, n, roughness, f0, quirk=None) -> torch.Tensor:
+    """Full specular BRDF * NdotL, [...,3] (ref: Helpers.glsl:213-233)."""
+    h = normalize(l + v)
+    nol = saturate(dot3(n, l))
+    voh = saturate(dot3(v, h))
+    nov = saturate(dot3(n, v))
+    noh = saturate(dot3(n, h))
+    g = g_smith_over_ndotv(roughness, nov, nol)
+    d = ggx_d(noh, roughness * roughness, quirk)
+    spec = schlick_fresnel(f0, voh) * (d * g / 4.0)[..., None]
+    return torch.where((nol > 0.0)[..., None], spec, 0.0)
+
+
+def lambert(normal: torch.Tensor, light_incident: torch.Tensor
+            ) -> torch.Tensor:
+    """Lambert term of an incident dir (ref: Helpers.glsl:236-239)."""
+    return torch.clamp_min(-dot3(normal, light_incident), 0.0) / PI
+
+
+def demodulate_specular(specular_f0: torch.Tensor, specular: torch.Tensor
+                        ) -> torch.Tensor:
+    """(ref: Helpers.glsl:312-315)."""
+    return specular / torch.clamp_min(specular_f0, 0.01)
+
+
 def direction_to_equirect_uv(direction: torch.Tensor) -> torch.Tensor:
     """Unit dir -> equirect uv in [0,1]^2 (ref: Helpers.glsl:242-248)."""
     u = 0.5 + torch.atan2(direction[..., 2], direction[..., 0]) / (2.0 * PI)
     v = 0.5 - torch.asin(torch.clamp(direction[..., 1], -1.0, 1.0)) / PI
     return torch.stack([u, v], dim=-1)
+
+
+def equirect_uv_to_direction(uv: torch.Tensor
+                             ) -> tuple[torch.Tensor, torch.Tensor]:
+    """uv -> (unit dir, cos(elevation)) (ref: Helpers.glsl:334-345)."""
+    azimuth = (uv[..., 0] + 0.25) * (2.0 * PI)
+    elevation = (0.5 - uv[..., 1]) * PI
+    cos_el = torch.cos(elevation)
+    d = torch.stack([torch.cos(azimuth) * cos_el, torch.sin(elevation),
+                     torch.sin(azimuth) * cos_el], dim=-1)
+    return d, cos_el

@@ -1,4 +1,5 @@
-"""The port's CUDA kernels against their plain torch versions, on the card.
+"""The port's CUDA kernels (the closest-hit and any-hit bundle walks)
+against their plain torch versions, on the card.
 
 Every test here is marked `cuda` and skips where torch.cuda.is_available()
 is false (a CUDA kernel has no CPU mode). The file imports no JAX, so it
@@ -15,12 +16,13 @@ import numpy as np
 import pytest
 import torch
 
-from raytracer2_tpu.models import procedural as proc
-from raytracer2_tpu.scene import gltf
+from raytracer2_tpu_torch.models import procedural as proc
 from raytracer2_tpu_torch.ops import cuda_traverse as ct
 from raytracer2_tpu_torch.ops.cluster import build_clusters
-from raytracer2_tpu_torch.ops.intersect import intersect_brute_force
+from raytracer2_tpu_torch.ops.intersect import (
+    intersect_brute_force, occluded_brute_force)
 from raytracer2_tpu_torch.render.rays import zorder_permutation
+from raytracer2_tpu_torch.scene import gltf
 from raytracer2_tpu_torch.scene.scene import build_scene
 
 pytestmark = pytest.mark.cuda
@@ -36,7 +38,7 @@ CLASSES = {
 @pytest.fixture(scope="module")
 def dev():
     if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA device: the walk kernel has no CPU mode")
+        pytest.skip("needs a CUDA device: the walk kernels have no CPU mode")
     return torch.device("cuda")
 
 
@@ -131,3 +133,38 @@ def test_kernel_tie_rule_on_card(dev, tiny):
             np.testing.assert_array_equal(
                 got.cpu().numpy(),
                 ct.walk_closest_reference(*args, group=group).cpu().numpy())
+
+
+@pytest.mark.parametrize("presorted", [True, False])
+def test_occluded_kernel_matches_plain_version_on_card(dev, tiny, presorted):
+    """The CUDA any-hit walk against its plain version, flag for flag, on
+    segments of mixed length (some blocked, some clear, dead lanes), and
+    the blocked flags against brute force."""
+    c, s = tiny["clusters"], tiny["scene"]
+    o, d = (torch.from_numpy(x).to(dev) for x in _rays("bounces"))
+    rng = np.random.default_rng(5)
+    tx = torch.from_numpy(rng.uniform(0.5, 7.0, N).astype(np.float32)).to(dev)
+    tx[::13] = -1.0
+    tn = tiny["t_min"]
+    prep = ct.prepare_bundles_exact(c, o, d, tn, tx, c.aabb_min.amin(dim=0),
+                                    c.aabb_max.amax(dim=0), P, presorted, 256)
+    rays8 = torch.cat([prep.o, prep.d, prep.tn[:, None], prep.tx[:, None]],
+                      dim=1).contiguous()
+    args = (rays8, prep.cand_idx, prep.cand_t, prep.cand_count,
+            tiny["tables"].wald_rows)
+    for group in (1, 4, 8):
+        launches = ct.walk_occluded.launches
+        got = ct.walk_occluded(*args, group=group)
+        torch.cuda.synchronize()
+        assert ct.walk_occluded.launches == launches + 1
+        want = ct.walk_occluded_reference(*args, group=group)
+        np.testing.assert_array_equal(got.cpu().numpy(), want.cpu().numpy())
+    blocked = ct.occluded_bundle(c, tiny["tables"], o, d, tn, tx,
+                                 c.aabb_min.amin(dim=0),
+                                 c.aabb_max.amax(dim=0), bundle_size=P,
+                                 presorted=presorted)[0]
+    ref = occluded_brute_force(o, d, s.tri_v0, s.tri_edge1, s.tri_edge2, tn,
+                               tx)
+    np.testing.assert_array_equal(blocked.cpu().numpy(), ref.cpu().numpy())
+    live = (tx > 0).cpu().numpy()
+    assert 0 < ref.cpu().numpy()[live].sum() < live.sum()

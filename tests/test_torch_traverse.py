@@ -1,13 +1,15 @@
-"""The closest-hit bundle walk of the PyTorch port (ops/cuda_traverse.py)
-against the JAX package, for both ray classes of the reference frame:
-pixel tiles (presorted, interval cull) and bounces (cand0 sort, exact cull).
+"""The bundle walks of the PyTorch port (ops/cuda_traverse.py) against the
+JAX package: closest hit for both ray classes of the reference frame
+(pixel tiles: presorted, interval cull; bounces: cand0 sort, exact cull),
+and any hit for the DI frame's visibility rays ("shadow": presorted, exact
+cull) and incoherent ones.
 
-On the CPU the wrapper runs the kernel's plain version, so these tests hold
-walk_closest_reference to JAX's Pallas walk in interpret mode (bit for bit
-in the triangle, geometry and primitive ids), to the brute-force oracle
-(exact up to t-ties), and its candidate prep to JAX's bit for bit. The
-kernel itself is compared with the plain version on the card only
-(tests/test_torch_kernels.py, chip_smoke.py).
+On the CPU the wrappers run the kernels' plain versions, so these tests
+hold walk_closest_reference and walk_occluded_reference to JAX's Pallas
+walks in interpret mode (bit for bit: ids, t, u, v and blocked flags), to
+the brute-force oracles (exact up to t-ties), and the candidate prep to
+JAX's bit for bit. The kernels themselves are compared with the plain
+versions on the card only (tests/test_torch_kernels.py, chip_smoke.py).
 """
 
 import jax.numpy as jnp
@@ -130,10 +132,10 @@ def test_walk_matches_pallas_walk_bit_exact(tiny, cls):
         np.testing.assert_array_equal(
             getattr(got, f).numpy(),
             np.asarray(getattr(want, f)).astype(np.int64), err_msg=f)
-    for f in ("t", "u", "v"):
-        np.testing.assert_allclose(getattr(got, f).numpy(),
-                                   np.asarray(getattr(want, f)),
-                                   rtol=1e-5, atol=1e-6, err_msg=f)
+    for f in ("t", "u", "v"):  # the decode rounds as XLA's fused affines
+        np.testing.assert_array_equal(getattr(got, f).numpy(),
+                                      np.asarray(getattr(want, f)),
+                                      err_msg=f)
     assert (~got.missed.numpy()).sum() > N // 4  # the rays hit the spheres
     _assert_matches_brute(got, _brute(tiny, o, d))
 
@@ -316,3 +318,226 @@ def test_walk_tie_rule(tiny, order, group):
     np.testing.assert_array_equal(
         ct.walk_closest_reference(*args, group=group).numpy(), want)
 
+
+# ---------------------------------------------------------------------------
+# Any hit (the visibility rays of the DI frame)
+# ---------------------------------------------------------------------------
+
+OCCLUDE_CLASSES = {
+    # pixel-Z presorted visibility rays (make_tracers' "shadow" class)
+    "shadow": dict(presorted=True, group=4),
+    "incoherent": dict(presorted=False, group=8),
+}
+
+
+@pytest.fixture(scope="module")
+def shadow_rays(tiny):
+    """Segments from scattered points toward scattered targets: some pass
+    the sphere, some end before it, some are blocked; dead lanes too."""
+    o, d = tiny["rays"]["bounces"]
+    rng = np.random.default_rng(5)
+    t_max = rng.uniform(0.5, 7.0, N).astype(np.float32)
+    t_max[::13] = -1.0
+    return o, d, t_max
+
+
+def _port_occluded(tiny, o, d, t_max, **kw):
+    return ct.occluded_bundle(
+        tiny["t_clusters"], tiny["tables"], torch.from_numpy(o),
+        torch.from_numpy(d), torch.from_numpy(tiny["t_min"]),
+        torch.from_numpy(t_max), torch.from_numpy(tiny["smin"]),
+        torch.from_numpy(tiny["smax"]), bundle_size=P, **kw)
+
+
+def _jax_occluded(tiny, o, d, t_max, **kw):
+    return np.asarray(ptm.occluded_bundle_pallas(
+        tiny["j_clusters"], jnp.asarray(o), jnp.asarray(d),
+        jnp.asarray(tiny["t_min"]), jnp.asarray(t_max),
+        jnp.asarray(tiny["smin"]), jnp.asarray(tiny["smax"]),
+        bundle_size=P, interpret=True, mb=1, cull="exact", **kw))
+
+
+def _brute_occluded(tiny, o, d, t_max):
+    from raytracer2_tpu.ops.intersect import occluded_brute_force as j_occl
+    from raytracer2_tpu_torch.ops.intersect import occluded_brute_force
+
+    s = tiny["j_scene"]
+    want = np.asarray(j_occl(jnp.asarray(o), jnp.asarray(d), s.tri_v0,
+                             s.tri_edge1, s.tri_edge2,
+                             jnp.asarray(tiny["t_min"]), jnp.asarray(t_max)))
+    ts = tiny["t_scene"]
+    got = occluded_brute_force(torch.from_numpy(o), torch.from_numpy(d),
+                               ts.tri_v0, ts.tri_edge1, ts.tri_edge2,
+                               torch.from_numpy(tiny["t_min"]),
+                               torch.from_numpy(t_max))
+    np.testing.assert_array_equal(got.numpy(), want)
+    return want
+
+
+@pytest.mark.parametrize("cls", sorted(OCCLUDE_CLASSES))
+def test_occluded_walk_matches_pallas_walk_bit_exact(tiny, shadow_rays, cls):
+    o, d, t_max = shadow_rays
+    cfg = OCCLUDE_CLASSES[cls]
+    want = _jax_occluded(tiny, o, d, t_max, k_cand=256, **cfg)
+    got, n_fallback = _port_occluded(tiny, o, d, t_max, k_cand=256, **cfg)
+    assert n_fallback == 0
+    np.testing.assert_array_equal(got.numpy(), want)
+    ref = _brute_occluded(tiny, o, d, t_max)
+    np.testing.assert_array_equal(got.numpy(), ref)
+    live = t_max > 0
+    assert 0 < ref[live].sum() < live.sum()  # both outcomes occur
+    assert not got.numpy()[~live].any()  # dead lanes are never blocked
+
+
+@pytest.mark.parametrize("cls", sorted(OCCLUDE_CLASSES))
+@pytest.mark.parametrize("fallback", ["partial", "full_batch"])
+def test_occluded_overflow_fallback_stays_exact(tiny, shadow_rays, cls,
+                                                fallback, monkeypatch):
+    """k_cand=2 truncates every bundle's union: the overflowed bundles
+    re-trace through the same walk at k_cand=C (partial) or the whole
+    batch does (past FALLBACK_BUNDLES), bit-equal to the JAX package's
+    fallback and to brute force."""
+    o, d, t_max = shadow_rays
+    cfg = OCCLUDE_CLASSES[cls]
+    j_kw = {}
+    if fallback == "full_batch":
+        monkeypatch.setattr(ct, "FALLBACK_BUNDLES", 1)
+        j_kw["fallback_bundles"] = 1
+    got, n_fallback = _port_occluded(tiny, o, d, t_max, k_cand=2, **cfg)
+    assert 0 < n_fallback
+    assert (n_fallback > ct.FALLBACK_BUNDLES) == (fallback == "full_batch")
+    want = _jax_occluded(tiny, o, d, t_max, k_cand=2, **cfg, **j_kw)
+    np.testing.assert_array_equal(got.numpy(), want)
+    np.testing.assert_array_equal(got.numpy(),
+                                  _brute_occluded(tiny, o, d, t_max))
+
+    bare, _ = _port_occluded(tiny, o, d, t_max, k_cand=2,
+                             overflow_fallback=False, **cfg)
+    assert (bare.numpy() != got.numpy()).any(), \
+        "without the fallback, k_cand=2 must lose blockers (the test bites)"
+
+
+def test_walk_occluded_dispatches_on_device(tiny, shadow_rays, monkeypatch):
+    """A CPU tensor runs the plain version; any other device launches the
+    kernel or raises. The plain version's exits (all done, candidates out,
+    entry beyond every live t_max) change no result."""
+    o, d, t_max = shadow_rays
+    prep = ct.prepare_bundles_exact(
+        tiny["t_clusters"], torch.from_numpy(o), torch.from_numpy(d),
+        torch.from_numpy(tiny["t_min"]), torch.from_numpy(t_max),
+        torch.from_numpy(tiny["smin"]), torch.from_numpy(tiny["smax"]), P,
+        True, 256)
+    rays8 = torch.cat([prep.o, prep.d, prep.tn[:, None], prep.tx[:, None]],
+                      dim=1).contiguous()
+    args = (rays8, prep.cand_idx, prep.cand_t, prep.cand_count,
+            tiny["tables"].wald_rows)
+    launches = ct.walk_occluded.launches
+    got = ct.walk_occluded(*args, group=4)
+    assert ct.walk_occluded.launches == launches  # the plain version ran
+    assert got.dtype == torch.int32
+    np.testing.assert_array_equal(
+        got.numpy(), ct.walk_occluded_reference(*args, group=4).numpy())
+    with monkeypatch.context() as m:
+        m.setitem(ct.REFERENCE_CHUNK_ELEMS, "cpu", 1)
+        np.testing.assert_array_equal(
+            got.numpy(), ct.walk_occluded_reference(*args, group=4).numpy())
+    # a NaN t_max of a live ray ends its bundle's walk, as the TPU's max
+    nan_rays = rays8.clone()
+    nan_rays[0, 7] = float("nan")
+    nan_out = ct.walk_occluded_reference(nan_rays, *args[1:], group=4)
+    assert not nan_out[:P].any()
+    np.testing.assert_array_equal(nan_out[P:].numpy(), got[P:].numpy())
+    with pytest.raises(ValueError, match="cuda or cpu"):
+        ct.walk_occluded(*(a.to("meta") for a in args), group=4)
+    with pytest.raises(ValueError):
+        ct.walk_occluded(*args, group=16)
+
+
+def test_make_tracers_occluded_counts_fallback_bundles(tiny, shadow_rays,
+                                                       monkeypatch):
+    """Tracers.occluded per class ("shadow" presorted, incoherent sorted)
+    against brute force, with the fallback bundles counted per class."""
+    monkeypatch.setattr(app_bridge, "CLUSTER_SIZE", 4)
+    monkeypatch.setattr(app_bridge, "K_CAND", 2)
+    o, d, t_max = shadow_rays
+    ref = _brute_occluded(tiny, o, d, t_max)
+    rays = (torch.from_numpy(o), torch.from_numpy(d),
+            torch.from_numpy(tiny["t_min"]), torch.from_numpy(t_max))
+    tracers = app_bridge.make_tracers(tiny["t_scene"])
+    assert tracers.shapes_by_class["shadow"]["cull"] == "exact"
+    for presorted in ("shadow", False):
+        np.testing.assert_array_equal(
+            tracers.occluded(*rays, presorted=presorted).numpy(), ref)
+        assert tracers.fallback_by_class[presorted] > 0
+    brute = app_bridge.make_tracers(tiny["t_scene"], backend="brute")
+    np.testing.assert_array_equal(brute.occluded(*rays).numpy(), ref)
+
+
+def _replay_occluded(args, group, lane_real, steps):
+    """Per-ray replay of the any-hit walk's steps (as many per bundle as
+    the walk counted): the real triangles each live ray tests, up to and
+    including its first hit, and the rays that hit."""
+    rays8, cand_idx, _, cand_count, wald = args
+    b, sp = cand_idx.shape[0], wald.shape[-1]
+    rays = rays8.reshape(b, P, 8)
+    total, blocked = 0, np.zeros((b, P), bool)
+    for bi in range(b):
+        r = rays[bi:bi + 1]
+        for k0 in range(0, int(steps[bi]) * group, group):
+            ci, wr = ct._step_rows(cand_idx[bi:bi + 1], wald, k0, group)
+            t, hit = ct._wald_test(r, wr)
+            hit = (hit & (t < r[..., 7:8]))[0].numpy()
+            real = lane_real[ci.long()].reshape(-1).numpy()
+            n_live = min(group, int(cand_count[bi]) - k0) * sp
+            for i in range(P):
+                if blocked[bi, i] or r[0, i, 7] <= r[0, i, 6]:
+                    continue
+                first = np.flatnonzero(hit[i, :n_live])
+                if first.size:
+                    total += int(real[:first[0] + 1].sum())
+                    blocked[bi, i] = True
+                else:
+                    total += int(real[:n_live].sum())
+    return total, blocked.reshape(-1)
+
+
+@pytest.mark.parametrize("walk", ["closest", "occluded"])
+def test_plain_walks_count_their_work(tiny, shadow_rays, walk):
+    """lane_real changes no output and counts what the walk does
+    (chip_smoke.py's bounds read it): every ray of a closest-hit bundle
+    tests each real triangle (padding lanes left out) of the candidates
+    its steps cover; a ray of the any-hit walk stops at its first hit, as
+    a per-ray replay of the steps finds; a bundle whose rays are all
+    padding takes no step."""
+    o, d, t_max = shadow_rays
+    t_max = t_max.copy()
+    t_max[:P] = -1.0  # one bundle of padding only
+    prep = ct.prepare_bundles_exact(
+        tiny["t_clusters"], torch.from_numpy(o), torch.from_numpy(d),
+        torch.from_numpy(tiny["t_min"]), torch.from_numpy(t_max),
+        torch.from_numpy(tiny["smin"]), torch.from_numpy(tiny["smax"]), P,
+        True, 256)
+    rays8 = torch.cat([prep.o, prep.d, prep.tn[:, None], prep.tx[:, None]],
+                      dim=1).contiguous()
+    args = (rays8, prep.cand_idx, prep.cand_t, prep.cand_count,
+            tiny["tables"].wald_rows)
+    sp = args[4].shape[-1]
+    lane_real = (tiny["tables"].meta_rows[:, 12] >= 0).reshape(-1, sp)
+    assert not lane_real.all()  # the clusters hold padding lanes
+    fn = getattr(ct, f"walk_{walk}_reference")
+    for group in (1, 4):
+        out, work = fn(*args, group=group, lane_real=lane_real)
+        np.testing.assert_array_equal(out.numpy(),
+                                      fn(*args, group=group).numpy())
+        steps = work.steps
+        assert ((steps * group - prep.cand_count) < group).all()
+        walked = torch.minimum(steps * group, prep.cand_count.long())
+        covered = sum(int(lane_real[prep.cand_idx[i, :walked[i]].long()]
+                          .sum()) for i in range(len(walked)))
+        if walk == "closest":
+            assert 0 < int(work.ray_lanes) == P * covered
+        else:
+            assert steps[0] == 0
+            want, blocked = _replay_occluded(args, group, lane_real, steps)
+            np.testing.assert_array_equal(blocked, out.numpy() != 0)
+            assert 0 < int(work.ray_lanes) == want < P * covered
