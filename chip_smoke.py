@@ -3,48 +3,68 @@
 
     python3 chip_smoke.py
 
-Drives the port's two frame paths at full size on the procedural ladder
+Drives the port's three frame paths at full size on the procedural ladder
 corridor (~260k triangles, bench.py's headline scene) at 1920x1080, through
 create_renderer / init_frame_state / render_frame (and render_reference):
-the ReSTIR DI frame of bench.py's DI validation config (4 local-light + 1
-BRDF candidates, final visibility, accumulation; GI off) and the
-reference-mode frame. The phases, each of which raises on failure:
+the flagship ReSTIR DI+GI frame (bench.py's pipeline frame: the default
+GConst plus DI; GI temporal and spatial off), the ReSTIR DI frame of
+bench.py's DI validation config (4 local-light + 1 BRDF candidates, final
+visibility, accumulation; GI off) and the reference-mode frame. Four
+hand-written CUDA kernels carry them: the closest-hit and any-hit walks
+(B1, B2) and the exact cull's nearest box and bundle union (B3, B4). The
+phases, each of which raises on failure:
 
-1. device         - a CUDA device is required; no CPU run.
-2. build          - nvcc builds both walk kernels from raytracer2_tpu_torch/csrc.
-3. scene          - the ladder scene, its clusters (and which cluster
-                    builder ran) and the tracers on the card.
-4. kernel         - walk_closest against its plain torch version on the
-                    reference path's 262,144-ray batch of each closest-hit
-                    class (pixel tiles, BRDF bounces), winner codes bit for
-                    bit.
-5. oracle         - 4,096 rays of each of those classes against the
-                    brute-force tracer.
-6. capture        - one DI frame that keeps a copy of the inputs of each
-                    trace call's walk launch (G-buffer, BRDF candidate,
-                    visibility: 2,073,600 rays each).
-7. kernel-occlude - on those inputs, walk_closest (G-buffer, BRDF
-                    candidate) and walk_occluded (visibility) against their
-                    plain versions, bit for bit.
-8. oracle-occlude - 4,096 visibility rays from the middle of the screen
-                    through occluded_bundle against the brute-force any-hit
-                    oracle; rounding ties (the walk's answer lies between
-                    the oracle's with the segment ends and triangle edges
-                    moved in and out by the Wald test's float32 bound) are
-                    counted apart.
-9. di-frames      - two DI frames; both kernels must have launched. Then
-                    di-breakdown: one more with each trace and walk
-                    timed, and one under torch.profiler (busy/idle).
-10. frames         - one reference-mode render_frame and one
-                    render_reference frame; walk_closest must have launched.
+1. device             - a CUDA device is required; no CPU run.
+2. build              - nvcc builds every kernel from raytracer2_tpu_torch/csrc.
+3. scene              - the ladder scene, its clusters (and which cluster
+                        builder ran) and the tracers on the card.
+4. kernel             - walk_closest against its plain torch version on the
+                        reference path's 262,144-ray batch of each
+                        closest-hit class (pixel tiles, BRDF bounces), winner
+                        codes bit for bit.
+5. oracle             - 4,096 rays of each of those classes against the
+                        brute-force tracer.
+6. capture            - one DI frame that keeps a copy of the inputs of
+                        each trace call's walk and cull launches (G-buffer,
+                        BRDF candidate, visibility: 2,073,600 rays each).
+7. kernel-occlude     - on those inputs, walk_closest (G-buffer, BRDF
+                        candidate) and walk_occluded (visibility) against
+                        their plain versions, bit for bit.
+8. oracle-occlude     - 4,096 visibility rays from the middle of the screen
+                        through occluded_bundle against the brute-force
+                        any-hit oracle; rounding ties (the walk's answer lies
+                        between the oracle's with the segment ends and
+                        triangle edges moved in and out by the Wald test's
+                        float32 bound) are counted apart.
+9. di-frames          - two DI frames; both walks must have launched. Then
+                        di-breakdown: one more with each trace and walk
+                        timed, and one under torch.profiler (busy/idle).
+10. flagship-capture  - one flagship DI+GI frame that keeps the inputs of
+                        each B3 and B4 launch of its three bounce-class
+                        traces (the DI BRDF candidate, the GI BRDF rays, the
+                        secondary surfaces' BRDF candidate).
+11. kernel-cull       - on those inputs (and B4 on the DI frame's visibility
+                        batch), nearest_box and bundle_union against their
+                        plain versions, bit for bit, with NaN rays and the
+                        signed zeros of the union table counted.
+12. flagship-frames   - three flagship frames; all four kernels but the
+                        any-hit walk (the flagship frame casts no visibility
+                        ray) must have launched. Then flagship-breakdown: one
+                        more with each trace split into B3, the cand0 sort,
+                        B4, the ranking, the walk and the decode, and one
+                        under torch.profiler (busy/idle).
+13. gi-resampling     - two frames of the goldens' configuration (GI temporal
+                        and spatial resampling on), checked finite.
+14. frames            - one reference-mode render_frame and one
+                        render_reference frame; walk_closest must have
+                        launched.
 
 Each kernel check prints its time, its plain version's and its bound (the
-least time the card could take: the larger of the bytes the walk must move
-over the memory rate and the FP32 operations its data needs over the FP32
-rate). The last
-lines are the card's name and power limit, one JSON object about the
-kernels and the result line {"ok": true, "device": {...}}. Imports nothing
-of JAX.
+least time the card could take: the larger of the bytes the kernel must
+move over the memory rate and the FP32 operations its data needs over the
+FP32 rate). The last lines are the card's name and power limit, one JSON
+object about the kernels and the result line {"ok": true, "device": {...}}.
+Imports nothing of JAX.
 """
 
 from __future__ import annotations
@@ -63,7 +83,7 @@ import torch
 sys.path.insert(0, str(Path(__file__).resolve().parent))
 
 from raytracer2_tpu_torch.models import procedural as proc  # noqa: E402
-from raytracer2_tpu_torch.ops import _build, native  # noqa: E402
+from raytracer2_tpu_torch.ops import _build, cull, native  # noqa: E402
 from raytracer2_tpu_torch.ops import cuda_traverse as ct  # noqa: E402
 from raytracer2_tpu_torch.ops.intersect import (  # noqa: E402
     intersect_brute_force, moller_trumbore, occluded_brute_force)
@@ -96,6 +116,17 @@ FP32_OPS_PER_S = 67e12
 # adds, 1 divide and 6 compares (the closest-hit walk has one compare fewer
 # and a packed-key update instead)
 WALD_TEST_OPS = 45
+# FP32 operations of one (live ray, box) slab test of the cull kernels: 6
+# subtracts, 6 multiplies, 6 mins/maxes per axis pair, 4 across the axes,
+# 3 compares of the hit test, the clamp at 0 and the reduction's compare
+# (the hit test's t_max >= 0 depends on the ray alone: the kernels make it
+# once per ray, and cull_bound counts only the rays that pass it)
+SLAB_TEST_OPS = 27
+FLAGSHIP_FRAMES = 3
+# the flagship frame's bounce-class traces, in the order the frame casts
+# them (the G-buffer's pixel tiles take the interval cull, not B3/B4)
+FLAGSHIP_BOUNCES = ("di_brdf_candidate", "gi_brdf_rays",
+                    "secondary_brdf_candidate")
 
 KERNELS = {
     "walk_closest": dict(
@@ -104,7 +135,19 @@ KERNELS = {
     "walk_occluded": dict(
         source="raytracer2_tpu_torch/csrc/bundle_occlude.cu",
         replaces="raytracer2_tpu/ops/pallas_traverse.py:1488"),
+    "nearest_box": dict(
+        source="raytracer2_tpu_torch/csrc/cull.cu",
+        replaces="raytracer2_tpu/ops/pallas_cull.py:106"),
+    "bundle_union": dict(
+        source="raytracer2_tpu_torch/csrc/cull.cu",
+        replaces="raytracer2_tpu/ops/pallas_cull.py:128"),
 }
+WALKS = ("walk_closest", "walk_occluded")
+CULLS = ("nearest_box", "bundle_union")
+
+
+def launch_count(name: str) -> int:
+    return getattr(ct if name in WALKS else cull, name).launches
 
 
 def log(phase: str, **fields) -> None:
@@ -177,6 +220,13 @@ def di_gconst(scene, view):
         di, initial_sampling_params=isp, shading_params=shp))
 
 
+def flagship_gconst(renderer, view, **overrides):
+    """bench.py's pipeline frame (bench.py:266-272): the default GConst
+    plus DI; GI on, GI temporal and spatial off."""
+    return default_gconst(view, renderer.scene_lights.num_local_lights,
+                          enable_restir_di=1, **overrides)
+
+
 def main_path_batches(scene, renderer, g):
     """The first Z-order chunk's primary rays (the pixel-tile class) and
     the BRDF bounce rays drawn from their hits (the bounce class), as
@@ -218,6 +268,7 @@ def _prep(tracers, cls, o, d, tn, tx):
 
 
 def _median_ms(fn, reps: int = 5) -> float:
+    """Median CUDA-event time of fn in ms, after one warm-up call."""
     fn()  # warm-up
     times = []
     for _ in range(reps):
@@ -330,6 +381,77 @@ def _totals(classes: dict) -> dict:
     return out
 
 
+def cull_bound(args, out: torch.Tensor) -> dict:
+    """The least time the card could take for one cull call on these
+    inputs: the larger of (bytes) / HBM rate and (FP32 operations) / FP32
+    rate. Bytes: the rays and the boxes read once, the output written once.
+    Operations: SLAB_TEST_OPS per (live ray, box) slab test; a ray with
+    t_max < 0 (dead, or padding) needs none."""
+    rays8, amin = args[0], args[1]
+    live = int((rays8[:, 7] >= 0.0).sum())
+    nbytes = rays8.numel() * 4 + amin.numel() * 2 * 4 + out.numel() * 4
+    ops = live * amin.shape[0] * SLAB_TEST_OPS
+    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    ops_ms = ops / FP32_OPS_PER_S * 1e3
+    return {"bound_ms": max(bytes_ms, ops_ms),
+            "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+            "bytes": nbytes, "ops": ops, "live_rays": live}
+
+
+def check_cull(kernel: str, cls: str, args) -> dict:
+    """One cull kernel against its plain version on one batch: outputs bit
+    for bit (the union table compared as int32 bits, its +0 and -0 counted
+    and any sign-of-zero difference reported apart), both times (CUDA
+    events) and the bound. Raises on any mismatch or a batch that tests
+    nothing."""
+    fn = getattr(cull, kernel)
+    reference = getattr(cull, f"{kernel}_reference")
+    got = fn(*args)
+    want = reference(*args)
+    torch.cuda.synchronize()
+    ms = _median_ms(lambda: fn(*args))
+    plain_ms = _median_ms(lambda: reference(*args), reps=3)
+    bound = cull_bound(args, got)
+    rays8, c = args[0], args[1].shape[0]
+    if kernel == "nearest_box":
+        mismatches = int((got != want).sum())
+        max_abs = int((got.long() - want.long()).abs().max())
+        overlapped = int((want < c).sum())
+        outcome = {"rays_overlapping": overlapped}
+        trivial = overlapped == 0
+    else:
+        gb, wb = got.view(torch.int32), want.view(torch.int32)
+        mismatches = int((gb != wb).sum())
+        zero = want == 0.0
+        finite = torch.isfinite(want)
+        diff = torch.where(finite & torch.isfinite(got), got - want, 0.0)
+        max_abs = float(diff.abs().max())
+        outcome = {
+            "finite_share": f"{float(finite.float().mean()):.6f}",
+            "plus_zero": int((zero & ~torch.signbit(want)).sum()),
+            "minus_zero": int((zero & torch.signbit(want)).sum()),
+            "zero_sign_differences": int((zero & (got == 0.0)
+                                          & (gb != wb)).sum())}
+        trivial = not bool(finite.any())
+    log("kernel-cull", kernel=kernel, cls=cls, rays=rays8.shape[0],
+        live_rays=bound["live_rays"],
+        nan_rays=int(torch.isnan(rays8).any(dim=1).sum()), boxes=c,
+        out_shape=tuple(got.shape), **outcome, mismatches=mismatches,
+        kernel_ms=f"{ms:.3f}", plain_ms=f"{plain_ms:.3f}",
+        bound_ms=f"{bound['bound_ms']:.4f}", bound_by=bound["bound_by"],
+        bound_share=f"{bound['bound_ms'] / ms:.3f}",
+        mbytes=f"{bound['bytes'] / 1e6:.2f}",
+        gops=f"{bound['ops'] / 1e9:.3f}")
+    if mismatches:
+        raise RuntimeError(f"{kernel} ({cls}): kernel and plain version "
+                           f"disagree on {mismatches} values")
+    if trivial:
+        raise RuntimeError(f"{kernel} ({cls}): the batch overlaps no box, "
+                           "it tests nothing")
+    return {"ms": ms, "plain_ms": plain_ms, "mismatches": mismatches,
+            "max_abs_err": max_abs, **bound}
+
+
 def phase_kernel(renderer, batches) -> dict:
     tracers = renderer.tracers
     real = lane_real(tracers)
@@ -389,25 +511,36 @@ class _Patch:
 
 
 class TraceLog:
-    """Hooks the tracers' two queries and the two walks for the DI frames.
-    It counts the visibility rays (the "shadow" class) and how many are
-    blocked. While `keep` is set it keeps, by class, a copy of the inputs
-    of each trace call's first walk launch (the main path's own batch, not
-    a fallback re-trace) and ORACLE_RAYS visibility rays from the middle of
-    the screen. It launches nothing itself."""
-
-    CLASSES = ("di_gbuffer", "di_brdf_candidate", "di_visibility")
+    """Hooks the tracers' two queries, the two walks and the two cull
+    passes. It counts the visibility rays (the "shadow" class) and how many
+    are blocked. Between start() and stop() it names each trace call
+    (prefix + "gbuffer", the bounce names in call order, prefix +
+    "visibility") and keeps, by name, a copy of the inputs of the first
+    launch of each walk and cull kernel in that call (the main path's own
+    batch, not a fallback re-trace), and ORACLE_RAYS visibility rays from
+    the middle of the screen. It launches nothing itself."""
 
     def __init__(self, tracers):
         self.keep = False
-        self.walks = {}  # class -> (walk name, args, group)
+        self.walks = {}  # name -> (walk name, args, group)
+        self.culls = {}  # (name, cull kernel) -> args
         self.oracle_rays = None
         self.rays = self.blocked = 0
         self._cls = None
+        self._prefix, self._bounces, self._n_bounce = "", (), 0
         self.patches = [_Patch(tracers, "closest_hit", self._closest),
                         _Patch(tracers, "occluded", self._occluded),
                         _Patch(ct, "walk_closest", self._walk),
-                        _Patch(ct, "walk_occluded", self._walk)]
+                        _Patch(ct, "walk_occluded", self._walk),
+                        _Patch(cull, "nearest_box", self._cull),
+                        _Patch(cull, "bundle_union", self._cull)]
+
+    def start(self, prefix: str, bounces) -> None:
+        self.keep = True
+        self._prefix, self._bounces, self._n_bounce = prefix, bounces, 0
+
+    def stop(self) -> None:
+        self.keep = False
 
     def _traced(self, cls, inner, *args, **kwargs):
         self._cls = cls
@@ -417,14 +550,21 @@ class TraceLog:
             self._cls = None
 
     def _closest(self, inner, o, d, t_min, t_max, presorted=False):
-        return self._traced(
-            "di_gbuffer" if presorted else "di_brdf_candidate", inner, o, d,
-            t_min, t_max, presorted=presorted)
+        if presorted:
+            cls = self._prefix + "gbuffer"
+        elif self._bounces:
+            cls = self._bounces[min(self._n_bounce, len(self._bounces) - 1)]
+            self._n_bounce += 1
+        else:
+            cls = None
+        return self._traced(cls, inner, o, d, t_min, t_max,
+                            presorted=presorted)
 
     def _occluded(self, inner, o, d, t_min, t_max, presorted=False):
         shadow = presorted == "shadow"
-        blocked = self._traced("di_visibility" if shadow else None, inner, o,
-                               d, t_min, t_max, presorted=presorted)
+        blocked = self._traced(self._prefix + "visibility" if shadow
+                               else None, inner, o, d, t_min, t_max,
+                               presorted=presorted)
         if shadow:
             self.rays += blocked.numel()
             self.blocked += int(blocked.sum())
@@ -439,6 +579,13 @@ class TraceLog:
         if self.keep and self._cls is not None and self._cls not in self.walks:
             self.walks[self._cls] = (inner.__name__, tuple(
                 a.clone() for a in args[:5]), args[5])
+        return inner(*args, **kwargs)
+
+    def _cull(self, inner, *args, **kwargs):
+        # (rays8, amin, amax[, p]); the boxes are the clusters' own tensors
+        key = (self._cls, inner.__name__)
+        if self.keep and self._cls is not None and key not in self.culls:
+            self.culls[key] = (args[0].clone(),) + tuple(args[1:])
         return inner(*args, **kwargs)
 
     def share(self) -> float:
@@ -460,13 +607,14 @@ def _check_image(name, img, display: bool) -> None:
 def phase_capture(scene, renderer, g_di, trace_log: TraceLog) -> None:
     """One DI frame that keeps its walks' inputs and the oracle's rays. It
     also warms the path up."""
-    trace_log.keep = True
+    trace_log.start("di_", ("di_brdf_candidate",))
     state = fr.init_frame_state(WIDTH, HEIGHT, device=scene.device)
     t0 = time.perf_counter()
     fr.render_frame(renderer, g_di.replace(frame=0, blend_factor=1.0), state)
     torch.cuda.synchronize()
-    trace_log.keep = False
-    missing = set(TraceLog.CLASSES) - set(trace_log.walks)
+    trace_log.stop()
+    missing = ({"di_gbuffer", "di_brdf_candidate", "di_visibility"}
+               - set(trace_log.walks))
     if missing or trace_log.oracle_rays is None:
         raise RuntimeError(f"the DI frame launched no walk for {missing}")
     log("capture", seconds=f"{time.perf_counter() - t0:.3f}",
@@ -559,9 +707,13 @@ def phase_oracle_occlude(scene, renderer, batch) -> None:
 
 
 def _reset_counts(tracers) -> None:
-    ct.walk_closest.launches = 0
-    ct.walk_occluded.launches = 0
+    for name in KERNELS:
+        getattr(ct if name in WALKS else cull, name).launches = 0
     tracers.fallback_by_class.clear()
+
+
+def _launches() -> dict:
+    return {name: launch_count(name) for name in KERNELS}
 
 
 def phase_di_frames(scene, renderer, g_di, trace_log: TraceLog) -> dict:
@@ -581,8 +733,7 @@ def phase_di_frames(scene, renderer, g_di, trace_log: TraceLog) -> dict:
         torch.cuda.synchronize()
         sec = time.perf_counter() - t0
         log("di-frame", frame=f, seconds=f"{sec:.3f}",
-            walk_closest_launches=ct.walk_closest.launches,
-            walk_occluded_launches=ct.walk_occluded.launches,
+            launches=json.dumps(_launches(), separators=(",", ":")),
             fallback_bundles=json.dumps(
                 {str(k): v for k, v in tracers.fallback_by_class.items()},
                 separators=(",", ":")),
@@ -593,10 +744,9 @@ def phase_di_frames(scene, renderer, g_di, trace_log: TraceLog) -> dict:
     _check_image("di diffuse_lighting", state.diffuse_lighting, display=False)
     _check_image("di specular_lighting", state.specular_lighting,
                  display=False)
-    launches = {"walk_closest": ct.walk_closest.launches,
-                "walk_occluded": ct.walk_occluded.launches}
-    for name, n in launches.items():
-        if n <= 0:
+    launches = _launches()
+    for name in WALKS:
+        if launches[name] <= 0:
             raise RuntimeError(f"the DI frames never launched {name}")
     return launches
 
@@ -660,6 +810,12 @@ def phase_di_breakdown(scene, renderer, g_di) -> None:
         **{f"{k}_ms": f"{v * 1e3:.1f}" for k, v in sorted(spent.items())},
         other_ms=f"{(frame_s - traces) * 1e3:.1f}")
 
+    _profile_frame("di-profile", renderer, g, state)
+
+
+def _profile_frame(phase: str, renderer, g, state) -> None:
+    """One frame under torch.profiler: wall time, the card's busy time (the
+    union of its kernel intervals) and its idle share."""
     activities = [torch.profiler.ProfilerActivity.CPU,
                   torch.profiler.ProfilerActivity.CUDA]
     with torch.profiler.profile(activities=activities) as prof:
@@ -672,11 +828,171 @@ def phase_di_breakdown(scene, renderer, g_di) -> None:
     busy = _busy_ms(events)
     kernels = sum(1 for e in events
                   if e.device_type == torch.autograd.DeviceType.CUDA)
-    log("di-profile", wall_ms=f"{wall_ms:.1f}", busy_ms=f"{busy:.1f}",
+    log(phase, wall_ms=f"{wall_ms:.1f}", busy_ms=f"{busy:.1f}",
         idle_share=f"{1.0 - busy / wall_ms:.4f}", kernels=kernels)
 
 
-def phase_frames(scene, renderer, g) -> int:
+def phase_flagship_capture(scene, renderer, g_flag,
+                           trace_log: TraceLog) -> None:
+    """One flagship DI+GI frame that keeps the inputs of each cull launch
+    of its bounce-class traces (it also warms the path up)."""
+    trace_log.start("flagship_", tuple(f"flagship_{b}"
+                                       for b in FLAGSHIP_BOUNCES))
+    state = fr.init_frame_state(WIDTH, HEIGHT, device=scene.device)
+    t0 = time.perf_counter()
+    fr.render_frame(renderer, g_flag.replace(frame=0), state)
+    torch.cuda.synchronize()
+    trace_log.stop()
+    want = {(f"flagship_{b}", k) for b in FLAGSHIP_BOUNCES for k in CULLS}
+    missing = want - set(trace_log.culls)
+    if missing:
+        raise RuntimeError(f"the flagship frame launched no cull for "
+                           f"{sorted(missing)}")
+    log("flagship-capture", seconds=f"{time.perf_counter() - t0:.3f}",
+        kept=json.dumps({f"{c}:{k}": v[0].shape[0]
+                         for (c, k), v in sorted(trace_log.culls.items())
+                         if c is not None}, separators=(",", ":")))
+
+
+def phase_kernel_cull(trace_log: TraceLog) -> dict:
+    """Both cull kernels against their plain versions on the flagship
+    frame's three bounce batches, and bundle_union on the DI frame's
+    visibility batch: {kernel: {class: result}}."""
+    out = {k: {} for k in CULLS}
+    checks = [(f"flagship_{b}", k) for b in FLAGSHIP_BOUNCES for k in CULLS]
+    checks.append(("di_visibility", "bundle_union"))
+    for cls, kernel in checks:
+        out[kernel][cls] = check_cull(kernel, cls, trace_log.culls[cls,
+                                                                   kernel])
+    return out
+
+
+def phase_flagship_frames(scene, renderer, g_flag) -> dict:
+    """FLAGSHIP_FRAMES flagship frames from a fresh state; every count is
+    reset just before them. The frame casts no visibility ray, so the
+    any-hit walk does not launch; the other three kernels must."""
+    tracers = renderer.tracers
+    state = fr.init_frame_state(WIDTH, HEIGHT, device=scene.device)
+    _reset_counts(tracers)
+    for f in range(FLAGSHIP_FRAMES):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        state, img = fr.render_frame(renderer, g_flag.replace(frame=f),
+                                     state)
+        torch.cuda.synchronize()
+        sec = time.perf_counter() - t0
+        log("flagship-frame", frame=f, seconds=f"{sec:.3f}",
+            launches=json.dumps(_launches(), separators=(",", ":")),
+            fallback_bundles=json.dumps(
+                {str(k): v for k, v in tracers.fallback_by_class.items()},
+                separators=(",", ":")),
+            gi_valid_share=f"{float((state.gi_reservoirs[0].m > 0).float().mean()):.4f}",
+            peak_gib=f"{torch.cuda.max_memory_allocated() / 2**30:.2f}")
+        _check_image("flagship display", img, display=True)
+    _check_image("flagship diffuse_lighting", state.diffuse_lighting,
+                 display=False)
+    _check_image("flagship specular_lighting", state.specular_lighting,
+                 display=False)
+    launches = _launches()
+    for name in ("walk_closest", "nearest_box", "bundle_union"):
+        if launches[name] <= 0:
+            raise RuntimeError(f"the flagship frames never launched {name}")
+    return launches
+
+
+def phase_flagship_breakdown(scene, renderer, g_flag) -> None:
+    """Where a flagship frame's time goes: one more frame with every trace
+    call and, inside it, B3, the cand0 sort (key tail, argsort and
+    permutation; cand0_sort_ms includes B3), B4, the ranking, the walk and
+    the decode synchronised and timed (so a little slower than the frames
+    above), and one under torch.profiler for the card's idle share."""
+    tracers = renderer.tracers
+    g = g_flag.replace(frame=FLAGSHIP_FRAMES)
+    state = fr.init_frame_state(WIDTH, HEIGHT, device=scene.device)
+    spent = {}
+    trace = {"name": None, "bounce": 0}
+
+    def closest_name(kw):
+        if kw.get("presorted"):
+            return "gbuffer"
+        i = min(trace["bounce"], len(FLAGSHIP_BOUNCES) - 1)
+        trace["bounce"] += 1
+        return FLAGSHIP_BOUNCES[i]
+
+    def trace_hook(name_of):
+        def hook(inner, *args, **kwargs):
+            trace["name"] = name_of(kwargs)
+            try:
+                return _timed(spent, lambda kw: (trace["name"], "trace"))(
+                    inner, *args, **kwargs)
+            finally:
+                trace["name"] = None
+        return hook
+
+    def part(name):
+        return _timed(spent, lambda kw: (trace["name"] or "outside", name))
+
+    wraps = [
+        _Patch(tracers, "closest_hit", trace_hook(closest_name)),
+        _Patch(tracers, "occluded", trace_hook(lambda kw: "visibility")),
+        _Patch(cull, "nearest_box", part("b3_nearest_box")),
+        _Patch(ct, "_cand0_sort", part("cand0_sort")),
+        _Patch(cull, "bundle_union", part("b4_bundle_union")),
+        _Patch(ct, "_rank", part("rank")),
+        _Patch(ct, "walk_closest", part("walk")),
+        _Patch(ct, "walk_occluded", part("walk")),
+        _Patch(ct, "_decode", part("decode")),
+    ]
+    try:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fr.render_frame(renderer, g, state)
+        torch.cuda.synchronize()
+        frame_s = time.perf_counter() - t0
+    finally:
+        for w in reversed(wraps):
+            w.restore()
+    names = sorted({k[0] for k in spent if k[1] == "trace"})
+    traces = 0.0
+    for name in names:
+        parts = {k[1]: v for k, v in spent.items() if k[0] == name}
+        total = parts.pop("trace")
+        traces += total
+        inner = sum(v for k, v in parts.items() if k != "b3_nearest_box")
+        log("flagship-trace", trace=name, trace_ms=f"{total * 1e3:.2f}",
+            **{f"{k}_ms": f"{v * 1e3:.2f}" for k, v in sorted(parts.items())},
+            other_ms=f"{(total - inner) * 1e3:.2f}")
+    log("flagship-breakdown", frame_ms=f"{frame_s * 1e3:.1f}",
+        traces_ms=f"{traces * 1e3:.1f}",
+        outside_traces_ms=f"{(frame_s - traces) * 1e3:.1f}")
+    _profile_frame("flagship-profile", renderer, g, state)
+
+
+def phase_gi_resampling(scene, renderer, view) -> None:
+    """Two full-size frames of the goldens' configuration (GI temporal and
+    spatial resampling on): the second resamples the first's reservoirs."""
+    g = flagship_gconst(renderer, view, enable_temporal_resampling=1,
+                        enable_spatial_resampling=1)
+    state = fr.init_frame_state(WIDTH, HEIGHT, device=scene.device)
+    for f in range(2):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, img = fr.render_frame(renderer, g.replace(frame=f), state)
+        torch.cuda.synchronize()
+        valid = [float((r.m > 0).float().mean()) for r in state.gi_reservoirs]
+        finite = all(bool(torch.isfinite(x).all())
+                     for r in state.gi_reservoirs for x in r)
+        log("gi-resampling", frame=f,
+            seconds=f"{time.perf_counter() - t0:.3f}",
+            gi_valid_share=json.dumps([round(v, 4) for v in valid]),
+            reservoirs_finite=finite)
+        _check_image("gi-resampling display", img, display=True)
+        if not finite:
+            raise RuntimeError("the GI reservoirs are not finite")
+
+
+def phase_frames(scene, renderer, g) -> dict:
     """One reference-mode render_frame (12 spp, 5 bounces, its defaults)
     and one render_reference frame at bench's ladder cell (8 spp)."""
     tracers = renderer.tracers
@@ -700,12 +1016,13 @@ def phase_frames(scene, renderer, g) -> int:
         sec = time.perf_counter() - t0
         log(name, spp=spp, bounces=bounces, seconds=f"{sec:.3f}",
             nominal_mrays_per_s=f"{WIDTH * HEIGHT * spp * bounces / sec / 1e6:.3f}",
-            live_rays=live, walk_launches=ct.walk_closest.launches,
+            live_rays=live,
+            launches=json.dumps(_launches(), separators=(",", ":")),
             fallback_bundles=tracers.fallback_bundles,
             peak_gib=f"{torch.cuda.max_memory_allocated() / 2**30:.2f}")
         _check_image(f"{name} output", img, display=name == "render_frame")
-    launches = ct.walk_closest.launches
-    if launches <= 0:
+    launches = _launches()
+    if launches["walk_closest"] <= 0:
         raise RuntimeError("the reference path never launched the walk")
     return launches
 
@@ -718,7 +1035,8 @@ def kernel_entry(name: str, classes: dict, launches: int,
             "max_abs_err": t["max_abs_err"], "mismatches": t["mismatches"],
             "ms": t["ms"], "plain_ms": t["plain_ms"],
             "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
-            # no single PyTorch call computes a bundle walk
+            # no single PyTorch call computes a bundle walk, a slab-test
+            # argmin over boxes or a per-bundle slab-test union
             "library_ms": None, "classes": t["classes"]}
 
 
@@ -742,20 +1060,29 @@ def main() -> None:
     phase_oracle_occlude(scene, renderer, trace_log.oracle_rays)
     trace_log.walks.clear()
     trace_log.oracle_rays = None
-    di_launches = phase_di_frames(scene, renderer, g_di, trace_log)
+    paths = {"di_frames": phase_di_frames(scene, renderer, g_di, trace_log)}
     phase_di_breakdown(scene, renderer, g_di)
-    ref_launches = phase_frames(scene, renderer, g_ref)
 
+    g_flag = flagship_gconst(renderer, view)
+    phase_flagship_capture(scene, renderer, g_flag, trace_log)
+    trace_log.walks.clear()
+    classes.update(phase_kernel_cull(trace_log))
+    trace_log.culls.clear()
+    paths["flagship_frames"] = phase_flagship_frames(scene, renderer, g_flag)
+    phase_flagship_breakdown(scene, renderer, g_flag)
+    phase_gi_resampling(scene, renderer, view)
+    paths["reference_frames"] = phase_frames(scene, renderer, g_ref)
+
+    # each kernel's launches on its main path: the flagship frames, and the
+    # DI frames for the any-hit walk (the flagship frame casts no
+    # visibility ray)
+    main_path = {name: "di_frames" if name == "walk_occluded"
+                 else "flagship_frames" for name in KERNELS}
     print(smi, flush=True)
     print(json.dumps({"kernels": [
-        kernel_entry("walk_closest", classes["walk_closest"],
-                     di_launches["walk_closest"],
-                     {"di_frames": di_launches["walk_closest"],
-                      "reference_frames": ref_launches}),
-        kernel_entry("walk_occluded", classes["walk_occluded"],
-                     di_launches["walk_occluded"],
-                     {"di_frames": di_launches["walk_occluded"]}),
-    ]}), flush=True)
+        kernel_entry(name, classes[name], paths[main_path[name]][name],
+                     {path: counts[name] for path, counts in paths.items()})
+        for name in KERNELS]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

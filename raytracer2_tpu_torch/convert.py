@@ -20,7 +20,9 @@ from raytracer2_tpu_torch.ops.cluster import Clusters, clusters_from_arrays
 from raytracer2_tpu_torch.ops.intersect import HitRecord
 from raytracer2_tpu_torch.params import GConst, PlanarViewConstants
 from raytracer2_tpu_torch.render.gbuffer import GBuffer
+from raytracer2_tpu_torch.render.gi_passes import SecondaryGBuffer
 from raytracer2_tpu_torch.restir.di_reservoir import DIReservoir
+from raytracer2_tpu_torch.restir.gi_reservoir import GIReservoir
 from raytracer2_tpu_torch.scene.scene import Scene, scene_from_arrays
 
 
@@ -85,6 +87,17 @@ def gbuffer_from_numpy(arrays: Mapping, *, device) -> GBuffer:
 def di_reservoir_from_numpy(arrays: Mapping, *, device) -> DIReservoir:
     """DIReservoir from the JAX DIReservoir's fields."""
     return _tuple_from(DIReservoir, arrays, device)
+
+
+def gi_reservoir_from_numpy(arrays: Mapping, *, device) -> GIReservoir:
+    """GIReservoir from the JAX GIReservoir's fields."""
+    return _tuple_from(GIReservoir, arrays, device)
+
+
+def secondary_gbuffer_from_numpy(arrays: Mapping, *, device
+                                 ) -> SecondaryGBuffer:
+    """SecondaryGBuffer from the JAX SecondaryGBuffer's fields."""
+    return _tuple_from(SecondaryGBuffer, arrays, device)
 
 
 def scene_lights_from_numpy(arrays: Mapping, *, device) -> SceneLights:

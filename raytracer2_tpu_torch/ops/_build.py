@@ -9,7 +9,7 @@ declared c_void_p (an undeclared pointer would be cut to 32 bits).
 
 --fmad=false keeps every multiply and add separately rounded, in the order
 the source writes them: the kernel then computes the same bits as the
-plain torch version of each kernel (ops/cuda_traverse.py).
+plain torch version of each kernel (ops/cuda_traverse.py, ops/cull.py).
 """
 
 from __future__ import annotations
@@ -109,6 +109,14 @@ def library() -> ctypes.CDLL:
             ci, ci, ci, ci, ci,  # n_bundles, p, k, s_pad, group
             vp,  # stream
         ]
+    lib.rt2_nearest_box.restype = ci
+    lib.rt2_nearest_box.argtypes = [vp, vp, vp,  # rays8, boxes, out
+                                    ci, ci,  # n, c
+                                    vp]  # stream
+    lib.rt2_bundle_union.restype = ci
+    lib.rt2_bundle_union.argtypes = [vp, vp, vp,  # rays8, boxes, out
+                                     ci, ci, ci,  # n_bundles, p, c
+                                     vp]  # stream
     lib.rt2_error_string.restype = ctypes.c_char_p
     lib.rt2_error_string.argtypes = [ci]
     return lib

@@ -26,8 +26,13 @@ A bundle whose union exceeds k_cand overflows. Those bundles re-trace
 through the same kernel with full-length lists (k_cand = C, exact by
 construction); past FALLBACK_BUNDLES of them the whole batch re-traces
 at k_cand = C. The TPU tuning knobs (mb, depth, lean, mm, t_cap,
-debug_steps, cull_kernel, the hier/sc/exact_iv culls and the other sort
-keys) are not ported: each gives the same hits as this path.
+debug_steps, the hier/sc/exact_iv culls and the other sort keys) are not
+ported: each gives the same hits as this path.
+
+The exact cull's two dense [rays, C] passes, the cand0 key's nearest box
+and the per-bundle union, are the kernels of ops/cull.py (B3, B4): the
+JAX package's cull_kernel option is not a knob here, those kernels are the
+card's only form of the passes.
 """
 
 from __future__ import annotations
@@ -37,6 +42,7 @@ from typing import NamedTuple
 
 import torch
 
+from raytracer2_tpu_torch.ops import cull
 from raytracer2_tpu_torch.ops.cluster import Clusters, bundle_cluster_overlap
 from raytracer2_tpu_torch.ops.intersect import INVALID_INDEX, HitRecord
 from raytracer2_tpu_torch.ops.traverse_bundle import (
@@ -48,7 +54,6 @@ SLOT_MASK = (1 << SLOT_BITS) - 1
 MISS_CODE = 0x7FFFFFFF
 NO_HIT_KEY = 0x7FFFFFFF  # above every hit key and every initial key
 
-CULL_CHUNK_BYTES = 48 << 20  # bound on one [rays, C] f32 cull temporary (CPU)
 # elements of one [bundles, P, group*S_pad] temporary of the plain walk
 REFERENCE_CHUNK_ELEMS = {"cuda": 1 << 25, "cpu": 1 << 22}
 FALLBACK_BUNDLES = 32  # past this many overflowed bundles, re-trace the batch
@@ -391,56 +396,17 @@ def walk_occluded_reference(rays8, cand_idx, cand_t, cand_count, wald_rows,
 # Candidate prep
 # ---------------------------------------------------------------------------
 
-def _cull_chunk_bytes(device: torch.device) -> int:
-    """Bytes allowed for one [rays, C] f32 temporary of the dense cull: the
-    JAX bound on the CPU, a share of free memory on the card. Results do
-    not depend on it."""
-    if device.type == "cuda":
-        free, _ = torch.cuda.mem_get_info(device)
-        return max(CULL_CHUNK_BYTES, free // 64)
-    return CULL_CHUNK_BYTES
-
-
-def _entry_exact(o, d, tn, tx, amin, amax):
-    """Exact per-ray slab test vs every cluster AABB: [n, C] conservative
-    entry distance, +inf where the ray's [tn, tx] segment misses the box;
-    dead rays (tx < 0) get all-inf rows."""
-    eps = 1e-12
-    ds = torch.where(torch.abs(d) < eps, torch.where(d >= 0, eps, -eps), d)
-    inv = 1.0 / ds  # [n, 3]
-    near = far = None
-    for ax in range(3):
-        ia = inv[:, ax:ax + 1]
-        oa = o[:, ax:ax + 1]
-        t0 = (amin[None, :, ax] - oa) * ia  # [n, C]
-        t1 = (amax[None, :, ax] - oa) * ia
-        lo = torch.minimum(t0, t1)
-        hi = torch.maximum(t0, t1)
-        near = lo if near is None else torch.maximum(near, lo)
-        far = hi if far is None else torch.minimum(far, hi)
-    hit = ((near <= far) & (far >= tn[:, None]) & (near <= tx[:, None])
-           & (tx >= 0.0)[:, None])
-    return torch.where(hit, torch.clamp_min(near, 0.0), torch.inf)
-
-
 def _norm3(v: torch.Tensor) -> torch.Tensor:
     return torch.sqrt(v[0] * v[0] + v[1] * v[1] + v[2] * v[2])
 
 
-def cand0_sort_key(o, d, tn, tx, amin, amax, scene_min, scene_max):
-    """Per-ray sort key (int64 holding uint32): [nearest exactly-overlapped
-    box id | t_max bucket | octant | origin Morton]. Rays that touch
-    nothing key to C and compact into empty bundles."""
-    n = o.shape[0]
+def cand0_sort_key(rays8, amin, amax, scene_min, scene_max):
+    """Per-ray sort key of [N, 8] ray rows (int64 holding uint32): [nearest
+    exactly-overlapped box id | t_max bucket | octant | origin Morton]. Rays
+    that touch nothing key to C and compact into empty bundles."""
     c = amin.shape[0]
-    chunk = max(1024, (_cull_chunk_bytes(o.device) // (4 * max(c, 1)))
-                // 1024 * 1024)
-    cand0 = torch.empty(n, dtype=torch.int64, device=o.device)
-    for s in range(0, n, chunk):
-        e = _entry_exact(o[s:s + chunk], d[s:s + chunk], tn[s:s + chunk],
-                         tx[s:s + chunk], amin, amax)
-        nearest, arg = e.min(dim=-1)  # first index among ties, as jnp.argmin
-        cand0[s:s + chunk] = torch.where(torch.isfinite(nearest), arg, c)
+    cand0 = cull.nearest_box(rays8, amin, amax).long()
+    o, d, tx = rays8[:, 0:3], rays8[:, 3:6], rays8[:, 7]
 
     # tiebreak (t_max bucket | octant | origin morton): short rays bundle
     # together; then direction octant + origin morton for coherence
@@ -501,6 +467,18 @@ def _finish(perm, o, d, tn, tx, parts) -> Prep:
                 cnt.contiguous(), ovf)
 
 
+def _cand0_sort(clusters: Clusters, origins, directions, t_min, t_max,
+                scene_min, scene_max):
+    """The rays in cand0-key order (a stable argsort, as jnp.argsort):
+    (perm, o, d, tn, tx), perm mapping sorted row -> caller row."""
+    rays8 = _pack8(origins, directions, t_min, t_max)
+    key = cand0_sort_key(rays8, clusters.aabb_min, clusters.aabb_max,
+                         scene_min, scene_max)
+    perm = torch.argsort(key, stable=True)
+    packed = rays8[perm]
+    return perm, packed[:, 0:3], packed[:, 3:6], packed[:, 6], packed[:, 7]
+
+
 def prepare_bundles_exact(clusters: Clusters, origins, directions, t_min,
                           t_max, scene_min, scene_max, bundle_size: int,
                           presorted: bool, k_cand: int) -> Prep:
@@ -513,24 +491,17 @@ def prepare_bundles_exact(clusters: Clusters, origins, directions, t_min,
         perm = None
         o, d, tn, tx = origins, directions, t_min, t_max
     else:
-        key = cand0_sort_key(origins, directions, t_min, t_max,
-                             clusters.aabb_min, clusters.aabb_max,
-                             scene_min, scene_max)
-        perm = torch.argsort(key, stable=True)
-        packed = torch.cat([origins, directions, t_min[:, None],
-                            t_max[:, None]], dim=1)[perm]
-        o, d, tn, tx = packed[:, 0:3], packed[:, 3:6], packed[:, 6], \
-            packed[:, 7]
+        perm, o, d, tn, tx = _cand0_sort(clusters, origins, directions,
+                                         t_min, t_max, scene_min, scene_max)
     o, d, tn, tx, _ = _pad_rays(o, d, tn, tx, p)
     k = min(k_cand, c)
-    b = o.shape[0] // p
-    cb = max(1, _cull_chunk_bytes(o.device) // (4 * max(c, 1) * p))
-    parts = []
-    for b0 in range(0, b, cb):
-        r0, r1 = b0 * p, min(b, b0 + cb) * p
-        e = _entry_exact(o[r0:r1], d[r0:r1], tn[r0:r1], tx[r0:r1],
-                         clusters.aabb_min, clusters.aabb_max)
-        parts.append(_rank(e.reshape(-1, p, c).amin(dim=1), k))
+    union = cull.bundle_union(_pack8(o, d, tn, tx), clusters.aabb_min,
+                              clusters.aabb_max, p)
+    # rank in chunks of bundles: the stable argsort's [bundles, C] i64
+    # temporaries stay under the cull's chunk bound
+    cb = max(1, cull.chunk_bytes(o.device) // (8 * c))
+    parts = [_rank(union[b0:b0 + cb], k)
+             for b0 in range(0, union.shape[0], cb)]
     return _finish(perm, o, d, tn, tx, parts)
 
 
@@ -546,7 +517,7 @@ def prepare_bundles_interval(clusters: Clusters, origins, directions, t_min,
     b = o.shape[0] // p
     o_min, o_max, inv_lo, inv_hi, bundle_tmax = _bundle_bounds(o, d, tx, p)
     # ~12 live [bundles, C, 3] f32 temporaries per chunk
-    cb = max(1, _cull_chunk_bytes(o.device) // (4 * 3 * 12 * max(c, 1)))
+    cb = max(1, cull.chunk_bytes(o.device) // (4 * 3 * 12 * max(c, 1)))
     parts = []
     for b0 in range(0, b, cb):
         sl = slice(b0, b0 + cb)
@@ -628,9 +599,13 @@ def _prepare(clusters: Clusters, origins, directions, tn_o, tx_o,
     raise ValueError(f"cull must be 'exact' or 'interval', not {cull!r}")
 
 
+def _pack8(o, d, tn, tx) -> torch.Tensor:
+    """[N, 8] f32 ray rows (ox oy oz dx dy dz t_min t_max)."""
+    return torch.cat([o, d, tn[:, None], tx[:, None]], dim=1).contiguous()
+
+
 def _rays8(prep: Prep) -> torch.Tensor:
-    return torch.cat([prep.o, prep.d, prep.tn[:, None], prep.tx[:, None]],
-                     dim=1).contiguous()
+    return _pack8(prep.o, prep.d, prep.tn, prep.tx)
 
 
 def _unsort(x: torch.Tensor, prep: Prep) -> torch.Tensor:

@@ -21,6 +21,11 @@ RTXDI_RESERVOIR_BLOCK_SIZE = 16
 
 BACKGROUND_DEPTH = 100000.0  # (ref: ShaderParameters.glsl:12)
 
+# SecondaryGBuffer flag bits (ref: ShaderParameters.glsl:21-23)
+K_SECONDARY_IS_SPECULAR_RAY = 1
+K_SECONDARY_IS_DELTA_SURFACE = 2
+K_SECONDARY_IS_ENVIRONMENT_MAP = 4
+
 RTXDI_INVALID_LIGHT_INDEX = 0xFFFFFFFF
 
 _frozen = dataclasses.dataclass(frozen=True)

@@ -24,7 +24,7 @@ from raytracer2_tpu_torch.render import rays as raysmod
 from raytracer2_tpu_torch.render.gbuffer import GBuffer, surface_from_gbuffer
 from raytracer2_tpu_torch.render.shading import setup_visibility_ray
 from raytracer2_tpu_torch.render.surface import (
-    Surface, are_materials_similar, get_surface_brdf_pdf,
+    Surface, are_materials_similar, evaluate_brdf, get_surface_brdf_pdf,
     get_surface_brdf_sample)
 from raytracer2_tpu_torch.restir.bridge import Bridge
 from raytracer2_tpu_torch.scene.scene import Scene
@@ -168,6 +168,15 @@ def get_light_sample_target_pdf(light_sample, surface: Surface
     return torch.where(live, pdf, 0.0)
 
 
+def get_gi_sample_target_pdf(sample_position, sample_radiance,
+                             surface: Surface) -> torch.Tensor:
+    """RAB_GetGISampleTargetPdfForSurface (bridge:687-694)."""
+    b = evaluate_brdf(surface, sample_position)
+    reflected = sample_radiance * (
+        b.demodulated_diffuse[..., None] * surface.diffuse_albedo + b.specular)
+    return brdfm.luminance_rec709(reflected)
+
+
 def make_bridge(scene: Scene, tracers: Tracers, gbuffer: GBuffer,
                 prev_gbuffer: GBuffer, g_const: GConst, lights: LightInfo,
                 geometry_to_light: torch.Tensor, local_pdf_mips,
@@ -277,6 +286,7 @@ def make_bridge(scene: Scene, tracers: Tracers, gbuffer: GBuffer,
     return Bridge(
         get_gbuffer_surface=get_gbuffer_surface,
         get_light_sample_target_pdf=get_light_sample_target_pdf,
+        get_gi_sample_target_pdf=get_gi_sample_target_pdf,
         get_conservative_visibility=get_conservative_visibility,
         get_temporal_conservative_visibility=(
             get_temporal_conservative_visibility),

@@ -17,6 +17,7 @@ import torch
 
 from raytracer2_tpu_torch.params import GConst
 from raytracer2_tpu_torch.render import rays as raysmod
+from raytracer2_tpu_torch.render.banding import banded
 from raytracer2_tpu_torch.render.shading import (
     shade_surface_with_light_sample, store_shading_output)
 from raytracer2_tpu_torch.render.surface import Surface
@@ -59,18 +60,12 @@ def di_fused_resampling_pass(
     surface = (primary_surface if primary_surface is not None
                else bridge.get_gbuffer_surface(px, py, False))
 
-    if height * width <= _BAND_THRESHOLD:
+    def body(px, py, surface, dif, spec):
         return _di_fused_body(g_const, bridge, light_ctx, px, py, surface,
-                              diffuse_img, specular_img)
-    # row bands of about half the threshold's lanes each
-    hb = max(1, min(1 << 21, _BAND_THRESHOLD // 2) // width)
-    outs = [_di_fused_body(
-        g_const, bridge, light_ctx, px[r:r + hb], py[r:r + hb],
-        Surface(*(f[r:r + hb] for f in surface)), diffuse_img[r:r + hb],
-        specular_img[r:r + hb]) for r in range(0, height, hb)]
-    res, dif, spec = zip(*outs)
-    return (dires.DIReservoir(*(torch.cat(f) for f in zip(*res))),
-            torch.cat(dif), torch.cat(spec))
+                              dif, spec)
+
+    return banded(body, height, width, _BAND_THRESHOLD, px, py, surface,
+                  diffuse_img, specular_img)
 
 
 def _di_fused_body(g_const: GConst, bridge: Bridge,

@@ -2,11 +2,12 @@
 Renderer, create_renderer, FrameState, init_frame_state and render_frame.
 
 Two branches are ported: the reference mode (GConst.refrence_mode=1,
-frame.py:242-267 of the JAX package) and the ReSTIR frame with GI off
-(G-buffer, DI fused pass in mode 0, post-process; frame.py:269-414). The
-GI chain (ROADMAP queue A5), DI spatio-temporal resampling,
-checkerboard fields and ReGIR (A6) raise rather than render anything in
-their place.
+frame.py:242-267 of the JAX package) and the ReSTIR frame graph
+(frame.py:269-414): G-buffer, the DI fused pass in mode 0, the GI chain
+(BRDF rays, secondary shading, GI temporal and spatial resampling, GI
+final shading) with its reservoir slots, and post-processing. DI
+spatio-temporal resampling, checkerboard fields and ReGIR (ROADMAP queue
+A) raise rather than render anything in their place.
 """
 
 from __future__ import annotations
@@ -25,12 +26,18 @@ from raytracer2_tpu_torch.render.app_bridge import (
 from raytracer2_tpu_torch.render.di_passes import di_fused_resampling_pass
 from raytracer2_tpu_torch.render.gbuffer import (
     GBuffer, empty_gbuffer, gbuffer_pass, surface_from_gbuffer_grid)
+from raytracer2_tpu_torch.render.gi_passes import (
+    SecondaryGBuffer, brdf_rays_pass, empty_secondary_gbuffer,
+    gi_final_shading_pass, gi_spatial_pass, gi_temporal_pass,
+    shade_secondary_surfaces_pass)
 from raytracer2_tpu_torch.render.postprocess import (
     PostProcessInputs, post_process)
 from raytracer2_tpu_torch.render.reference import render_reference
 from raytracer2_tpu_torch.render.shading import store_shading_output
 from raytracer2_tpu_torch.restir.di_reservoir import (
     DIReservoir, empty_di_reservoir)
+from raytracer2_tpu_torch.restir.gi_reservoir import (
+    GIReservoir, empty_gi_reservoir)
 from raytracer2_tpu_torch.restir.initial_sampling import LightSamplingContext
 from raytracer2_tpu_torch.scene.scene import Scene
 from raytracer2_tpu_torch.utils import packing as pk
@@ -39,27 +46,33 @@ from raytracer2_tpu_torch.utils import packing as pk
 class FrameState(NamedTuple):
     """Persistent cross-frame state (render_resources.rs:130-342): the
     G-buffers (current, which becomes the previous one next frame), motion,
-    the lighting images and the two DI reservoir slots. The GI reservoirs
-    and the secondary G-buffer come with the GI slice."""
+    the lighting images, the two GI and the two DI reservoir slots and the
+    secondary G-buffer."""
 
     gbuffer: GBuffer
     prev_gbuffer: GBuffer
     motion: torch.Tensor  # [H, W, 3]
     diffuse_lighting: torch.Tensor  # [H, W, 3]
     specular_lighting: torch.Tensor  # [H, W, 3]
+    gi_reservoirs: tuple[GIReservoir, GIReservoir]
     di_reservoirs: tuple[DIReservoir, DIReservoir]
+    secondary: SecondaryGBuffer
 
 
 def init_frame_state(width: int, height: int, *, device) -> FrameState:
     def img3():
         return torch.zeros((height, width, 3), device=device)
 
+    shape = (height, width)
     return FrameState(
         gbuffer=empty_gbuffer(height, width, device=device),
         prev_gbuffer=empty_gbuffer(height, width, device=device),
         motion=img3(), diffuse_lighting=img3(), specular_lighting=img3(),
-        di_reservoirs=(empty_di_reservoir((height, width), device=device),
-                       empty_di_reservoir((height, width), device=device)))
+        gi_reservoirs=(empty_gi_reservoir(shape, device=device),
+                       empty_gi_reservoir(shape, device=device)),
+        di_reservoirs=(empty_di_reservoir(shape, device=device),
+                       empty_di_reservoir(shape, device=device)),
+        secondary=empty_secondary_gbuffer(height, width, device=device))
 
 
 @dataclasses.dataclass(frozen=True)
@@ -144,41 +157,69 @@ def render_frame(renderer: Renderer, g_const: GConst, state: FrameState
         output, _ = post_process(scene, g_const, inputs)
         return new_state, output
 
-    if g_const.enable_restir_gi:
-        raise NotImplementedError(
-            "the ReSTIR GI chain (enable_restir_gi=1) comes with the GI "
-            "slice (ROADMAP queue A5)")
     if g_const.runtime_params.active_checkerboard_field:
         raise NotImplementedError("checkerboard rendering is not ported "
-                                  "(ROADMAP queue A6)")
+                                  "(ROADMAP queue A)")
     if (g_const.restir_di.initial_sampling_params.local_light_sampling_mode
             == 2):
         raise NotImplementedError("ReGIR local-light sampling (mode 2) is "
-                                  "not ported (ROADMAP queue A6)")
+                                  "not ported (ROADMAP queue A)")
 
     # 1. G-buffer pass (light_passes.rs:598-606)
     gbuffer, motion = gbuffer_pass(scene, g_const,
                                    renderer.tracers.closest_hit, width,
                                    height)
     diffuse, specular = state.diffuse_lighting, state.specular_lighting
+    gi_slots = list(state.gi_reservoirs)
     di_slots = list(state.di_reservoirs)
+    secondary = state.secondary
 
-    # 2. DI fused resampling (light_passes.rs:608-619)
-    if g_const.enable_restir_di:
+    if g_const.enable_restir_di or g_const.enable_restir_gi:
         lights = renderer.scene_lights
         bridge = make_bridge(
             scene, renderer.tracers, gbuffer, prev_gbuffer, g_const,
             lights.lights, lights.geometry_to_light, lights.local_pdf_mips,
             lights.env_pdf_mips, renderer.neighbor_offsets, width, height)
+        light_ctx = renderer.light_ctx(g_const)
+        # every lighting pass reads the primary surface at the launch grid:
+        # reconstructed once, from whole planes
+        primary = surface_from_gbuffer_grid(gbuffer, g_const.view)
+
+    # 2. DI fused resampling (light_passes.rs:608-619)
+    if g_const.enable_restir_di:
         di_res, diffuse, specular = di_fused_resampling_pass(
-            g_const, bridge, renderer.light_ctx(g_const), diffuse, specular,
-            width, height,
-            primary_surface=surface_from_gbuffer_grid(gbuffer,
-                                                      g_const.view))
+            g_const, bridge, light_ctx, diffuse, specular, width, height,
+            primary_surface=primary)
         di_slots[g_const.restir_di.buffer_indices
                  .shading_input_buffer_index] = di_res
 
-    # 3. post-process (post_processing.comp)
+    # 3. ReSTIR GI chain (light_passes.rs:621-660)
+    if g_const.enable_restir_gi:
+        gi_idx = g_const.restir_gi.buffer_indices
+        secondary, diffuse, specular = brdf_rays_pass(
+            scene, g_const, renderer.tracers, bridge, diffuse, specular,
+            width, height, primary_surface=primary)
+        current, secondary, diffuse, specular = shade_secondary_surfaces_pass(
+            scene, g_const, renderer.tracers, bridge, light_ctx, secondary,
+            diffuse, specular, width, height, primary_surface=primary)
+        gi_slots[gi_idx.secondary_surface_restir_di_output_buffer_index] = \
+            current
+        if g_const.enable_temporal_resampling:
+            prev_src = state.gi_reservoirs[
+                gi_idx.temporal_resampling_input_buffer_index]
+            current = gi_temporal_pass(g_const, bridge, current, prev_src,
+                                       motion, width, height,
+                                       primary_surface=primary)
+            gi_slots[gi_idx.temporal_resampling_output_buffer_index] = current
+        if g_const.enable_spatial_resampling:
+            current = gi_spatial_pass(g_const, bridge, current, width, height,
+                                      primary_surface=primary)
+            gi_slots[gi_idx.spatial_resampling_output_buffer_index] = current
+        diffuse, specular = gi_final_shading_pass(
+            g_const, bridge, current, secondary, diffuse, specular, width,
+            height, primary_surface=primary)
+
+    # 4. post-process (post_processing.comp)
     inputs = PostProcessInputs(
         depth=gbuffer.depth,
         diffuse_albedo=pk.unpack_r11g11b10_ufloat(gbuffer.diffuse_albedo),
@@ -192,5 +233,6 @@ def render_frame(renderer: Renderer, g_const: GConst, state: FrameState
     new_state = FrameState(
         gbuffer=gbuffer, prev_gbuffer=prev_gbuffer, motion=motion,
         diffuse_lighting=diffuse, specular_lighting=specular,
-        di_reservoirs=(di_slots[0], di_slots[1]))
+        gi_reservoirs=(gi_slots[0], gi_slots[1]),
+        di_reservoirs=(di_slots[0], di_slots[1]), secondary=secondary)
     return new_state, output

@@ -225,3 +225,17 @@ def get_environment_motion_vector(view: PlanarViewConstants,
     return (view_tensor(view.clip_to_window_scale, dev) * (prev_ndc - clip_xy)
             + (view_tensor(view.pixel_offset, dev)
                - view_tensor(view_prev.pixel_offset, dev)))
+
+
+def convert_motion_vector_to_pixel_space(
+        view: PlanarViewConstants, view_prev: PlanarViewConstants,
+        pixel_x: torch.Tensor, pixel_y: torch.Tensor,
+        motion: torch.Tensor) -> torch.Tensor:
+    """Port of convertMotionVectorToPixelSpace (GBufferHelpers.glsl:69-80)."""
+    dev = motion.device
+    center = torch.stack([pixel_x.to(torch.float32) + 0.5,
+                          pixel_y.to(torch.float32) + 0.5], dim=-1)
+    prev_pos = center + motion[..., :2]
+    prev_pos = prev_pos * (view_tensor(view_prev.viewport_size, dev)
+                           * view_tensor(view.viewport_size_inv, dev))
+    return torch.cat([prev_pos - center, motion[..., 2:]], dim=-1)

@@ -5,8 +5,7 @@ The ReSTIR library is written against this NamedTuple of closures; scene
 access, G-buffer reads and ray tracing are injected by the renderer
 (render/app_bridge.py::make_bridge). Every closure works on whole pixel
 tensors, and each pass calls the visibility closures a fixed number of
-times on full batches. The GI members (the GI target pdf, the Jacobian
-check) come with the GI slice.
+times on full batches.
 """
 
 from __future__ import annotations
@@ -23,6 +22,9 @@ class Bridge(NamedTuple):
     get_gbuffer_surface: Callable
     # RAB_GetLightSampleTargetPdfForSurface (bridge:478-500)
     get_light_sample_target_pdf: Callable
+    # RAB_GetGISampleTargetPdfForSurface (bridge:687-694):
+    # (sample_pos, sample_radiance, surface) -> [...] f32
+    get_gi_sample_target_pdf: Callable
     # RAB_GetConservativeVisibility (bridge:700-703):
     # (surface, sample_position) -> visible mask
     get_conservative_visibility: Callable
@@ -48,3 +50,12 @@ class Bridge(NamedTuple):
     neighbor_offsets: torch.Tensor
     # (width, height) for RAB_ClampSamplePositionIntoView
     viewport: tuple[int, int]
+
+
+def validate_gi_sample_with_jacobian(jacobian: torch.Tensor
+                                     ) -> tuple[torch.Tensor, torch.Tensor]:
+    """RAB_ValidateGISampleWithJacobian (bridge:673-684): reject if the
+    solid-angle ratio is >10x off, else clamp to [1/3, 3].
+    Returns (valid_mask, clamped_jacobian)."""
+    valid = (jacobian <= 10.0) & (jacobian >= 0.1)
+    return valid, torch.clamp(jacobian, 1.0 / 3.0, 3.0)

@@ -214,6 +214,13 @@ def g_smith_over_ndotv(roughness, ndotv, ndotl):
     return 2.0 * ndotl / torch.clamp_min(g1 + g2, 1e-20)
 
 
+def g1_smith(roughness, ndotl):
+    """Smith masking for a single direction (ref: Helpers.glsl:305-309)."""
+    alpha = roughness * roughness
+    a2 = alpha * alpha
+    return 2.0 * ndotl / (ndotl + torch.sqrt(a2 + (1.0 - a2) * ndotl * ndotl))
+
+
 def ggx_times_ndotl(v, l, n, roughness, f0, quirk=None) -> torch.Tensor:
     """Full specular BRDF * NdotL, [...,3] (ref: Helpers.glsl:213-233)."""
     h = normalize(l + v)

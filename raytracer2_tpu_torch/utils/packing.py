@@ -1,12 +1,12 @@
 """Bit-packing of the G-buffer and light-record formats, port of
 raytracer2_tpu/utils/packing.py (src/shaders/packing.glsl, Helpers.glsl,
 rtxdi/RtxdiMath.hlsli): unorm fields, R11G11B10 UFLOAT, RGBA8 with gamma
-2.2, RGB8, f16 bits, octahedral unorm32 normals and the Z-curve index math.
+2.2, RGB8, f16 bits and pairs (R16G16, R16G16B16A16), octahedral unorm32
+and snorm2x16 normals, LogLuv HDR colour and the Z-curve index math.
 
 torch's uint32 has only partial operator support, so uint32 values are
 carried in int64 tensors holding [0, 2**32); every left shift is masked
-back to 32 bits. The snorm2x16 normals, the f16 pair packings and LogLuv
-serve the GI reservoirs and come with that slice (ROADMAP queue A).
+back to 32 bits.
 """
 
 from __future__ import annotations
@@ -109,6 +109,29 @@ def f16_bits_to_f32(v: torch.Tensor) -> torch.Tensor:
     return h.view(torch.float16).to(torch.float32)
 
 
+def pack_r16g16_float(rg: torch.Tensor) -> torch.Tensor:
+    """[..., 2] floats -> u32 of two halves (ref: packing.glsl:92-97)."""
+    return f32_to_f16_bits(rg[..., 0]) | (f32_to_f16_bits(rg[..., 1]) << 16)
+
+
+def unpack_r16g16_float(v: torch.Tensor) -> torch.Tensor:
+    """u32 -> [..., 2] floats (ref: packing.glsl:104-108)."""
+    v = as_u32(v)
+    return torch.stack([f16_bits_to_f32(v), f16_bits_to_f32(v >> 16)], dim=-1)
+
+
+def pack_r16g16b16a16_float(rgba: torch.Tensor) -> torch.Tensor:
+    """[..., 4] floats -> [..., 2] u32 (ref: packing.glsl:99-102)."""
+    return torch.stack([pack_r16g16_float(rgba[..., 0:2]),
+                        pack_r16g16_float(rgba[..., 2:4])], dim=-1)
+
+
+def unpack_r16g16b16a16_float(v: torch.Tensor) -> torch.Tensor:
+    """[..., 2] u32 -> [..., 4] floats (ref: packing.glsl:110-113)."""
+    return torch.cat([unpack_r16g16_float(v[..., 0]),
+                      unpack_r16g16_float(v[..., 1])], dim=-1)
+
+
 # ---------------------------------------------------------------------------
 # Octahedral unit-vector encodings
 # ---------------------------------------------------------------------------
@@ -161,6 +184,39 @@ def oct_unorm32_to_ndir(v: torch.Tensor) -> torch.Tensor:
 
 
 # ---------------------------------------------------------------------------
+# snorm2x16 octahedral variant used by reservoirs (rtxdi/RtxdiMath.hlsli)
+# ---------------------------------------------------------------------------
+
+def pack_snorm2x16(v: torch.Tensor) -> torch.Tensor:
+    """[..., 2] floats in [-1,1] -> u32 (ref: RtxdiMath.hlsli:135-144);
+    a NaN component zeroes both."""
+    nan = torch.isnan(v).any(dim=-1, keepdim=True)
+    v = torch.where(nan, 0.0, torch.clamp(v, -1.0, 1.0))
+    iv = torch.round(v * 32767.0).to(torch.int64)  # half to even, as jnp
+    return ((iv[..., 0] & 0xFFFF) | (iv[..., 1] << 16)) & M32
+
+
+def unpack_snorm2x16(packed: torch.Tensor) -> torch.Tensor:
+    """u32 -> [..., 2] floats in [-1,1] (ref: RtxdiMath.hlsli:126-133)."""
+    p = as_u32(packed)
+    x = p & 0xFFFF
+    y = p >> 16
+    xy = torch.stack([x, y], dim=-1)
+    xy = torch.where(xy >= 0x8000, xy - 0x10000, xy)  # sign-extend 16 bits
+    return torch.clamp_min(xy.to(torch.float32) / 32767.0, -1.0)
+
+
+def encode_normal_snorm2x16(n: torch.Tensor) -> torch.Tensor:
+    """Unit vector -> u32 via oct + snorm2x16 (ref: RtxdiMath.hlsli:184-188)."""
+    return pack_snorm2x16(ndir_to_oct_signed(n))
+
+
+def decode_normal_snorm2x16(packed: torch.Tensor) -> torch.Tensor:
+    """u32 -> unit vector (ref: RtxdiMath.hlsli:190-195)."""
+    return oct_to_ndir_signed(unpack_snorm2x16(packed))
+
+
+# ---------------------------------------------------------------------------
 # Z-curve (Morton order) index math
 # ---------------------------------------------------------------------------
 
@@ -194,3 +250,56 @@ def linear_to_zcurve(index: torch.Tensor
     """Z-curve linear index -> (x, y) (ref: RtxdiMath.hlsli:61-66)."""
     i = as_u32(index)
     return integer_compact(i), integer_compact(i >> 1)
+
+
+# ---------------------------------------------------------------------------
+# LogLuv HDR colour (the GI reservoirs' packed radiance)
+# ---------------------------------------------------------------------------
+
+_RGB_TO_XYZ = (
+    (0.4123907992659595, 0.3575843393838780, 0.1804807884018343),
+    (0.2126390058715104, 0.7151686787677559, 0.0721923153607337),
+    (0.0193308187155918, 0.1191947797946259, 0.9505321522496608))
+
+_XYZ_TO_RGB = (
+    (3.240969941904522, -1.537383177570094, -0.4986107602930032),
+    (-0.9692436362808803, 1.875967501507721, 0.04155505740717569),
+    (0.05563007969699373, -0.2039769588889765, 1.056971514242878))
+
+
+def _mat3(m, v: torch.Tensor) -> torch.Tensor:
+    """[3, 3] float32 matrix m times [..., 3] vectors, as a matrix product."""
+    return v @ torch.tensor(m, dtype=torch.float32, device=v.device).T
+
+
+def encode_rgb_to_logluv(color: torch.Tensor) -> torch.Tensor:
+    """[..., 3] HDR RGB -> u32 LogLuv (ref: RtxdiMath.hlsli:233-265)."""
+    xyz = _mat3(_RGB_TO_XYZ, color)
+    y = xyz[..., 1]
+    log_y = 409.6 * (torch.log2(torch.clamp_min(y, 1e-30)) + 20.0)
+    le = as_u32(torch.clamp(log_y, 0.0, 16383.0))
+    inv_denom = 1.0 / (-2.0 * xyz[..., 0] + 12.0 * xyz[..., 1]
+                       + 3.0 * (xyz[..., 0] + xyz[..., 1] + xyz[..., 2]))
+    u = 4.0 * xyz[..., 0] * inv_denom
+    v = 9.0 * xyz[..., 1] * inv_denom
+    ue = as_u32(torch.clamp(820.0 * u, 0.0, 511.0))
+    ve = as_u32(torch.clamp(820.0 * v, 0.0, 511.0))
+    packed = (le << 18) | (ue << 9) | ve
+    return torch.where((le == 0) | (y <= 0.0), 0, packed)
+
+
+def decode_logluv_to_rgb(packed: torch.Tensor) -> torch.Tensor:
+    """u32 LogLuv -> [..., 3] HDR RGB (ref: RtxdiMath.hlsli:269-298)."""
+    packed = as_u32(packed)
+    le = packed >> 18
+    log_y = (le.to(torch.float32) + 0.5) / 409.6 - 20.0
+    y = torch.exp2(log_y)
+    u = (((packed >> 9) & 0x1FF).to(torch.float32) + 0.5) / 820.0
+    v = ((packed & 0x1FF).to(torch.float32) + 0.5) / 820.0
+    inv_denom = 1.0 / (6.0 * u - 16.0 * v + 12.0)
+    x = 9.0 * u * inv_denom
+    yy = 4.0 * v * inv_denom
+    s = y / torch.clamp_min(yy, 1e-30)
+    xyz = torch.stack([s * x, y, s * (1.0 - x - yy)], dim=-1)
+    rgb = torch.clamp_min(_mat3(_XYZ_TO_RGB, xyz), 0.0)
+    return torch.where((le == 0)[..., None], 0.0, rgb)

@@ -89,6 +89,14 @@ def sample_uniform(state: RngState) -> tuple[torch.Tensor, RngState]:
     return f, state
 
 
+def advance_where(state: RngState, advanced: RngState, mask: torch.Tensor
+                  ) -> RngState:
+    """The state after a draw that only the lanes of `mask` made (the
+    shader's lanes that skip a draw keep their counter)."""
+    return RngState(seed=state.seed,
+                    index=torch.where(mask, advanced.index, state.index))
+
+
 def sample_uniform_n(state: RngState, n: int
                      ) -> tuple[torch.Tensor, RngState]:
     """Draw n uniforms; returns (values stacked on axis -1, new_state)."""

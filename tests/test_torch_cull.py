@@ -1,0 +1,252 @@
+"""The exact cull's dense passes (raytracer2_tpu_torch/ops/cull.py: B3
+nearest_box, B4 bundle_union) against the JAX package's Pallas kernels
+(raytracer2_tpu/ops/pallas_cull.py) in interpret mode, and the candidate
+prep that runs through them.
+
+The rays and boxes are seeded numpy arrays with the edge cases of the slab
+arithmetic: axis-parallel and near-zero directions, rays that start inside
+a box or on its face, flat boxes, duplicate boxes that force ties, dead
+rays (t_max < 0), empty segments and NaN rays. Indices must be equal and
+the union table equal bit for bit (signed zeros included).
+
+The `cuda`-marked tests hold each kernel to its plain version on the card
+and skip here; this file imports JAX only inside the tests that compare
+with it, so on a machine with a card and no JAX
+
+    python -m pytest --noconftest tests/test_torch_cull.py -q -m cuda
+
+runs them.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from raytracer2_tpu_torch.ops import cull
+
+CPU = torch.device("cpu")
+P = 32  # rays per bundle
+N = 4096  # a whole grid step of the Pallas key kernel
+
+
+def _boxes(rng, c):
+    """[C, 3] corners: random boxes, some flat on one axis, and boxes 3,
+    10 and 11 the same box (ties)."""
+    lo = rng.uniform(-5, 5, (c, 3)).astype(np.float32)
+    hi = lo + rng.uniform(0.05, 2.0, (c, 3)).astype(np.float32)
+    flat = rng.integers(0, 3, c)
+    sel = rng.uniform(size=c) < 0.15
+    hi[sel, flat[sel]] = lo[sel, flat[sel]]
+    for dup in (10, 11):
+        lo[dup], hi[dup] = lo[3], hi[3]
+    return lo, hi
+
+
+def _rays(rng, lo, hi, n=N):
+    """[N, 8] rays with the slab test's edge cases; returns (rays8, number
+    of NaN rays)."""
+    o = rng.uniform(-6, 6, (n, 3)).astype(np.float32)
+    d = rng.normal(size=(n, 3)).astype(np.float32)
+    d /= np.linalg.norm(d, axis=-1, keepdims=True)
+    tn = np.full(n, 1e-3, np.float32)
+    tx = np.where(rng.uniform(size=n) < 0.5, 1e5,
+                  rng.uniform(0.5, 8, n)).astype(np.float32)
+    i = np.arange(n)
+    ax = i % 3
+    d[i % 17 == 1, ax[i % 17 == 1]] = 0.0  # axis-parallel
+    d[i % 17 == 2, ax[i % 17 == 2]] = -0.0
+    d[i % 17 == 3, ax[i % 17 == 3]] = 1e-13  # below the 1e-12 guard
+    d[i % 17 == 4, ax[i % 17 == 4]] = -3e-13
+    d[i % 23 == 5] = [0.0, 0.0, 1.0]  # along an axis
+    inside = i % 13 == 6  # start inside box 3 (and its duplicates)
+    o[inside] = 0.5 * (lo[3] + hi[3])
+    face = np.nonzero(i % 19 == 7)[0]  # start on a box face
+    o[face, ax[face]] = lo[face % len(lo), ax[face]]
+    tx[i % 29 == 8] = -1.0  # dead, as padding
+    tx[i % 31 == 9] = 0.0005  # empty segment: t_max < t_min
+    tn[i % 37 == 10] = 3.0  # segments starting late
+    nan = (i % 41 == 11) | (i % 43 == 12) | (i % 47 == 13)
+    o[i % 41 == 11, 0] = np.nan
+    d[i % 43 == 12, 1] = np.nan
+    tx[i % 47 == 13] = np.nan
+    rays8 = np.concatenate([o, d, tn[:, None], tx[:, None]], axis=1)
+    return np.ascontiguousarray(rays8, np.float32), int(nan.sum())
+
+
+def _case(seed, c):
+    rng = np.random.default_rng(seed)
+    lo, hi = _boxes(rng, c)
+    rays8, n_nan = _rays(rng, lo, hi)
+    assert n_nan > 0
+    return rays8, lo, hi
+
+
+def _t(*arrays):
+    return tuple(torch.from_numpy(a) for a in arrays)
+
+
+# C = 256 fills whole 128-lane rows of the Pallas box table; C = 200 pads it
+# with far-away boxes, whose index the JAX callers clamp to C
+@pytest.mark.parametrize("c", [256, 200])
+def test_nearest_box_matches_pallas_key_kernel(c):
+    from raytracer2_tpu.ops import pallas_cull as pc
+    import jax.numpy as jnp
+
+    rays8, lo, hi = _case(60 + c, c)
+    want = np.minimum(np.asarray(pc.nearest_box_pallas(
+        jnp.asarray(rays8), pc.box_rows(jnp.asarray(lo), jnp.asarray(hi)),
+        interpret=True)), c)
+    got = cull.nearest_box_reference(*_t(rays8, lo, hi)).numpy()
+    np.testing.assert_array_equal(got, want)
+    # the cases bite: misses, ties to the first of the duplicate boxes
+    assert (got == c).sum() > 0 and (got < c).sum() > N // 4
+    inside = np.arange(N) % 13 == 6
+    assert (got[inside] == 3).mean() > 0.5
+    assert not np.isin(got, (10, 11)).any()
+
+
+@pytest.mark.parametrize("c", [256, 200])
+def test_bundle_union_matches_pallas_union_kernel(c):
+    from raytracer2_tpu.ops import pallas_cull as pc
+    import jax.numpy as jnp
+
+    rays8, lo, hi = _case(70 + c, c)
+    want = np.asarray(pc.bundle_union_pallas(
+        jnp.asarray(rays8), pc.box_rows(jnp.asarray(lo), jnp.asarray(hi)),
+        p=P, interpret=True))[:, :c]
+    got = cull.bundle_union_reference(*_t(rays8, lo, hi), P).numpy()
+    assert got.shape == (N // P, c)
+    np.testing.assert_array_equal(got.view(np.uint32), want.view(np.uint32))
+    assert np.isinf(got).any() and (got == 0.0).any() and np.isfinite(
+        got).mean() > 0.05
+    assert not np.signbit(got).any()  # no -0, no negative entry
+
+
+def test_plain_passes_ignore_their_chunking(monkeypatch):
+    """The plain versions chunk rays and bundles; the chunk size changes
+    no value."""
+    rays8, lo, hi = _t(*_case(80, 256))
+    key = cull.nearest_box_reference(rays8, lo, hi)
+    union = cull.bundle_union_reference(rays8, lo, hi, P)
+    monkeypatch.setattr(cull, "CULL_CHUNK_BYTES", 4 * 256 * 3 * P)
+    np.testing.assert_array_equal(
+        cull.nearest_box_reference(rays8, lo, hi).numpy(), key.numpy())
+    np.testing.assert_array_equal(
+        cull.bundle_union_reference(rays8, lo, hi, P).numpy().view(np.uint32),
+        union.numpy().view(np.uint32))
+
+
+def test_wrappers_dispatch_on_device():
+    """A CPU tensor runs the plain version (no launch counted); any other
+    device launches the kernel or raises, and never falls back."""
+    rays8, lo, hi = _t(*_case(81, 256))
+    counts = cull.nearest_box.launches, cull.bundle_union.launches
+    np.testing.assert_array_equal(
+        cull.nearest_box(rays8, lo, hi).numpy(),
+        cull.nearest_box_reference(rays8, lo, hi).numpy())
+    np.testing.assert_array_equal(
+        cull.bundle_union(rays8, lo, hi, P).numpy(),
+        cull.bundle_union_reference(rays8, lo, hi, P).numpy())
+    assert (cull.nearest_box.launches, cull.bundle_union.launches) == counts
+    meta = tuple(x.to("meta") for x in (rays8, lo, hi))
+    with pytest.raises(ValueError, match="cuda or cpu"):
+        cull.nearest_box(*meta)
+    with pytest.raises(ValueError, match="cuda or cpu"):
+        cull.bundle_union(*meta, P)
+    with pytest.raises(TypeError):
+        cull.nearest_box(rays8.double(), lo, hi)
+    with pytest.raises(ValueError, match="whole bundles"):
+        cull.bundle_union(rays8[:-1], lo, hi, P)
+
+
+@pytest.mark.parametrize("cull_kernel", [False, True])
+def test_prepare_bundles_exact_matches_jax_prep(tmp_path, cull_kernel):
+    """The exact prep through nearest_box and bundle_union gives JAX's
+    Prep, with its XLA dense passes and with its Pallas kernels
+    (cull_kernel=True, interpret mode): the same permutation, rays,
+    candidate lists and overflow flags."""
+    import jax.numpy as jnp
+    from raytracer2_tpu.models import procedural as proc
+    from raytracer2_tpu.ops import cluster as jcluster
+    from raytracer2_tpu.ops import pallas_traverse as ptm
+    from raytracer2_tpu.scene import gltf
+    from raytracer2_tpu.scene.scene import build_scene
+    from raytracer2_tpu_torch import convert
+    from raytracer2_tpu_torch.ops import cuda_traverse as ct
+
+    p = tmp_path / "s.glb"
+    proc.write_glb(p, proc.sphere_grid_glb(n=2, lat=6, lon=8))
+    j_scene = build_scene(gltf.load_file(p))
+    jc = jcluster.build_clusters(j_scene.tri_v0, j_scene.tri_edge1,
+                                 j_scene.tri_edge2, cluster_size=4)
+    tc = convert.clusters_from_numpy(convert.to_numpy_tree(jc), device=CPU)
+    rng = np.random.default_rng(82)
+    n = 256
+    o = rng.uniform(-4, 4, (n, 3)).astype(np.float32)
+    d = (rng.normal(scale=0.5, size=(n, 3)) - o / 3).astype(np.float32)
+    d /= np.linalg.norm(d, axis=-1, keepdims=True)
+    tn = np.full(n, 1e-3, np.float32)
+    tx = np.full(n, 1e5, np.float32)
+    tx[::7] = -1.0
+    smin = np.array(jnp.min(jc.aabb_min, 0))
+    smax = np.array(jnp.max(jc.aabb_max, 0))
+    for presorted in (False, True):
+        want = ptm._prepare_bundles_exact(
+            jc, *map(jnp.asarray, (o, d, tn, tx)), smin, smax, P, presorted,
+            16, cull_kernel=cull_kernel, interpret=True)
+        got = ct.prepare_bundles_exact(tc, *_t(o, d, tn, tx),
+                                       *_t(smin, smax), P, presorted, 16)
+        (perm, wo, wd, wtn, wtx, idx_flat, _, cand_t, count, _, _, kp, _,
+         ovf) = want
+        b = n // P
+        if presorted:
+            assert got.perm is None
+        else:
+            np.testing.assert_array_equal(got.perm.numpy(), np.asarray(perm))
+        for g, w in ((got.o, wo), (got.d, wd), (got.tn, wtn), (got.tx, wtx)):
+            np.testing.assert_array_equal(g.numpy(), np.asarray(w)[:n])
+        np.testing.assert_array_equal(got.cand_idx.numpy(),
+                                      np.asarray(idx_flat)[:b, :16])
+        np.testing.assert_array_equal(
+            got.cand_t.numpy(), np.asarray(cand_t).reshape(-1, kp)[:b, :16])
+        np.testing.assert_array_equal(got.cand_count.numpy(),
+                                      np.asarray(count)[:b])
+        np.testing.assert_array_equal(got.overflowed.numpy(),
+                                      np.asarray(ovf)[:b])
+        assert got.overflowed.any() and (got.cand_count > 0).sum() >= b // 2
+
+
+# ---------------------------------------------------------------------------
+# On the card: each kernel against its plain version
+# ---------------------------------------------------------------------------
+
+@pytest.fixture
+def dev():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the cull kernels have no CPU mode")
+    return torch.device("cuda")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("c", [256, 200, 3072])
+def test_nearest_box_kernel_matches_plain_version_on_card(dev, c):
+    rays8, lo, hi = (x.to(dev) for x in _t(*_case(90 + c, c)))
+    launches = cull.nearest_box.launches
+    got = cull.nearest_box(rays8, lo, hi)
+    torch.cuda.synchronize()
+    assert cull.nearest_box.launches == launches + 1
+    want = cull.nearest_box_reference(rays8, lo, hi)
+    np.testing.assert_array_equal(got.cpu().numpy(), want.cpu().numpy())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("c,p", [(256, 32), (200, 128), (3072, 256)])
+def test_bundle_union_kernel_matches_plain_version_on_card(dev, c, p):
+    rays8, lo, hi = (x.to(dev) for x in _t(*_case(95 + c, c)))
+    launches = cull.bundle_union.launches
+    got = cull.bundle_union(rays8, lo, hi, p)
+    torch.cuda.synchronize()
+    assert cull.bundle_union.launches == launches + 1
+    want = cull.bundle_union_reference(rays8, lo, hi, p)
+    np.testing.assert_array_equal(got.cpu().numpy().view(np.uint32),
+                                  want.cpu().numpy().view(np.uint32))

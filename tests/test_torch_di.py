@@ -252,16 +252,21 @@ def test_di_frame_counts_walks_and_fallbacks(cornell, monkeypatch):
 
 
 @pytest.mark.parametrize("field,value", [
-    ("enable_restir_gi", 1),
+    ("enable_boiling_filter", 1),
     ("enable_di_resampling", 1),
     ("local_light_sampling_mode", 2),
     ("active_checkerboard_field", 1),
 ])
 def test_render_frame_raises_off_path(cornell, field, value):
-    """GI (the next slice), DI resampling, ReGIR and checkerboard fields
-    raise rather than render a DI-only image in their place."""
+    """The DI boiling filter, DI resampling, ReGIR and checkerboard fields
+    raise rather than render a DI image without them."""
     t_g = _t_g(cornell["j_g"])
-    if field == "local_light_sampling_mode":
+    if field == "enable_boiling_filter":
+        di = t_g.restir_di
+        t_g = t_g.replace(restir_di=dataclasses.replace(
+            di, temporal_resampling_params=dataclasses.replace(
+                di.temporal_resampling_params, enable_boiling_filter=value)))
+    elif field == "local_light_sampling_mode":
         di = t_g.restir_di
         t_g = t_g.replace(restir_di=dataclasses.replace(
             di, initial_sampling_params=dataclasses.replace(

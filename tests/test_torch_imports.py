@@ -21,8 +21,18 @@ import chip_smoke
 jax_free = not any(m == "jax" or m.startswith("jax.") for m in sys.modules)
 old = sorted(m for m in sys.modules
              if m == "raytracer2_tpu" or m.startswith("raytracer2_tpu."))
-print(len(names), jax_free, ",".join(old))
+print(len(names), jax_free, ",".join(names), ",".join(old))
 """
+
+# the modules of the GI slice and the dense cull, named so that a missing
+# one fails here rather than go unprobed
+SLICE_MODULES = {
+    "raytracer2_tpu_torch.ops.cull",
+    "raytracer2_tpu_torch.restir.gi_reservoir",
+    "raytracer2_tpu_torch.restir.gi_resampling",
+    "raytracer2_tpu_torch.render.gi_passes",
+    "raytracer2_tpu_torch.render.banding",
+}
 
 # the JAX package's modules the port may load: none (the port keeps its own
 # copies of the host modules it needs)
@@ -37,8 +47,9 @@ def test_every_submodule_imports_without_jax():
                          capture_output=True, text=True, timeout=120,
                          check=True).stdout.split()
     n_modules, jax_free = int(out[0]), out[1]
-    old = set(out[2].split(",")) if len(out) > 2 else set()
-    assert n_modules >= 30
+    old = set(out[3].split(",")) if len(out) > 3 else set()
+    assert n_modules >= 34
+    assert SLICE_MODULES <= set(out[2].split(","))
     assert jax_free == "True"
     assert old <= SHARED, old - SHARED
 

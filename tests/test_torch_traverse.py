@@ -175,8 +175,8 @@ def test_cand0_sort_key_bit_exact(tiny):
         jnp.asarray(tiny["t_max"]), c.aabb_min, c.aabb_max,
         tiny["smin"], tiny["smax"])
     tc = tiny["t_clusters"]
-    got = ct.cand0_sort_key(*_rays_t(tiny, "bounces"), tc.aabb_min,
-                            tc.aabb_max,
+    got = ct.cand0_sort_key(ct._pack8(*_rays_t(tiny, "bounces")),
+                            tc.aabb_min, tc.aabb_max,
                             torch.from_numpy(tiny["smin"]),
                             torch.from_numpy(tiny["smax"]))
     np.testing.assert_array_equal(got.numpy(),
