@@ -9,10 +9,13 @@ create_renderer / init_frame_state / render_frame (and render_reference):
 the flagship ReSTIR DI+GI frame (bench.py's pipeline frame: the default
 GConst plus DI; GI temporal and spatial off), the ReSTIR DI frame of
 bench.py's DI validation config (4 local-light + 1 BRDF candidates, final
-visibility, accumulation; GI off) and the reference-mode frame. Four
+visibility, accumulation; GI off) and the reference-mode frame, through the
+default bundle-walk backend; then the flagship and DI frames again through
+the pair-sweep backend (create_renderer(..., backend="pairs")). Six
 hand-written CUDA kernels carry them: the closest-hit and any-hit walks
-(B1, B2) and the exact cull's nearest box and bundle union (B3, B4). The
-phases, each of which raises on failure:
+(B1, B2), the exact cull's nearest box and bundle union (B3, B4), and the
+pair engine's sweep (B5) and stable counting sort (B6). The phases, each of
+which raises on failure:
 
 1. device             - a CUDA device is required; no CPU run.
 2. build              - nvcc builds every kernel from raytracer2_tpu_torch/csrc.
@@ -58,6 +61,32 @@ phases, each of which raises on failure:
 14. frames            - one reference-mode render_frame and one
                         render_reference frame; walk_closest must have
                         launched.
+15. pairs-scene       - (right after scene) the pair-sweep tracers on the
+                        same scene: superclusters, lanes, table bytes; then
+                        oracle-pairs, after oracle and oracle-occlude: the
+                        same 4,096 rays of each class through them against
+                        the brute-force oracles.
+16. pairs-capture     - one flagship and one DI frame through the pairs
+                        backend that hold every launch of B5 and B6 (every
+                        262,144-ray batch) to its plain version, and keep
+                        the inputs of the first launch in each trace call
+                        and each trace call's rays.
+17. kernel-pairs      - on those first batches, pair_sweep and bin_scatter
+                        against their plain versions, bit for bit and timed
+                        (with the capture's tally of every batch), and
+                        bin_scatter on 2^22 ids in 256 bins (the probe's
+                        size); then
+                        pairs-ties: each kept trace through both backends,
+                        every hit that differs a t-tie (a blocked flag that
+                        differs, a rounding tie as in oracle-occlude).
+18. pairs-frames      - two flagship frames and one DI frame through the
+                        pairs backend; B5 and B6 must have launched; the
+                        rays that took the overflow fallback per class, and
+                        the pixels that differ from the bundle backend's
+                        frames of the same index. Then pairs-breakdown: one
+                        more flagship frame with each trace split into the
+                        slab test, the binning (B6 inside it), the sweep
+                        (B5) and the decode, and one under torch.profiler.
 
 Each kernel check prints its time, its plain version's and its bound (the
 least time the card could take: the larger of the bytes the kernel must
@@ -83,12 +112,14 @@ import torch
 sys.path.insert(0, str(Path(__file__).resolve().parent))
 
 from raytracer2_tpu_torch.models import procedural as proc  # noqa: E402
-from raytracer2_tpu_torch.ops import _build, cull, native  # noqa: E402
+from raytracer2_tpu_torch.ops import _build, binning, cull, native  # noqa: E402
+from raytracer2_tpu_torch.ops import cuda_pairs as cp  # noqa: E402
 from raytracer2_tpu_torch.ops import cuda_traverse as ct  # noqa: E402
 from raytracer2_tpu_torch.ops.intersect import (  # noqa: E402
     intersect_brute_force, moller_trumbore, occluded_brute_force)
 from raytracer2_tpu_torch.params import default_gconst  # noqa: E402
 from raytracer2_tpu_torch.render import frame as fr  # noqa: E402
+from raytracer2_tpu_torch.render import app_bridge  # noqa: E402
 from raytracer2_tpu_torch.render import rays as raysmod  # noqa: E402
 from raytracer2_tpu_torch.render.reference import (  # noqa: E402
     render_reference)
@@ -104,6 +135,10 @@ BATCH = 1 << 18  # render_reference's chunk_pixels: one trace batch
 ORACLE_RAYS = 4096
 T_MIN, T_MAX = 0.001, 100000.0  # refrence.rgen:27, BACKGROUND_DEPTH
 TIE_REL = 1e-5  # a closest hit within this relative t of another ties
+# two engines' closest hits tie when their t agree above the bits a packed
+# key drops (the pair key 11 low mantissa bits, the walk's 10): the key
+# orders such hits by lane slot, which the engines lay out differently
+KEY_TIE_REL = 2.0 ** -12
 # the float32 rounding bound of one Wald test: this many units of 2^-24
 # times the sum of the absolute terms of its affines
 WALD_ROUNDING = 8 * 2.0 ** -24
@@ -123,6 +158,8 @@ WALD_TEST_OPS = 45
 # once per ray, and cull_bound counts only the rays that pass it)
 SLAB_TEST_OPS = 27
 FLAGSHIP_FRAMES = 3
+PAIRS_FLAGSHIP_FRAMES = 2
+PROBE_IDS, PROBE_BINS = 1 << 22, 256  # scripts/binning_ab.py's probe size
 # the flagship frame's bounce-class traces, in the order the frame casts
 # them (the G-buffer's pixel tiles take the interval cull, not B3/B4)
 FLAGSHIP_BOUNCES = ("di_brdf_candidate", "gi_brdf_rays",
@@ -141,13 +178,23 @@ KERNELS = {
     "bundle_union": dict(
         source="raytracer2_tpu_torch/csrc/cull.cu",
         replaces="raytracer2_tpu/ops/pallas_cull.py:128"),
+    "pair_sweep": dict(
+        source="raytracer2_tpu_torch/csrc/pair_sweep.cu",
+        replaces="raytracer2_tpu/ops/pallas_pairs.py:115"),
+    "bin_scatter": dict(
+        source="raytracer2_tpu_torch/csrc/binning.cu",
+        replaces="raytracer2_tpu/ops/pallas_binning.py:56"),
 }
 WALKS = ("walk_closest", "walk_occluded")
 CULLS = ("nearest_box", "bundle_union")
+PAIR_KERNELS = ("pair_sweep", "bin_scatter")
+KERNEL_MODULES = {"walk_closest": ct, "walk_occluded": ct,
+                  "nearest_box": cull, "bundle_union": cull,
+                  "pair_sweep": cp, "bin_scatter": binning}
 
 
 def launch_count(name: str) -> int:
-    return getattr(ct if name in WALKS else cull, name).launches
+    return getattr(KERNEL_MODULES[name], name).launches
 
 
 def log(phase: str, **fields) -> None:
@@ -462,7 +509,7 @@ def phase_kernel(renderer, batches) -> dict:
     return classes
 
 
-def phase_oracle(scene, renderer, batches) -> None:
+def phase_oracle(scene, renderer, batches, phase: str = "oracle") -> None:
     for cls, (presorted, o, d, tn, tx) in batches.items():
         sl = slice(0, ORACLE_RAYS)
         got = renderer.tracers.closest_hit(o[sl], d[sl], tn[sl], tx[sl],
@@ -474,7 +521,7 @@ def phase_oracle(scene, renderer, batches) -> None:
         tie = differ & (got.missed == ref.missed) & (
             (got.t - ref.t).abs() <= TIE_REL * ref.t.abs())
         bad = int((differ & ~tie).sum())
-        log("oracle", cls=cls, rays=ORACLE_RAYS,
+        log(phase, cls=cls, rays=ORACLE_RAYS,
             hits=int((~ref.missed).sum()), same_triangle=int((~differ).sum()),
             t_ties=int(tie.sum()), disagree=bad)
         if bad:
@@ -511,29 +558,48 @@ class _Patch:
 
 
 class TraceLog:
-    """Hooks the tracers' two queries, the two walks and the two cull
-    passes. It counts the visibility rays (the "shadow" class) and how many
-    are blocked. Between start() and stop() it names each trace call
-    (prefix + "gbuffer", the bounce names in call order, prefix +
-    "visibility") and keeps, by name, a copy of the inputs of the first
-    launch of each walk and cull kernel in that call (the main path's own
-    batch, not a fallback re-trace), and ORACLE_RAYS visibility rays from
-    the middle of the screen. It launches nothing itself."""
+    """Hooks the tracers' two queries and, for the bundle backend, the two
+    walks and the two cull passes, or with pairs=True the pair engine's
+    sweep and binning. It counts the visibility rays (the "shadow" class)
+    and how many are blocked. Between start() and stop() it names each
+    trace call (prefix + "gbuffer", the bounce names in call order, prefix
+    + "visibility") and keeps, by name, a copy of the inputs of the first
+    launch of each hooked kernel in that call (the main path's own batch,
+    not a fallback re-trace), and ORACLE_RAYS visibility rays from the
+    middle of the screen. With pairs=True it also keeps each trace call's
+    rays, and holds every launch of B5 and B6 in a trace call (every
+    262,144-ray batch) to the kernel's plain version on the same inputs,
+    keeping per (name, kernel) the batches, mismatches and hits (keys
+    below MISS_KEY) in `checked`. It launches no kernel itself;
+    restore() takes its hooks out."""
 
-    def __init__(self, tracers):
+    def __init__(self, tracers, pairs: bool = False):
         self.keep = False
         self.walks = {}  # name -> (walk name, args, group)
         self.culls = {}  # (name, cull kernel) -> args
+        self.pair_kernels = {}  # (name, kernel) -> (args, kwargs)
+        self.checked = {}  # (name, kernel) -> [batches, mismatches, hits]
+        self.traces = {}  # name -> (o, d, t_min, t_max, presorted)
         self.oracle_rays = None
         self.rays = self.blocked = 0
         self._cls = None
+        self._pairs = pairs
         self._prefix, self._bounces, self._n_bounce = "", (), 0
         self.patches = [_Patch(tracers, "closest_hit", self._closest),
-                        _Patch(tracers, "occluded", self._occluded),
-                        _Patch(ct, "walk_closest", self._walk),
-                        _Patch(ct, "walk_occluded", self._walk),
-                        _Patch(cull, "nearest_box", self._cull),
-                        _Patch(cull, "bundle_union", self._cull)]
+                        _Patch(tracers, "occluded", self._occluded)]
+        if pairs:
+            self.patches += [_Patch(cp, "pair_sweep", self._pair_kernel),
+                             _Patch(binning, "bin_scatter",
+                                    self._pair_kernel)]
+        else:
+            self.patches += [_Patch(ct, "walk_closest", self._walk),
+                             _Patch(ct, "walk_occluded", self._walk),
+                             _Patch(cull, "nearest_box", self._cull),
+                             _Patch(cull, "bundle_union", self._cull)]
+
+    def restore(self) -> None:
+        for patch in reversed(self.patches):
+            patch.restore()
 
     def start(self, prefix: str, bounces) -> None:
         self.keep = True
@@ -543,6 +609,11 @@ class TraceLog:
         self.keep = False
 
     def _traced(self, cls, inner, *args, **kwargs):
+        if (self._pairs and self.keep and cls is not None
+                and cls not in self.traces):
+            self.traces[cls] = tuple(
+                a.clone() if torch.is_tensor(a) else a for a in args) + (
+                kwargs["presorted"],)
         self._cls = cls
         try:
             return inner(*args, **kwargs)
@@ -587,6 +658,28 @@ class TraceLog:
         if self.keep and self._cls is not None and key not in self.culls:
             self.culls[key] = (args[0].clone(),) + tuple(args[1:])
         return inner(*args, **kwargs)
+
+    def _pair_kernel(self, inner, *args, **kwargs):
+        out = inner(*args, **kwargs)
+        if not self.keep or self._cls is None:
+            return out
+        key = (self._cls, inner.__name__)
+        if key not in self.pair_kernels:
+            self.pair_kernels[key] = (tuple(
+                a.clone() if torch.is_tensor(a) else a for a in args),
+                dict(kwargs))
+        tally = self.checked.setdefault(key, [0, 0, 0])
+        if inner.__name__ == "pair_sweep":
+            want = cp.pair_sweep_reference(*args, **kwargs)
+            tally[1] += int((out != want).sum())
+            tally[2] += int((want < cp.MISS_KEY).sum())
+        else:
+            want = binning.bin_scatter_reference(*args, **kwargs)
+            tally[1] += sum(int((g != w).sum()) for g, w in zip(out, want)
+                            if w is not None)
+            tally[2] += int((want.slots >= 0).sum())
+        tally[0] += 1
+        return out
 
     def share(self) -> float:
         return self.blocked / max(self.rays, 1)
@@ -663,44 +756,54 @@ def _blocked_with_slack(scene, wald, o, d, tn, tx, s_edge: int, s_min: int,
     return (ok & inside & seg).any(dim=1)
 
 
-def phase_oracle_occlude(scene, renderer, batch) -> None:
-    """occluded_bundle against the brute-force any-hit oracle. A ray on
-    which they differ is a tie when the walk's answer lies between the
-    oracle's answers with every triangle edge and segment end moved
-    inwards and with every one moved outwards by the float32 rounding
-    bound of the walk's Wald test (large for a small triangle far from the
-    origin): blocked only if some such move blocks it, clear only if some
-    such move clears it. Anything else disagrees."""
+def _rounding_ties(scene, tracers, rays, got) -> dict:
+    """Of the visibility rays `rays` (o, d, t_min, t_max) on which a tracer
+    answered `got` and a reference differs, the ties: the tracer's answer
+    lies between the brute-force oracle's answers with every triangle edge
+    and segment end moved inwards and with every one moved outwards by the
+    float32 rounding bound of the walks' Wald test (large for a small
+    triangle far from the origin): blocked only if some such move blocks
+    it, clear only if some such move clears it. Returns the ties, which
+    single bound moved outwards flips the oracle on them, and how many
+    start outside the scene."""
+    meta = tracers.tables.meta_rows
+    real = meta[:, 12] >= 0
+    wald = torch.empty((scene.num_triangles, 12), device=got.device)
+    wald[meta[real, 12].long()] = meta[real, :12].contiguous().view(
+        torch.float32)
+    strict = _blocked_with_slack(scene, wald, *rays, -1, -1, -1)
+    loose = _blocked_with_slack(scene, wald, *rays, 1, 1, 1)
+    tied = torch.where(got, loose, ~strict)
+    ties = {f"{name}_ties": int((tied & (_blocked_with_slack(
+        scene, wald, *rays, *signs) != strict)).sum())
+        for name, signs in (("t_max", (-1, -1, 1)), ("t_min", (-1, 1, -1)),
+                            ("edge", (1, -1, -1)))}
+    # rays from a sky pixel's surface at the background depth start
+    # outside the scene; their segments end within float32 rounding of
+    # the light sample, far below the segment's length
+    o = rays[0]
+    outside = ((o < tracers.scene_min) | (o > tracers.scene_max)).any(dim=-1)
+    return {"tied": tied, **ties,
+            "ties_from_outside_scene": int((tied & outside).sum())}
+
+
+def phase_oracle_occlude(scene, renderer, batch,
+                         phase: str = "oracle-occlude") -> None:
+    """The tracers' any-hit query against the brute-force any-hit oracle;
+    a ray on which they differ must be a rounding tie (_rounding_ties)."""
     o, d, tn, tx = batch
     got = renderer.tracers.occluded(o, d, tn, tx, presorted="shadow")
     ref = occluded_brute_force(o, d, scene.tri_v0, scene.tri_edge1,
                                scene.tri_edge2, tn, tx)
     differ = torch.nonzero(got != ref).reshape(-1)
-    meta = renderer.tracers.tables.meta_rows
-    real = meta[:, 12] >= 0
-    wald = torch.empty((scene.num_triangles, 12), device=o.device)
-    wald[meta[real, 12].long()] = meta[real, :12].contiguous().view(
-        torch.float32)
     r = tuple(x[differ] for x in (o, d, tn, tx))
-    strict = _blocked_with_slack(scene, wald, *r, -1, -1, -1)
-    loose = _blocked_with_slack(scene, wald, *r, 1, 1, 1)
-    tied = torch.where(got[differ], loose, ~strict)
-    # which single bound, moved outwards, flips the oracle on a tie
-    ties = {name: int((tied & (_blocked_with_slack(scene, wald, *r, *signs)
-                               != strict)).sum())
-            for name, signs in (("t_max", (-1, -1, 1)), ("t_min", (-1, 1, -1)),
-                                ("edge", (1, -1, -1)))}
-    # rays from a sky pixel's surface at the background depth start
-    # outside the scene; their segments end within float32 rounding of
-    # the light sample, far below the segment's length
-    tr = renderer.tracers
-    outside = ((r[0] < tr.scene_min) | (r[0] > tr.scene_max)).any(dim=-1)
+    ties = _rounding_ties(scene, renderer.tracers, r, got[differ])
+    tied = ties.pop("tied")
     bad = int((~tied).sum())
     live = int((tx > tn).sum())
-    log("oracle-occlude", cls="shadow", rays=ORACLE_RAYS, live_rays=live,
+    log(phase, cls="shadow", rays=ORACLE_RAYS, live_rays=live,
         blocked=int(ref.sum()), same=ORACLE_RAYS - differ.numel(),
-        ties=int(tied.sum()), **{f"{k}_ties": v for k, v in ties.items()},
-        ties_from_outside_scene=int((tied & outside).sum()), disagree=bad)
+        ties=int(tied.sum()), **ties, disagree=bad)
     if bad:
         raise RuntimeError(f"{bad} visibility rays disagree with the "
                            "brute-force oracle beyond ties")
@@ -708,7 +811,7 @@ def phase_oracle_occlude(scene, renderer, batch) -> None:
 
 def _reset_counts(tracers) -> None:
     for name in KERNELS:
-        getattr(ct if name in WALKS else cull, name).launches = 0
+        getattr(KERNEL_MODULES[name], name).launches = 0
     tracers.fallback_by_class.clear()
 
 
@@ -716,12 +819,14 @@ def _launches() -> dict:
     return {name: launch_count(name) for name in KERNELS}
 
 
-def phase_di_frames(scene, renderer, g_di, trace_log: TraceLog) -> dict:
+def phase_di_frames(scene, renderer, g_di, trace_log: TraceLog):
     """Two DI frames from a fresh state (blend_factor 1/(f+1), as
-    bench.py's DI loop); every count is reset just before them."""
+    bench.py's DI loop); every count is reset just before them. Returns
+    the launches and the displays."""
     tracers = renderer.tracers
     state = fr.init_frame_state(WIDTH, HEIGHT, device=scene.device)
     _reset_counts(tracers)
+    imgs = []
     for f in range(2):
         trace_log.rays = trace_log.blocked = 0
         torch.cuda.synchronize()
@@ -741,6 +846,7 @@ def phase_di_frames(scene, renderer, g_di, trace_log: TraceLog) -> dict:
             blocked_share=f"{trace_log.share():.4f}",
             peak_gib=f"{torch.cuda.max_memory_allocated() / 2**30:.2f}")
         _check_image("di display", img, display=True)
+        imgs.append(img)
     _check_image("di diffuse_lighting", state.diffuse_lighting, display=False)
     _check_image("di specular_lighting", state.specular_lighting,
                  display=False)
@@ -748,7 +854,7 @@ def phase_di_frames(scene, renderer, g_di, trace_log: TraceLog) -> dict:
     for name in WALKS:
         if launches[name] <= 0:
             raise RuntimeError(f"the DI frames never launched {name}")
-    return launches
+    return launches, imgs
 
 
 def _timed(spent: dict, key):
@@ -867,13 +973,15 @@ def phase_kernel_cull(trace_log: TraceLog) -> dict:
     return out
 
 
-def phase_flagship_frames(scene, renderer, g_flag) -> dict:
+def phase_flagship_frames(scene, renderer, g_flag):
     """FLAGSHIP_FRAMES flagship frames from a fresh state; every count is
     reset just before them. The frame casts no visibility ray, so the
-    any-hit walk does not launch; the other three kernels must."""
+    any-hit walk does not launch; the other three kernels must. Returns
+    the launches and the displays."""
     tracers = renderer.tracers
     state = fr.init_frame_state(WIDTH, HEIGHT, device=scene.device)
     _reset_counts(tracers)
+    imgs = []
     for f in range(FLAGSHIP_FRAMES):
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
@@ -890,6 +998,7 @@ def phase_flagship_frames(scene, renderer, g_flag) -> dict:
             gi_valid_share=f"{float((state.gi_reservoirs[0].m > 0).float().mean()):.4f}",
             peak_gib=f"{torch.cuda.max_memory_allocated() / 2**30:.2f}")
         _check_image("flagship display", img, display=True)
+        imgs.append(img)
     _check_image("flagship diffuse_lighting", state.diffuse_lighting,
                  display=False)
     _check_image("flagship specular_lighting", state.specular_lighting,
@@ -898,7 +1007,7 @@ def phase_flagship_frames(scene, renderer, g_flag) -> dict:
     for name in ("walk_closest", "nearest_box", "bundle_union"):
         if launches[name] <= 0:
             raise RuntimeError(f"the flagship frames never launched {name}")
-    return launches
+    return launches, imgs
 
 
 def phase_flagship_breakdown(scene, renderer, g_flag) -> None:
@@ -907,8 +1016,24 @@ def phase_flagship_breakdown(scene, renderer, g_flag) -> None:
     permutation; cand0_sort_ms includes B3), B4, the ranking, the walk and
     the decode synchronised and timed (so a little slower than the frames
     above), and one under torch.profiler for the card's idle share."""
+    _breakdown("flagship", scene, renderer, g_flag.replace(
+        frame=FLAGSHIP_FRAMES), [
+        (cull, "nearest_box", "b3_nearest_box"),
+        (ct, "_cand0_sort", "cand0_sort"),
+        (cull, "bundle_union", "b4_bundle_union"),
+        (ct, "_rank", "rank"),
+        (ct, "walk_closest", "walk"),
+        (ct, "walk_occluded", "walk"),
+        (ct, "_decode", "decode")], nested=("b3_nearest_box",))
+
+
+def _breakdown(phase: str, scene, renderer, g, parts, nested) -> None:
+    """One frame with every trace call and each (owner, attr, name) part
+    inside it synchronised and timed, logged per trace as phase + "-trace"
+    (other_ms: the trace's time outside the parts, the `nested` parts
+    being inside others) and in all as phase + "-breakdown"; then one
+    frame under torch.profiler (phase + "-profile")."""
     tracers = renderer.tracers
-    g = g_flag.replace(frame=FLAGSHIP_FRAMES)
     state = fr.init_frame_state(WIDTH, HEIGHT, device=scene.device)
     spent = {}
     trace = {"name": None, "bounce": 0}
@@ -936,14 +1061,7 @@ def phase_flagship_breakdown(scene, renderer, g_flag) -> None:
     wraps = [
         _Patch(tracers, "closest_hit", trace_hook(closest_name)),
         _Patch(tracers, "occluded", trace_hook(lambda kw: "visibility")),
-        _Patch(cull, "nearest_box", part("b3_nearest_box")),
-        _Patch(ct, "_cand0_sort", part("cand0_sort")),
-        _Patch(cull, "bundle_union", part("b4_bundle_union")),
-        _Patch(ct, "_rank", part("rank")),
-        _Patch(ct, "walk_closest", part("walk")),
-        _Patch(ct, "walk_occluded", part("walk")),
-        _Patch(ct, "_decode", part("decode")),
-    ]
+    ] + [_Patch(owner, attr, part(name)) for owner, attr, name in parts]
     try:
         torch.cuda.synchronize()
         t0 = time.perf_counter()
@@ -956,17 +1074,17 @@ def phase_flagship_breakdown(scene, renderer, g_flag) -> None:
     names = sorted({k[0] for k in spent if k[1] == "trace"})
     traces = 0.0
     for name in names:
-        parts = {k[1]: v for k, v in spent.items() if k[0] == name}
-        total = parts.pop("trace")
+        times = {k[1]: v for k, v in spent.items() if k[0] == name}
+        total = times.pop("trace")
         traces += total
-        inner = sum(v for k, v in parts.items() if k != "b3_nearest_box")
-        log("flagship-trace", trace=name, trace_ms=f"{total * 1e3:.2f}",
-            **{f"{k}_ms": f"{v * 1e3:.2f}" for k, v in sorted(parts.items())},
+        inner = sum(v for k, v in times.items() if k not in nested)
+        log(f"{phase}-trace", trace=name, trace_ms=f"{total * 1e3:.2f}",
+            **{f"{k}_ms": f"{v * 1e3:.2f}" for k, v in sorted(times.items())},
             other_ms=f"{(total - inner) * 1e3:.2f}")
-    log("flagship-breakdown", frame_ms=f"{frame_s * 1e3:.1f}",
+    log(f"{phase}-breakdown", frame_ms=f"{frame_s * 1e3:.1f}",
         traces_ms=f"{traces * 1e3:.1f}",
         outside_traces_ms=f"{(frame_s - traces) * 1e3:.1f}")
-    _profile_frame("flagship-profile", renderer, g, state)
+    _profile_frame(f"{phase}-profile", renderer, g, state)
 
 
 def phase_gi_resampling(scene, renderer, view) -> None:
@@ -1027,17 +1145,340 @@ def phase_frames(scene, renderer, g) -> dict:
     return launches
 
 
+# ---------------------------------------------------------------------------
+# The pair-sweep backend (B5, B6)
+# ---------------------------------------------------------------------------
+
+def phase_pairs_scene(scene):
+    """The pair-sweep renderer on the same scene: its superclusters, lanes
+    and the bytes of its tables."""
+    t0 = time.perf_counter()
+    renderer = fr.create_renderer(scene, WIDTH, HEIGHT, backend="pairs")
+    torch.cuda.synchronize()
+    ps = renderer.tracers.pair_scene
+    nbytes = sum(x.numel() * x.element_size()
+                 for x in (ps.sc_min, ps.sc_max, ps.wald_sc, ps.meta_rows))
+    log("pairs-scene", superclusters=ps.num_superclusters, group=ps.group,
+        lanes=ps.lanes, slot_mask=cp._slot_mask(ps.lanes),
+        k_cand=app_bridge.PAIR_K_CAND, ray_batch=cp.PAIR_RAY_BATCH,
+        table_mbytes=f"{nbytes / 1e6:.2f}",
+        seconds=f"{time.perf_counter() - t0:.1f}")
+    return renderer
+
+
+def phase_pairs_capture(scene, renderer, g_flag, g_di,
+                        trace_log: TraceLog) -> None:
+    """One flagship and one DI frame through the pairs backend that keep
+    the inputs of the first B5 and B6 launch of each trace call and each
+    trace call's rays (they also warm the path up)."""
+    tracers = renderer.tracers
+    seconds = {}
+    for name, g, bounces in (
+            ("flagship", g_flag.replace(frame=0),
+             tuple(f"pairs_flagship_{b}" for b in FLAGSHIP_BOUNCES)),
+            ("di", g_di.replace(frame=0, blend_factor=1.0),
+             ("pairs_di_brdf_candidate",))):
+        trace_log.start(f"pairs_{name}_", bounces)
+        state = fr.init_frame_state(WIDTH, HEIGHT, device=scene.device)
+        t0 = time.perf_counter()
+        fr.render_frame(renderer, g, state)
+        torch.cuda.synchronize()
+        seconds[name] = round(time.perf_counter() - t0, 3)
+    trace_log.stop()
+    traces = [f"pairs_flagship_{b}" for b in ("gbuffer",) + FLAGSHIP_BOUNCES]
+    traces.append("pairs_di_visibility")
+    missing = {(t, k) for t in traces for k in PAIR_KERNELS} - set(
+        trace_log.pair_kernels)
+    if missing:
+        raise RuntimeError(f"the pairs frames launched no {sorted(missing)}")
+    log("pairs-capture", seconds=json.dumps(seconds, separators=(",", ":")),
+        kept=json.dumps({k: v[0].shape[0]
+                         for k, v in sorted(trace_log.traces.items())},
+                        separators=(",", ":")),
+        fallback_rays=json.dumps(
+            {str(k): v for k, v in tracers.fallback_by_class.items()},
+            separators=(",", ":")))
+
+
+def real_lanes_by_sc(ps: cp.PairScene) -> torch.Tensor:
+    """[C2] i64: the real triangles of each supercluster."""
+    per_cluster = (ps.meta_rows[:, 12] >= 0).reshape(-1, ps.s_pad).sum(1)
+    pad = ps.num_superclusters * ps.group - per_cluster.numel()
+    return torch.nn.functional.pad(per_cluster, (0, pad)).reshape(
+        ps.num_superclusters, ps.group).sum(1)
+
+
+def pair_sweep_bound(args, real_sc) -> dict:
+    """The least time the card could take for one pair_sweep call on these
+    inputs: the larger of (bytes) / HBM rate and (FP32 operations) / FP32
+    rate. Operations: WALD_TEST_OPS per (active pair ray, real triangle of
+    its block's supercluster), an active pair ray being one of a live block
+    whose segment is not empty (dead pairs carry t_max = -1). Bytes: the
+    pair rows and block tables read once, the keys written once, the Wald
+    coefficients (12 floats) of each real triangle of each distinct live
+    supercluster read once."""
+    rays8, block_sc, block_live, _ = args
+    nblk = block_sc.numel()
+    live = block_live != 0
+    rows = rays8.reshape(nblk, cp.PAIR_P, 8)
+    active = ((rows[..., 7] > rows[..., 6]) & live[:, None]).sum(1)
+    tests = int((active * real_sc[block_sc.long()]).sum())
+    sc_used = torch.unique(block_sc[live]).long()
+    nbytes = (rays8.numel() * 4 + nblk * 2 * 4 + rays8.shape[0] * 4
+              + int(real_sc[sc_used].sum()) * 12 * 4)
+    ops = tests * WALD_TEST_OPS
+    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    ops_ms = ops / FP32_OPS_PER_S * 1e3
+    return {"bound_ms": max(bytes_ms, ops_ms),
+            "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+            "bytes": nbytes, "ops": ops, "active_pair_rays": int(active.sum()),
+            "live_blocks": int(live.sum()),
+            "superclusters_swept": int(sc_used.numel())}
+
+
+def check_pair_sweep(cls: str, args, real_sc, tally) -> dict:
+    """pair_sweep against its plain version on a trace's first batch: keys
+    bit for bit, both times (CUDA events) and the bound; with the trace's
+    tally of every batch (TraceLog.checked). Raises on any mismatch, or on
+    a trace that hits nothing in all its batches."""
+    got = cp.pair_sweep(*args)
+    want = cp.pair_sweep_reference(*args)
+    torch.cuda.synchronize()
+    ms = _median_ms(lambda: cp.pair_sweep(*args))
+    plain_ms = _median_ms(lambda: cp.pair_sweep_reference(*args), reps=1)
+    bound = pair_sweep_bound(args, real_sc)
+    batches, mismatches, hits = tally
+    mismatches += int((got != want).sum())
+    log("kernel-pairs", kernel="pair_sweep", cls=cls, pairs=got.numel(),
+        blocks=args[1].numel(), live_blocks=bound["live_blocks"],
+        active_pair_rays=bound["active_pair_rays"],
+        superclusters_swept=bound["superclusters_swept"],
+        first_batch_hits=int((want < cp.MISS_KEY).sum()),
+        batches_checked=batches, hits_all_batches=hits,
+        mismatches=mismatches, kernel_ms=f"{ms:.3f}",
+        plain_ms=f"{plain_ms:.3f}", bound_ms=f"{bound['bound_ms']:.4f}",
+        bound_by=bound["bound_by"],
+        bound_share=f"{bound['bound_ms'] / ms:.3f}",
+        mbytes=f"{bound['bytes'] / 1e6:.2f}",
+        gops=f"{bound['ops'] / 1e9:.3f}")
+    if mismatches:
+        raise RuntimeError(f"pair_sweep ({cls}): kernel and plain version "
+                           f"disagree on {mismatches} keys")
+    if hits == 0:
+        raise RuntimeError(f"pair_sweep ({cls}): no batch hits anything, "
+                           "they test nothing")
+    return {"ms": ms, "plain_ms": plain_ms, "library_ms": None,
+            "mismatches": mismatches,
+            "max_abs_err": int((got.long() - want.long()).abs().max()),
+            **bound}
+
+
+def check_bin(cls: str, ids, n_bins: int, kwargs,
+              tally=(0, 0, 0)) -> dict:
+    """bin_scatter against its plain version on one id array (a trace's
+    first batch, or the probe's): slots, counts and (when asked) ranks bit
+    for bit; the kernel's, the plain version's and
+    torch.argsort(stable=True)'s times (CUDA events); the bound, bytes: the
+    ids read once, the slots (and ranks) written once. A trace's tally of
+    every batch (TraceLog.checked) adds its mismatches."""
+    got = binning.bin_scatter(ids, n_bins, **kwargs)
+    want = binning.bin_scatter_reference(ids, n_bins, **kwargs)
+    torch.cuda.synchronize()
+    fields = [(g, w) for g, w in zip(got, want) if w is not None]
+    mismatches = tally[1] + sum(int((g != w).sum()) for g, w in fields)
+    max_abs = max(int((g.long() - w.long()).abs().max()) if w.numel() else 0
+                  for g, w in fields)
+    ms = _median_ms(lambda: binning.bin_scatter(ids, n_bins, **kwargs))
+    plain_ms = _median_ms(
+        lambda: binning.bin_scatter_reference(ids, n_bins, **kwargs), reps=3)
+    library_ms = _median_ms(lambda: torch.argsort(ids, stable=True))
+    n = ids.numel()
+    nbytes = (n * 4 + kwargs.get("out_size", 0) * 4 + n_bins * 4
+              + (n * 4 if kwargs.get("ranks") else 0))
+    bound_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    stored = int((got.slots >= 0).sum())
+    log("kernel-pairs", kernel="bin_scatter", cls=cls, ids=n, bins=n_bins,
+        slots=got.slots.numel(), stored=stored,
+        bins_used=int((got.counts > 0).sum()), batches_checked=tally[0],
+        stored_all_batches=tally[2], mismatches=mismatches,
+        kernel_ms=f"{ms:.3f}", plain_ms=f"{plain_ms:.3f}",
+        library_ms=f"{library_ms:.3f}", bound_ms=f"{bound_ms:.4f}",
+        bound_by="bytes", bound_share=f"{bound_ms / ms:.3f}",
+        mbytes=f"{nbytes / 1e6:.2f}")
+    if mismatches:
+        raise RuntimeError(f"bin_scatter ({cls}): kernel and plain version "
+                           f"disagree on {mismatches} values")
+    if int(got.counts.sum()) == 0:
+        raise RuntimeError(f"bin_scatter ({cls}): no id in any bin")
+    return {"ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
+            "mismatches": mismatches, "max_abs_err": max_abs,
+            "bound_ms": bound_ms, "bound_by": "bytes", "bytes": nbytes}
+
+
+def phase_kernel_pairs(renderer, trace_log: TraceLog) -> dict:
+    """B5 and B6 against their plain versions on each trace's first batch
+    (timed; the capture held every batch), and B6 (and the probe built on
+    it) on PROBE_IDS ids in PROBE_BINS bins: {kernel: {class: result}}."""
+    real_sc = real_lanes_by_sc(renderer.tracers.pair_scene)
+    out = {k: {} for k in PAIR_KERNELS}
+    for (cls, kernel), (args, kwargs) in sorted(
+            trace_log.pair_kernels.items()):
+        tally = trace_log.checked[cls, kernel]
+        if kernel == "pair_sweep":
+            out[kernel][cls] = check_pair_sweep(cls, args, real_sc, tally)
+        else:
+            out[kernel][cls] = check_bin(cls, *args, kwargs, tally)
+    gen = torch.Generator(device=renderer.scene.device).manual_seed(6)
+    ids = torch.randint(0, PROBE_BINS, (PROBE_IDS,), generator=gen,
+                        device=renderer.scene.device, dtype=torch.int32)
+    out["bin_scatter"]["probe"] = check_bin("probe", ids, PROBE_BINS,
+                                            {"ranks": True})
+    got = binning.scatter_rate_probe(ids, n_bins=PROBE_BINS)
+    want = binning.scatter_rate_probe(ids.cpu(), n_bins=PROBE_BINS)
+    same = bool((got.cpu() == want).all())
+    log("kernel-pairs", kernel="scatter_rate_probe", ids=PROBE_IDS,
+        bins=PROBE_BINS, blocks=got.shape[0], equal_to_plain=same,
+        first=json.dumps(got[:4, 0].tolist()))
+    if not same:
+        raise RuntimeError("scatter_rate_probe: kernel and plain differ")
+    return out
+
+
+def phase_pairs_ties(scene, renderer, renderer_p,
+                     trace_log: TraceLog) -> None:
+    """Each trace the pairs frames kept, through both backends: a hit that
+    differs must be a key tie (KEY_TIE_REL: the same miss flag and t equal
+    above the bits the packed keys drop, so the lane slot picked the
+    winner), a blocked flag that differs a rounding tie (_rounding_ties).
+    Also logs, per trace, the most
+    superclusters one ray overlaps and how many rays overlap more than
+    the tracers' k_cand (any one sends the trace to the fallback)."""
+    ps = renderer_p.tracers.pair_scene
+    for name, (o, d, tn, tx, presorted) in sorted(trace_log.traces.items()):
+        tn_r, tx_r = (torch.as_tensor(t, device=o.device).expand(o.shape[0])
+                      for t in (tn, tx))
+        overlap = torch.cat([
+            cp._slab_entry(ps, o[s:s + cp.PAIR_RAY_BATCH],
+                           d[s:s + cp.PAIR_RAY_BATCH],
+                           tn_r[s:s + cp.PAIR_RAY_BATCH],
+                           tx_r[s:s + cp.PAIR_RAY_BATCH])[1]
+            for s in range(0, o.shape[0], cp.PAIR_RAY_BATCH)])
+        log("pairs-overlap", trace=name, rays=o.shape[0],
+            max_superclusters=int(overlap.max()),
+            mean_superclusters=f"{float(overlap.float().mean()):.3f}",
+            rays_over_k=int((overlap > app_bridge.PAIR_K_CAND).sum()),
+            k_cand=app_bridge.PAIR_K_CAND)
+        if name.endswith("visibility"):
+            got = renderer_p.tracers.occluded(o, d, tn, tx,
+                                              presorted=presorted)
+            ref = renderer.tracers.occluded(o, d, tn, tx,
+                                            presorted=presorted)
+            differ = torch.nonzero(got != ref).reshape(-1)
+            if differ.numel() > ORACLE_RAYS:
+                raise RuntimeError(f"{name}: {differ.numel()} blocked flags "
+                                   "differ between the backends")
+            r = tuple(x[differ] for x in (o, d, tn_r, tx_r))
+            ties = _rounding_ties(scene, renderer.tracers, r, got[differ])
+            tied = ties.pop("tied")
+            bad = int((~tied).sum())
+            log("pairs-ties", trace=name, rays=o.shape[0],
+                blocked=int(got.sum()), differ=differ.numel(),
+                ties=int(tied.sum()), **ties, disagree=bad)
+        else:
+            got = renderer_p.tracers.closest_hit(o, d, tn, tx,
+                                                 presorted=presorted)
+            ref = renderer.tracers.closest_hit(o, d, tn, tx,
+                                               presorted=presorted)
+            differ = got.triangle_index != ref.triangle_index
+            rel = (got.t - ref.t).abs() / ref.t.abs()
+            tie = differ & (got.missed == ref.missed) & (rel <= KEY_TIE_REL)
+            bad_rays = torch.nonzero(differ & ~tie).reshape(-1)
+            bad = bad_rays.numel()
+            log("pairs-ties", trace=name, rays=o.shape[0],
+                hits=int((~got.missed).sum()), differ=int(differ.sum()),
+                key_ties=int(tie.sum()),
+                max_tie_rel_t=f"{float(rel[tie].max()) if tie.any() else 0:.3g}",
+                disagree=bad, first_disagreeing=json.dumps([
+                    [int(i), float(got.t[i]), float(ref.t[i]),
+                     int(got.triangle_index[i]), int(ref.triangle_index[i])]
+                    for i in bad_rays[:4].tolist()]))
+        if bad:
+            raise RuntimeError(f"{name}: {bad} rays differ between the "
+                               "backends beyond ties")
+
+
+def _pixels_differing(img, ref) -> dict:
+    differ = (img != ref).any(dim=-1)
+    return {"pixels_differing_from_bundle": int(differ.sum()),
+            "max_abs_diff": f"{float((img - ref).abs().max()):.6g}"}
+
+
+def phase_pairs_frames(scene, renderer, g_flag, g_di, flag_imgs,
+                       di_imgs) -> dict:
+    """PAIRS_FLAGSHIP_FRAMES flagship frames and one DI frame through the
+    pairs backend, each from a fresh state and timed; every count is reset
+    just before them, and B5 and B6 must have launched. Each display is
+    compared with the bundle backend's frame of the same index."""
+    tracers = renderer.tracers
+    _reset_counts(tracers)
+    runs = [("flagship", g_flag.replace(frame=f), flag_imgs[f])
+            for f in range(PAIRS_FLAGSHIP_FRAMES)]
+    runs.append(("di", g_di.replace(frame=0, blend_factor=1.0), di_imgs[0]))
+    state = None
+    for config, g, ref in runs:
+        if state is None or config == "di":
+            state = fr.init_frame_state(WIDTH, HEIGHT, device=scene.device)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        state, img = fr.render_frame(renderer, g, state)
+        torch.cuda.synchronize()
+        sec = time.perf_counter() - t0
+        log("pairs-frame", config=config, frame=int(g.frame),
+            seconds=f"{sec:.3f}",
+            launches=json.dumps(_launches(), separators=(",", ":")),
+            fallback_rays=json.dumps(
+                {str(k): v for k, v in tracers.fallback_by_class.items()},
+                separators=(",", ":")),
+            **_pixels_differing(img, ref),
+            peak_gib=f"{torch.cuda.max_memory_allocated() / 2**30:.2f}")
+        _check_image(f"pairs {config} display", img, display=True)
+    _check_image("pairs di diffuse_lighting", state.diffuse_lighting,
+                 display=False)
+    launches = _launches()
+    for name in PAIR_KERNELS:
+        if launches[name] <= 0:
+            raise RuntimeError(f"the pairs frames never launched {name}")
+    return launches
+
+
+def phase_pairs_breakdown(scene, renderer, g_flag) -> None:
+    """Where a pairs flagship frame's time goes: one more frame with each
+    trace split into the slab test, the binning (slab test, top-k and B6),
+    B6, B5 and the decode, and one under torch.profiler."""
+    _breakdown("pairs", scene, renderer, g_flag.replace(
+        frame=PAIRS_FLAGSHIP_FRAMES), [
+        (cp, "bin_pairs", "bin_pairs"),
+        (cp, "_slab_entry", "slab"),
+        (binning, "bin_scatter", "b6_bin_scatter"),
+        (cp, "pair_sweep", "b5_pair_sweep"),
+        (ct, "_decode", "decode")], nested=("slab", "b6_bin_scatter"))
+
+
 def kernel_entry(name: str, classes: dict, launches: int,
                  by_path: dict) -> dict:
     t = _totals(classes)
+    library = [c.get("library_ms") for c in classes.values()]
     return {"name": name, "route": "cuda", **KERNELS[name],
             "launches": launches, "launches_by_path": by_path,
             "max_abs_err": t["max_abs_err"], "mismatches": t["mismatches"],
             "ms": t["ms"], "plain_ms": t["plain_ms"],
             "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
+            # torch.argsort(stable=True) on the same ids for the binning;
             # no single PyTorch call computes a bundle walk, a slab-test
-            # argmin over boxes or a per-bundle slab-test union
-            "library_ms": None, "classes": t["classes"]}
+            # argmin over boxes, a per-bundle slab-test union or a pair sweep
+            "library_ms": (sum(library) if None not in library else None),
+            "classes": t["classes"]}
 
 
 def main() -> None:
@@ -1046,11 +1487,13 @@ def main() -> None:
     torch.backends.cudnn.allow_tf32 = False
     phase_build()
     scene, renderer, view = phase_scene(dev)
+    renderer_p = phase_pairs_scene(scene)
     g_ref, g_di = reference_gconst(scene, view), di_gconst(scene, view)
 
     batches = main_path_batches(scene, renderer, g_ref)
     classes = {"walk_closest": phase_kernel(renderer, batches)}
     phase_oracle(scene, renderer, batches)
+    phase_oracle(scene, renderer_p, batches, phase="oracle-pairs")
     del batches
 
     trace_log = TraceLog(renderer.tracers)
@@ -1058,9 +1501,13 @@ def main() -> None:
     for kernel, by_cls in phase_kernel_di(renderer, trace_log).items():
         classes.setdefault(kernel, {}).update(by_cls)
     phase_oracle_occlude(scene, renderer, trace_log.oracle_rays)
+    phase_oracle_occlude(scene, renderer_p, trace_log.oracle_rays,
+                         phase="oracle-pairs")
     trace_log.walks.clear()
     trace_log.oracle_rays = None
-    paths = {"di_frames": phase_di_frames(scene, renderer, g_di, trace_log)}
+    paths = {}
+    paths["di_frames"], di_imgs = phase_di_frames(scene, renderer, g_di,
+                                                  trace_log)
     phase_di_breakdown(scene, renderer, g_di)
 
     g_flag = flagship_gconst(renderer, view)
@@ -1068,15 +1515,28 @@ def main() -> None:
     trace_log.walks.clear()
     classes.update(phase_kernel_cull(trace_log))
     trace_log.culls.clear()
-    paths["flagship_frames"] = phase_flagship_frames(scene, renderer, g_flag)
+    paths["flagship_frames"], flag_imgs = phase_flagship_frames(
+        scene, renderer, g_flag)
     phase_flagship_breakdown(scene, renderer, g_flag)
     phase_gi_resampling(scene, renderer, view)
     paths["reference_frames"] = phase_frames(scene, renderer, g_ref)
 
-    # each kernel's launches on its main path: the flagship frames, and the
-    # DI frames for the any-hit walk (the flagship frame casts no
-    # visibility ray)
+    pair_log = TraceLog(renderer_p.tracers, pairs=True)
+    phase_pairs_capture(scene, renderer_p, g_flag, g_di, pair_log)
+    pair_log.restore()
+    classes.update(phase_kernel_pairs(renderer_p, pair_log))
+    phase_pairs_ties(scene, renderer, renderer_p, pair_log)
+    del pair_log
+    paths["pairs_frames"] = phase_pairs_frames(scene, renderer_p, g_flag,
+                                               g_di, flag_imgs, di_imgs)
+    del flag_imgs, di_imgs
+    phase_pairs_breakdown(scene, renderer_p, g_flag)
+
+    # each kernel's launches on its main path: the flagship frames, the DI
+    # frames for the any-hit walk (the flagship frame casts no visibility
+    # ray), the pairs frames for B5 and B6
     main_path = {name: "di_frames" if name == "walk_occluded"
+                 else "pairs_frames" if name in PAIR_KERNELS
                  else "flagship_frames" for name in KERNELS}
     print(smi, flush=True)
     print(json.dumps({"kernels": [

@@ -17,6 +17,7 @@ import torch
 from raytracer2_tpu_torch.lights.polymorphic import LightInfo
 from raytracer2_tpu_torch.lights.prepare import SceneLights
 from raytracer2_tpu_torch.ops.cluster import Clusters, clusters_from_arrays
+from raytracer2_tpu_torch.ops.cuda_pairs import PairScene
 from raytracer2_tpu_torch.ops.intersect import HitRecord
 from raytracer2_tpu_torch.params import GConst, PlanarViewConstants
 from raytracer2_tpu_torch.render.gbuffer import GBuffer
@@ -50,6 +51,15 @@ def clusters_from_numpy(arrays: Mapping, *, device) -> Clusters:
     """Clusters from the JAX Clusters' fields (aabb_min, aabb_max, wald,
     tri_index)."""
     return clusters_from_arrays(arrays, device=device)
+
+
+def pair_scene_from_numpy(arrays: Mapping, *, device) -> PairScene:
+    """PairScene from the JAX PairScene's fields (sc_min, sc_max, wald_sc,
+    meta_rows; group and s_pad as numbers)."""
+    return PairScene(
+        *(torch.from_numpy(np.array(arrays[f])).to(device)
+          for f in ("sc_min", "sc_max", "wald_sc", "meta_rows")),
+        group=int(arrays["group"]), s_pad=int(arrays["s_pad"]))
 
 
 def hit_record_from_numpy(arrays: Mapping, *, device) -> HitRecord:

@@ -9,7 +9,8 @@ declared c_void_p (an undeclared pointer would be cut to 32 bits).
 
 --fmad=false keeps every multiply and add separately rounded, in the order
 the source writes them: the kernel then computes the same bits as the
-plain torch version of each kernel (ops/cuda_traverse.py, ops/cull.py).
+plain torch version of each kernel (ops/cuda_traverse.py, ops/cull.py,
+ops/cuda_pairs.py; ops/binning.py's kernel is integer work).
 """
 
 from __future__ import annotations
@@ -117,6 +118,17 @@ def library() -> ctypes.CDLL:
     lib.rt2_bundle_union.argtypes = [vp, vp, vp,  # rays8, boxes, out
                                      ci, ci, ci,  # n_bundles, p, c
                                      vp]  # stream
+    lib.rt2_pair_sweep.restype = ci
+    lib.rt2_pair_sweep.argtypes = [
+        vp, vp, vp, vp, vp,  # rays8, block_sc, block_live, wald_sc, keys
+        ci, ci, ci, ci,  # n_blocks, n_sc, w_lanes, slot_mask
+        vp]  # stream
+    ll = ctypes.c_longlong
+    lib.rt2_bin_scatter.restype = ci
+    lib.rt2_bin_scatter.argtypes = [
+        vp, vp, vp, vp, vp,  # ids, scratch, counts, out, ranks
+        ll, ci, ci, ci, ci, ll,  # n, n_bins, n_write, pad, div, out_size
+        vp]  # stream
     lib.rt2_error_string.restype = ctypes.c_char_p
     lib.rt2_error_string.argtypes = [ci]
     return lib

@@ -81,6 +81,18 @@ def wald_rows(clusters: Clusters) -> torch.Tensor:
     return torch.nn.functional.pad(rows, (0, s_pad(clusters) - s, 0, 4))
 
 
+def wald_sc_rows(clusters: Clusters, m: int) -> torch.Tensor:
+    """[C2, 16, m*S_pad] with C2 = ceil(C / m): supercluster s's m clusters
+    side by side in the lane dimension, cluster g at lanes g*S_pad + lane.
+    The clusters that pad C up to C2*m are zero rows (never hit)."""
+    rows = wald_rows(clusters)  # [C, 16, S_pad]
+    c, r, sp = rows.shape
+    n_sc = (c + m - 1) // m
+    rows = torch.nn.functional.pad(rows, (0, 0, 0, 0, 0, n_sc * m - c))
+    return (rows.reshape(n_sc, m, r, sp).permute(0, 2, 1, 3)
+            .reshape(n_sc, r, m * sp).contiguous())
+
+
 def tri_meta(clusters: Clusters, tri_geometry: torch.Tensor,
              tri_primitive: torch.Tensor) -> torch.Tensor:
     """[C*S_pad, 16] i32 rows addressed by the walk's winner code

@@ -15,6 +15,7 @@ import torch
 from raytracer2_tpu_torch.lights.pdf_texture import evaluate_pdf_texture
 from raytracer2_tpu_torch.lights.polymorphic import (
     LightInfo, calc_sample, gather_light)
+from raytracer2_tpu_torch.ops import cuda_pairs as cp
 from raytracer2_tpu_torch.ops import cuda_traverse as ct
 from raytracer2_tpu_torch.ops.cluster import Clusters, build_clusters
 from raytracer2_tpu_torch.ops.intersect import (
@@ -40,16 +41,21 @@ class Tracers:
     occluded(o, d, t_min, t_max, presorted=False) -> blocked bool mask.
     presorted=True rays are pixel tiles in screen order; presorted="shadow"
     (any hit only) are visibility rays in pixel Z-order. For the bundle
-    walk the clusters, tables and per-class kernel shapes are kept here,
-    and fallback_by_class counts, per class and summed over calls, the
+    walk and the pair sweep the clusters and walk tables are kept here
+    (the pair sweep also keeps its PairScene, the walk its per-class
+    kernel shapes). fallback_by_class counts, per class and summed over
+    calls, what took the overflow fallback: for the bundle walk the
     bundles whose candidate union overflowed k_cand and re-traced at full
-    length."""
+    length, for the pair sweep the rays of the traces in which some ray
+    overlapped more than k_cand superclusters and that re-traced whole
+    through the bundle walk."""
 
     closest_hit: Callable
     occluded: Callable | None = None
     shapes_by_class: dict | None = None
     clusters: Clusters | None = None
     tables: ct.WalkTables | None = None
+    pair_scene: cp.PairScene | None = None
     scene_min: torch.Tensor | None = None
     scene_max: torch.Tensor | None = None
     fallback_by_class: dict = dataclasses.field(default_factory=dict)
@@ -66,6 +72,11 @@ class Tracers:
 # exact cull scales with C)
 CLUSTER_SIZE = 128
 K_CAND = 256  # candidate clusters per bundle before the overflow fallback
+# the pair sweep's settings, the JAX make_tracers(backend="pairs") defaults
+# (k_cand or 24, min(group or 16, 16)): superclusters per ray before the
+# overflow fallback, clusters per supercluster
+PAIR_K_CAND = 24
+PAIR_GROUP = 16
 
 
 def make_tracers(scene: Scene, backend: str = "auto") -> Tracers:
@@ -73,6 +84,11 @@ def make_tracers(scene: Scene, backend: str = "auto") -> Tracers:
     - "auto" (default): the bundle walk; on a CUDA scene it launches the
       CUDA kernel, on a CPU scene the wrapper runs its plain version
     - "bundle_cuda": the bundle walk, and the scene must be on a CUDA device
+    - "pairs": the pair sweep (ops/cuda_pairs.py: the binning and sweep
+      kernels on a CUDA scene, their plain versions on a CPU scene); every
+      ray class takes the same path (presorted is ignored), and a trace in
+      which some ray overlaps more than PAIR_K_CAND superclusters re-traces
+      whole through the bundle walk
     - "brute": the all-pairs oracle"""
     if scene.num_triangles < 2:
         backend = "brute"
@@ -91,7 +107,7 @@ def make_tracers(scene: Scene, backend: str = "auto") -> Tracers:
     if backend == "bundle_cuda" and scene.device.type != "cuda":
         raise ValueError(f"backend 'bundle_cuda' needs a CUDA scene, "
                          f"this one is on {scene.device}")
-    if backend not in ("auto", "bundle_cuda"):
+    if backend not in ("auto", "bundle_cuda", "pairs"):
         raise ValueError(f"unknown backend {backend!r}")
 
     clusters = build_clusters(
@@ -99,6 +115,12 @@ def make_tracers(scene: Scene, backend: str = "auto") -> Tracers:
         cluster_size=CLUSTER_SIZE, device=scene.device)
     scene_min = clusters.aabb_min.amin(dim=0)
     scene_max = clusters.aabb_max.amax(dim=0)
+    # the walk's scene tables, built once per scene rather than per trace
+    # (the pair sweep's fallback walks them too)
+    tables = ct.build_tables(clusters, scene.tri_geometry,
+                             scene.tri_primitive)
+    if backend == "pairs":
+        return _pair_tracers(scene, clusters, tables, scene_min, scene_max)
 
     # per-class kernel shapes (raytracer2_tpu/render/app_bridge.py:119-143):
     # presorted pixel tiles take wide bundles, narrow groups and the
@@ -117,9 +139,6 @@ def make_tracers(scene: Scene, backend: str = "auto") -> Tracers:
                        k_cand=K_CAND, cull="exact"),
     }
 
-    # the walk's scene tables, built once per scene rather than per trace
-    tables = ct.build_tables(clusters, scene.tri_geometry,
-                             scene.tri_primitive)
     tracers = Tracers(
         closest_hit=None, shapes_by_class=by_sort, clusters=clusters,
         tables=tables, scene_min=scene_min, scene_max=scene_max)
@@ -142,6 +161,36 @@ def make_tracers(scene: Scene, backend: str = "auto") -> Tracers:
             clusters, tables, o, d, tmin, tmax, scene_min, scene_max,
             presorted=bool(presorted), **kw)
         tracers._count(cls, n_fallback)
+        return blocked
+
+    tracers.closest_hit = closest
+    tracers.occluded = occl
+    return tracers
+
+
+def _pair_tracers(scene: Scene, clusters: Clusters, tables: ct.WalkTables,
+                  scene_min: torch.Tensor, scene_max: torch.Tensor
+                  ) -> Tracers:
+    """The pair sweep's tracers (JAX's make_tracers, backend="pairs")."""
+    ps = cp.build_pair_scene(clusters, scene.tri_geometry,
+                             scene.tri_primitive, group=PAIR_GROUP)
+    tracers = Tracers(closest_hit=None, clusters=clusters, tables=tables,
+                      pair_scene=ps, scene_min=scene_min,
+                      scene_max=scene_max)
+
+    def closest(o, d, tmin, tmax, presorted=False):
+        rec, overflowed = cp.closest_hit_pairs(
+            ps, clusters, tables, o, d, tmin, tmax, scene_min, scene_max,
+            k_cand=PAIR_K_CAND)
+        tracers._count(bool(presorted), o.shape[0] if overflowed else 0)
+        return rec
+
+    def occl(o, d, tmin, tmax, presorted=False):
+        blocked, overflowed = cp.occluded_pairs(
+            ps, clusters, tables, o, d, tmin, tmax, scene_min, scene_max,
+            k_cand=PAIR_K_CAND)
+        cls = presorted if presorted == "shadow" else bool(presorted)
+        tracers._count(cls, o.shape[0] if overflowed else 0)
         return blocked
 
     tracers.closest_hit = closest

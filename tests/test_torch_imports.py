@@ -24,10 +24,12 @@ old = sorted(m for m in sys.modules
 print(len(names), jax_free, ",".join(names), ",".join(old))
 """
 
-# the modules of the GI slice and the dense cull, named so that a missing
-# one fails here rather than go unprobed
+# the modules of the GI slice, the dense cull and the pair engine, named so
+# that a missing one fails here rather than go unprobed
 SLICE_MODULES = {
     "raytracer2_tpu_torch.ops.cull",
+    "raytracer2_tpu_torch.ops.cuda_pairs",
+    "raytracer2_tpu_torch.ops.binning",
     "raytracer2_tpu_torch.restir.gi_reservoir",
     "raytracer2_tpu_torch.restir.gi_resampling",
     "raytracer2_tpu_torch.render.gi_passes",
@@ -48,7 +50,7 @@ def test_every_submodule_imports_without_jax():
                          check=True).stdout.split()
     n_modules, jax_free = int(out[0]), out[1]
     old = set(out[3].split(",")) if len(out) > 3 else set()
-    assert n_modules >= 34
+    assert n_modules >= 46
     assert SLICE_MODULES <= set(out[2].split(","))
     assert jax_free == "True"
     assert old <= SHARED, old - SHARED
