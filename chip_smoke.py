@@ -20,7 +20,11 @@ which raises on failure:
 1. device             - a CUDA device is required; no CPU run.
 2. build              - nvcc builds every kernel from raytracer2_tpu_torch/csrc.
 3. scene              - the ladder scene, its clusters (and which cluster
-                        builder ran) and the tracers on the card.
+                        builder ran) and the tracers on the card; then
+                        occupancy: resident blocks per SM, registers and
+                        shared bytes per block of walk_closest at each
+                        closest-hit class's bundle size and of
+                        nearest_box.
 4. kernel             - walk_closest against its plain torch version on the
                         reference path's 262,144-ray batch of each
                         closest-hit class (pixel tiles, BRDF bounces), winner
@@ -45,7 +49,10 @@ which raises on failure:
 10. flagship-capture  - one flagship DI+GI frame that keeps the inputs of
                         each B3 and B4 launch of its three bounce-class
                         traces (the DI BRDF candidate, the GI BRDF rays, the
-                        secondary surfaces' BRDF candidate).
+                        secondary surfaces' BRDF candidate), and of the
+                        first B1 launch of those and of its G-buffer; then
+                        kernel: walk_closest against its plain version on
+                        those four batches, bit for bit.
 11. kernel-cull       - on those inputs (and B4 on the DI frame's visibility
                         batch), nearest_box and bundle_union against their
                         plain versions, bit for bit, with NaN rays and the
@@ -164,6 +171,10 @@ PROBE_IDS, PROBE_BINS = 1 << 22, 256  # scripts/binning_ab.py's probe size
 # them (the G-buffer's pixel tiles take the interval cull, not B3/B4)
 FLAGSHIP_BOUNCES = ("di_brdf_candidate", "gi_brdf_rays",
                     "secondary_brdf_candidate")
+# the flagship frame's walk batches B1 is held to: its G-buffer's pixel
+# tiles and its three bounce traces
+FLAGSHIP_WALKS = ("flagship_gbuffer",) + tuple(
+    f"flagship_{b}" for b in FLAGSHIP_BOUNCES)
 
 KERNELS = {
     "walk_closest": dict(
@@ -336,7 +347,7 @@ def lane_real(tracers) -> torch.Tensor:
     return (tracers.tables.meta_rows[:, 12] >= 0).reshape(-1, sp)
 
 
-def walk_bound(args, group: int, work: ct.WalkWork, real) -> dict:
+def walk_bound(args, group: int, work: ct.WalkWork, real, kw) -> dict:
     """The least time the card could take for one walk call on these
     inputs: the larger of (bytes it must move) / HBM rate and (FP32
     operations its data needs) / FP32 rate. Bytes: rays read once, the
@@ -357,28 +368,34 @@ def walk_bound(args, group: int, work: ct.WalkWork, real) -> dict:
     ops = int(work.ray_lanes) * WALD_TEST_OPS
     bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
     ops_ms = ops / FP32_OPS_PER_S * 1e3
+    # what the bundles stage in all (mostly from L2), for comparison: the
+    # closest-hit kernel each walked cluster's lanes up to its lane count,
+    # the any-hit kernel every lane of each walked cluster
+    if "lanes" in kw:
+        lanes = int(kw["lanes"].count[cand_idx[mask].long()].long().sum())
+    else:
+        lanes = int(mask.sum()) * wald.shape[-1]
     return {"bound_ms": max(bytes_ms, ops_ms),
             "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
             "bytes": nbytes, "ops": ops, "steps": int(work.steps.sum()),
             "clusters_walked": int(distinct.numel()),
-            "triangles_walked": tris,
-            # what the bundles stage in all, padding lanes included (mostly
-            # from L2), for comparison
-            "staged_bytes": int(mask.sum()) * 12 * wald.shape[-1] * 4}
+            "triangles_walked": tris, "staged_bytes": lanes * 12 * 4}
 
 
-def check_walk(kernel: str, cls: str, args, group: int, real) -> dict:
+def check_walk(kernel: str, cls: str, args, group: int, real,
+               **kw) -> dict:
     """One walk kernel against its plain version on one batch: outputs
-    bit for bit, both times (CUDA events, median of 5) and the bound.
-    Raises on any mismatch or on a batch that tests nothing."""
+    bit for bit, both times (CUDA events, median of 5) and the bound. kw:
+    the kernel's own table arguments (walk_closest's lanes). Raises on any
+    mismatch or on a batch that tests nothing."""
     walk = getattr(ct, kernel)
     reference = getattr(ct, f"{kernel}_reference")
-    got = walk(*args, group=group)
+    got = walk(*args, group=group, **kw)
     want, work = reference(*args, group=group, lane_real=real)
     torch.cuda.synchronize()
-    ms = _median_ms(lambda: walk(*args, group=group))
+    ms = _median_ms(lambda: walk(*args, group=group, **kw))
     plain_ms = _median_ms(lambda: reference(*args, group=group))
-    bound = walk_bound(args, group, work, real)
+    bound = walk_bound(args, group, work, real, kw)
     rays8, _, _, cand_count, _ = args
     mismatches = int((got != want).sum())
     if kernel == "walk_closest":
@@ -399,7 +416,9 @@ def check_walk(kernel: str, cls: str, args, group: int, real) -> dict:
         cand_max=int(cand_count.max()), **outcome, mismatches=mismatches,
         kernel_ms=f"{ms:.3f}", plain_ms=f"{plain_ms:.3f}",
         bound_ms=f"{bound['bound_ms']:.4f}", bound_by=bound["bound_by"],
-        steps=bound["steps"], clusters_walked=bound["clusters_walked"],
+        bound_share=f"{bound['bound_ms'] / ms:.3f}",
+        steps=bound["steps"], steps_max=int(work.steps.max()),
+        clusters_walked=bound["clusters_walked"],
         triangles_walked=bound["triangles_walked"],
         mbytes=f"{bound['bytes'] / 1e6:.2f}",
         gops=f"{bound['ops'] / 1e9:.3f}",
@@ -505,8 +524,29 @@ def phase_kernel(renderer, batches) -> dict:
     classes = {}
     for cls, (presorted, o, d, tn, tx) in batches.items():
         args, group, _ = _prep(tracers, presorted, o, d, tn, tx)
-        classes[cls] = check_walk("walk_closest", cls, args, group, real)
+        classes[cls] = check_walk("walk_closest", cls, args, group, real,
+                                  lanes=tracers.tables.lanes)
     return classes
+
+
+def phase_occupancy(renderer) -> dict:
+    """B1 at each closest-hit class's bundle size and B3 at its block:
+    resident blocks per SM, threads, registers and shared bytes per block
+    (the kernels' occupancy entry points)."""
+    tracers = renderer.tracers
+    sp = tracers.tables.wald_rows.shape[-1]
+    out = {"walk_closest": {}, "nearest_box": {
+        "all": _build.occupancy("rt2_nearest_box_occupancy")}}
+    for cls, cfg in tracers.shapes_by_class.items():
+        if cls != "shadow":
+            name = "pixel_tiles" if cls else "bounces"
+            out["walk_closest"][name] = _build.occupancy(
+                "rt2_walk_closest_occupancy", cfg["bundle_size"], sp)
+    for kernel, by_cls in out.items():
+        for cls, occ in by_cls.items():
+            log("occupancy", kernel=kernel, cls=cls, **occ,
+                warps_per_sm=occ["blocks_per_sm"] * occ["threads"] // 32)
+    return out
 
 
 def phase_oracle(scene, renderer, batches, phase: str = "oracle") -> None:
@@ -646,10 +686,11 @@ class TraceLog:
         return blocked
 
     def _walk(self, inner, *args, **kwargs):
-        # the trace path passes the walk's six arguments positionally
+        # the trace path passes the walk's six arguments positionally, and
+        # the closest-hit walk its per-scene lanes by keyword
         if self.keep and self._cls is not None and self._cls not in self.walks:
             self.walks[self._cls] = (inner.__name__, tuple(
-                a.clone() for a in args[:5]), args[5])
+                a.clone() for a in args[:5]), args[5], dict(kwargs))
         return inner(*args, **kwargs)
 
     def _cull(self, inner, *args, **kwargs):
@@ -723,8 +764,8 @@ def phase_kernel_di(renderer, trace_log: TraceLog) -> dict:
     version: {kernel: {class: result}}."""
     real = lane_real(renderer.tracers)
     out = {"walk_closest": {}, "walk_occluded": {}}
-    for cls, (kernel, args, group) in sorted(trace_log.walks.items()):
-        out[kernel][cls] = check_walk(kernel, cls, args, group, real)
+    for cls, (kernel, args, group, kw) in sorted(trace_log.walks.items()):
+        out[kernel][cls] = check_walk(kernel, cls, args, group, real, **kw)
     return out
 
 
@@ -941,7 +982,8 @@ def _profile_frame(phase: str, renderer, g, state) -> None:
 def phase_flagship_capture(scene, renderer, g_flag,
                            trace_log: TraceLog) -> None:
     """One flagship DI+GI frame that keeps the inputs of each cull launch
-    of its bounce-class traces (it also warms the path up)."""
+    of its bounce-class traces and of the first walk launch of its
+    G-buffer and bounce traces (it also warms the path up)."""
     trace_log.start("flagship_", tuple(f"flagship_{b}"
                                        for b in FLAGSHIP_BOUNCES))
     state = fr.init_frame_state(WIDTH, HEIGHT, device=scene.device)
@@ -950,14 +992,29 @@ def phase_flagship_capture(scene, renderer, g_flag,
     torch.cuda.synchronize()
     trace_log.stop()
     want = {(f"flagship_{b}", k) for b in FLAGSHIP_BOUNCES for k in CULLS}
-    missing = want - set(trace_log.culls)
+    missing = (want - set(trace_log.culls)) | (
+        set(FLAGSHIP_WALKS) - set(trace_log.walks))
     if missing:
-        raise RuntimeError(f"the flagship frame launched no cull for "
-                           f"{sorted(missing)}")
+        raise RuntimeError(f"the flagship frame launched no cull or walk "
+                           f"for {sorted(missing, key=str)}")
     log("flagship-capture", seconds=f"{time.perf_counter() - t0:.3f}",
         kept=json.dumps({f"{c}:{k}": v[0].shape[0]
                          for (c, k), v in sorted(trace_log.culls.items())
-                         if c is not None}, separators=(",", ":")))
+                         if c is not None}, separators=(",", ":")),
+        kept_walks=json.dumps({c: v[1][0].shape[0]
+                               for c, v in sorted(trace_log.walks.items())},
+                              separators=(",", ":")))
+
+
+def phase_kernel_flagship(renderer, trace_log: TraceLog) -> dict:
+    """walk_closest against its plain version on the flagship frame's own
+    batches (its G-buffer and its three bounce traces): {class: result}."""
+    real = lane_real(renderer.tracers)
+    out = {}
+    for cls in FLAGSHIP_WALKS:
+        kernel, args, group, kw = trace_log.walks[cls]
+        out[cls] = check_walk(kernel, cls, args, group, real, **kw)
+    return out
 
 
 def phase_kernel_cull(trace_log: TraceLog) -> dict:
@@ -1466,11 +1523,12 @@ def phase_pairs_breakdown(scene, renderer, g_flag) -> None:
 
 
 def kernel_entry(name: str, classes: dict, launches: int,
-                 by_path: dict) -> dict:
+                 by_path: dict, occupancy: dict | None) -> dict:
     t = _totals(classes)
     library = [c.get("library_ms") for c in classes.values()]
+    extra = {"occupancy": occupancy} if occupancy else {}
     return {"name": name, "route": "cuda", **KERNELS[name],
-            "launches": launches, "launches_by_path": by_path,
+            "launches": launches, "launches_by_path": by_path, **extra,
             "max_abs_err": t["max_abs_err"], "mismatches": t["mismatches"],
             "ms": t["ms"], "plain_ms": t["plain_ms"],
             "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
@@ -1487,6 +1545,7 @@ def main() -> None:
     torch.backends.cudnn.allow_tf32 = False
     phase_build()
     scene, renderer, view = phase_scene(dev)
+    occupancy = phase_occupancy(renderer)
     renderer_p = phase_pairs_scene(scene)
     g_ref, g_di = reference_gconst(scene, view), di_gconst(scene, view)
 
@@ -1512,6 +1571,8 @@ def main() -> None:
 
     g_flag = flagship_gconst(renderer, view)
     phase_flagship_capture(scene, renderer, g_flag, trace_log)
+    classes["walk_closest"].update(phase_kernel_flagship(renderer,
+                                                         trace_log))
     trace_log.walks.clear()
     classes.update(phase_kernel_cull(trace_log))
     trace_log.culls.clear()
@@ -1541,7 +1602,8 @@ def main() -> None:
     print(smi, flush=True)
     print(json.dumps({"kernels": [
         kernel_entry(name, classes[name], paths[main_path[name]][name],
-                     {path: counts[name] for path, counts in paths.items()})
+                     {path: counts[name] for path, counts in paths.items()},
+                     occupancy.get(name))
         for name in KERNELS]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,11 +1,13 @@
-// Device code shared by the bundle walks (bundle_walk.cu, bundle_occlude.cu):
-// the Wald table's layout, the staging of a step's rows into shared memory,
-// the Wald unit-triangle test and the block-wide max of the early exit.
+// Device code of the bundle walks: the ray rows and the limits both walks
+// share (bundle_walk.cu, bundle_occlude.cu), and the any-hit walk's
+// row-major staging of a step's Wald rows into shared memory, its Wald
+// unit-triangle test and its block-wide max of the early exit (the
+// closest-hit walk stages lane-major rows through its own ring).
 //
-// The test's affines are written once, here, in the order the plain torch
-// versions write them (ops/cuda_traverse.py::_wald_test). With --fmad=false
-// every multiply and add rounds on its own, so both walks agree with their
-// plain versions bit for bit.
+// The test's affines are written in the order the plain torch versions
+// write them (ops/cuda_traverse.py::_wald_test). With --fmad=false every
+// multiply and add rounds on its own, so both walks agree with their plain
+// versions bit for bit.
 
 #pragma once
 
@@ -18,10 +20,9 @@ constexpr int kWaldRows = 16;   // rows per cluster in the table (12 used)
 constexpr int kCoeffRows = 12;
 constexpr int kMaxGroup = 8;    // group * S_pad <= 1 << 10
 constexpr int kMaxLanes = 1 << 10;
-// One thread per ray, at most kMaxBundle rays per bundle. The kernels are
-// declared __launch_bounds__(kMaxBundle, kMinBlocks), which holds them to
-// 32 registers: eight 256-thread blocks fit on an SM (the pixel-tile class
-// stages 24 KB per block, so registers, not shared memory, would bound it).
+// One thread per ray, at most kMaxBundle rays per bundle. The any-hit
+// kernel is declared __launch_bounds__(kMaxBundle, kMinBlocks), which holds
+// it to 32 registers: eight 256-thread blocks fit on an SM.
 constexpr int kMaxBundle = 256;
 constexpr int kMinBlocks = 8;
 

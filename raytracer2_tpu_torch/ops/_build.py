@@ -102,14 +102,22 @@ def library() -> ctypes.CDLL:
     """The loaded kernel library with every entry point's signature set."""
     lib = ctypes.CDLL(str(build().path))
     vp, ci = ctypes.c_void_p, ctypes.c_int
-    for walk in (lib.rt2_walk_closest, lib.rt2_walk_occluded):
-        walk.restype = ci
-        walk.argtypes = [
-            vp, vp, vp, vp, vp, vp,  # rays8, cand_idx, cand_t, cand_count,
-            #                          wald, out
-            ci, ci, ci, ci, ci,  # n_bundles, p, k, s_pad, group
-            vp,  # stream
-        ]
+    lib.rt2_walk_closest.restype = ci
+    lib.rt2_walk_closest.argtypes = [
+        vp, vp, vp, vp, vp, vp, vp, vp,  # rays8, cand_idx, cand_t,
+        #   cand_count, lane coeffs, lane count, order scratch, out
+        ci, ci, ci, ci, ci,  # n_bundles, p, k, s_pad, group
+        vp]  # stream
+    lib.rt2_walk_occluded.restype = ci
+    lib.rt2_walk_occluded.argtypes = [
+        vp, vp, vp, vp, vp, vp,  # rays8, cand_idx, cand_t, cand_count,
+        #                          wald, out
+        ci, ci, ci, ci, ci,  # n_bundles, p, k, s_pad, group
+        vp]  # stream
+    lib.rt2_walk_closest_occupancy.restype = ci
+    lib.rt2_walk_closest_occupancy.argtypes = [ci, ci, vp]  # p, s_pad, out
+    lib.rt2_nearest_box_occupancy.restype = ci
+    lib.rt2_nearest_box_occupancy.argtypes = [vp]  # out
     lib.rt2_nearest_box.restype = ci
     lib.rt2_nearest_box.argtypes = [vp, vp, vp,  # rays8, boxes, out
                                     ci, ci,  # n, c
@@ -132,3 +140,18 @@ def library() -> ctypes.CDLL:
     lib.rt2_error_string.restype = ctypes.c_char_p
     lib.rt2_error_string.argtypes = [ci]
     return lib
+
+
+def occupancy(entry: str, *args: int) -> dict:
+    """A kernel's residency on the card, from its occupancy entry point
+    (rt2_walk_closest_occupancy(p, s_pad), rt2_nearest_box_occupancy()):
+    resident blocks per SM (cudaOccupancyMaxActiveBlocksPerMultiprocessor),
+    threads per block, registers per thread and shared bytes per block."""
+    lib = library()
+    out = (ctypes.c_int * 4)()
+    err = getattr(lib, entry)(*args, out)
+    if err != 0:
+        raise RuntimeError(f"{entry} failed: "
+                           f"{lib.rt2_error_string(err).decode()} ({err})")
+    return dict(zip(("blocks_per_sm", "threads", "registers", "smem_bytes"),
+                    out))

@@ -116,17 +116,44 @@ def tri_meta(clusters: Clusters, tri_geometry: torch.Tensor,
         c * sp, 16)
 
 
+# wald_rows' rows in the closest-hit kernel's lane order: per lane the u,
+# v and z outputs' (x, y, z, bias) inputs, one 16-byte vector each
+LANE_ROWS = (0, 3, 6, 9, 1, 4, 7, 10, 2, 5, 8, 11)
+
+
+class WalkLanes(NamedTuple):
+    """The closest-hit kernel's view of the Wald table: each lane's 12
+    coefficients contiguous, and per cluster the lanes it must test."""
+
+    coeffs: torch.Tensor  # [C, S_pad, 12] f32, rows in LANE_ROWS order
+    count: torch.Tensor  # [C] i32: 1 + the last lane with a nonzero row
+
+
+def walk_lanes(wald: torch.Tensor) -> WalkLanes:
+    """WalkLanes of a [C, 16, S_pad] Wald table. A lane whose 12 rows are
+    all zero has d'_z == 0 and never hits, so a cluster's lanes past
+    `count` need no test: the real triangles are a prefix of each cluster
+    row and the padding lanes are zero."""
+    rows = wald[:, list(LANE_ROWS), :]  # [C, 12, S_pad]
+    used = (rows != 0).any(dim=1)  # [C, S_pad]
+    lane = torch.arange(1, wald.shape[2] + 1, device=wald.device)
+    return WalkLanes(rows.permute(0, 2, 1).contiguous(),
+                     (used * lane).amax(dim=1).to(torch.int32))
+
+
 class WalkTables(NamedTuple):
     """The walk's per-scene tables, built once (make_tracers)."""
 
     wald_rows: torch.Tensor  # [C, 16, S_pad] f32
     meta_rows: torch.Tensor  # [C*S_pad, 16] i32
+    lanes: WalkLanes  # the closest-hit kernel's lane-major copy of wald_rows
 
 
 def build_tables(clusters: Clusters, tri_geometry, tri_primitive
                  ) -> WalkTables:
-    return WalkTables(wald_rows(clusters).contiguous(),
-                      tri_meta(clusters, tri_geometry, tri_primitive))
+    rows = wald_rows(clusters).contiguous()
+    return WalkTables(rows, tri_meta(clusters, tri_geometry, tri_primitive),
+                      walk_lanes(rows))
 
 
 # ---------------------------------------------------------------------------
@@ -164,10 +191,12 @@ def _check_walk_args(rays8, cand_idx, cand_t, cand_count, wald, group):
     return b, k, p, sp
 
 
-def _launch(entry, name, rays8, cand_idx, cand_t, cand_count, wald_rows,
+def _launch(entry, name, rays8, cand_idx, cand_t, cand_count, tables,
             b, p, k, sp, group):
     """Launch one walk kernel of the library on the current stream and
-    return its [B*P] i32 output; raises if the launch is refused."""
+    return its [B*P] i32 output; raises if the launch is refused. tables:
+    the tensors the kernel takes before its output (wald_rows, or
+    WalkLanes' two and a bundle-order scratch)."""
     if p > MAX_BUNDLE or p % 32:
         raise ValueError(f"bundle size {p} must be a multiple of 32, "
                          f"<= {MAX_BUNDLE}")
@@ -179,12 +208,24 @@ def _launch(entry, name, rays8, cand_idx, cand_t, cand_count, wald_rows,
         stream = torch.cuda.current_stream().cuda_stream
         err = getattr(lib, entry)(
             rays8.data_ptr(), cand_idx.data_ptr(), cand_t.data_ptr(),
-            cand_count.data_ptr(), wald_rows.data_ptr(), out.data_ptr(),
-            b, p, k, sp, group, ctypes.c_void_p(stream))
+            cand_count.data_ptr(), *(t.data_ptr() for t in tables),
+            out.data_ptr(), b, p, k, sp, group, ctypes.c_void_p(stream))
     if err != 0:
         raise RuntimeError(f"{name} launch failed: "
                            f"{lib.rt2_error_string(err).decode()} ({err})")
     return out
+
+
+def _check_lanes(lanes: WalkLanes, wald: torch.Tensor) -> None:
+    c, sp = wald.shape[0], wald.shape[2]
+    for name, x, dtype, shape in (
+            ("lanes.coeffs", lanes.coeffs, torch.float32, (c, sp, 12)),
+            ("lanes.count", lanes.count, torch.int32, (c,))):
+        if x.dtype != dtype or tuple(x.shape) != shape \
+                or x.device != wald.device or not x.is_contiguous():
+            raise ValueError(f"{name} must be contiguous {dtype} {shape} on "
+                             f"{wald.device}, got {x.dtype} "
+                             f"{tuple(x.shape)} on {x.device}")
 
 
 class WalkWork(NamedTuple):
@@ -250,15 +291,18 @@ def _real_lanes(lane_real, ci, live):
     return lane_real[ci.long()].reshape(live.shape) & live
 
 
-def walk_closest(rays8, cand_idx, cand_t, cand_count, wald_rows, group):
+def walk_closest(rays8, cand_idx, cand_t, cand_count, wald_rows, group, *,
+                 lanes: WalkLanes):
     """Closest-hit bundle walk: winner code [B*P] i32 per ray (cluster *
     S_pad + slot, 0x7FFFFFFF on a miss). rays8 [B*P, 8] f32 rows (ox oy oz
     dx dy dz t_min t_max) in bundle order; cand_idx/cand_t [B, K] nearest
-    first, cand_count [B]; wald_rows [C, 16, S_pad].
+    first, cand_count [B]; wald_rows [C, 16, S_pad] and lanes, its
+    walk_lanes (WalkTables.lanes).
 
     A CUDA tensor launches csrc/bundle_walk.cu on the current stream (and
-    counts the launch in walk_closest.launches); a CPU tensor runs
-    walk_closest_reference. Anything else raises."""
+    counts the launch in walk_closest.launches); the kernel reads the
+    table as `lanes`. A CPU tensor runs walk_closest_reference on
+    wald_rows. Anything else raises."""
     b, k, p, sp = _check_walk_args(rays8, cand_idx, cand_t, cand_count,
                                    wald_rows, group)
     if rays8.device.type == "cpu":
@@ -267,8 +311,10 @@ def walk_closest(rays8, cand_idx, cand_t, cand_count, wald_rows, group):
     if rays8.device.type != "cuda":
         raise ValueError(f"walk_closest runs on cuda or cpu, "
                          f"not {rays8.device}")
+    _check_lanes(lanes, wald_rows)
+    order = torch.empty(b, dtype=torch.int32, device=rays8.device)
     out = _launch("rt2_walk_closest", "walk_closest", rays8, cand_idx,
-                  cand_t, cand_count, wald_rows, b, p, k, sp, group)
+                  cand_t, cand_count, (*lanes, order), b, p, k, sp, group)
     walk_closest.launches += 1
     return out
 
@@ -347,7 +393,7 @@ def walk_occluded(rays8, cand_idx, cand_t, cand_count, wald_rows, group):
         raise ValueError(f"walk_occluded runs on cuda or cpu, "
                          f"not {rays8.device}")
     out = _launch("rt2_walk_occluded", "walk_occluded", rays8, cand_idx,
-                  cand_t, cand_count, wald_rows, b, p, k, sp, group)
+                  cand_t, cand_count, (wald_rows,), b, p, k, sp, group)
     walk_occluded.launches += 1
     return out
 
@@ -659,7 +705,8 @@ def closest_hit_bundle(clusters: Clusters, tables: WalkTables,
     prep = _prepare(clusters, origins, directions, tn_o, tx_o, scene_min,
                     scene_max, p, presorted, cull, k_cand)
     code = walk_closest(_rays8(prep), prep.cand_idx, prep.cand_t,
-                        prep.cand_count, tables.wald_rows, group)[:n_orig]
+                        prep.cand_count, tables.wald_rows, group,
+                        lanes=tables.lanes)[:n_orig]
     # un-sort the codes, then decode in caller order
     rec = _decode(_unsort(code, prep), tables.meta_rows, origins,
                   directions, tx_o)

@@ -136,6 +136,81 @@ def test_plain_passes_ignore_their_chunking(monkeypatch):
         union.numpy().view(np.uint32))
 
 
+def _fast_path(rays8, lo, hi):
+    """csrc/cull.cu's finite fast path of B3 in plain torch: NaN-dropping
+    fmin/fmax (as CUDA's fminf/fmaxf), the clamp as fmax(near, 0), and
+    the t_max compare folded into lim = nextafter(t_max, +inf); a box is
+    taken on an entry below lim, the first index on ties. Returns (entry
+    [n, C] where taken, else +inf; index [n], C where none)."""
+    o, d, tn, tx = rays8[:, 0:3], rays8[:, 3:6], rays8[:, 6], rays8[:, 7]
+    eps = 1e-12
+    ds = torch.where(torch.abs(d) < eps, torch.where(d >= 0, eps, -eps), d)
+    inv = 1.0 / ds
+    near = far = None
+    for ax in range(3):
+        t0 = (lo[None, :, ax] - o[:, ax:ax + 1]) * inv[:, ax:ax + 1]
+        t1 = (hi[None, :, ax] - o[:, ax:ax + 1]) * inv[:, ax:ax + 1]
+        lo_t, hi_t = torch.fmin(t0, t1), torch.fmax(t0, t1)
+        near = lo_t if near is None else torch.fmax(near, lo_t)
+        far = hi_t if far is None else torch.fmin(far, hi_t)
+    e = torch.fmax(near, torch.zeros(()))
+    lim = torch.where(tx >= 0, torch.nextafter(tx, torch.tensor(torch.inf)),
+                      -torch.inf)
+    take = (near <= far) & (far >= tn[:, None]) & (e < lim[:, None])
+    e = torch.where(take, e, torch.inf)
+    best, arg = e.min(dim=-1)
+    return e, torch.where(torch.isfinite(best), arg, lo.shape[0])
+
+
+def _finite_rays(rng, lo, hi, n=N):
+    """_rays' edge cases without NaN, plus origins far out (slab distances
+    that overflow to infinities), t_max of +inf, +0 and -0, and origins on
+    box faces (entries of -0 and +0)."""
+    rays8, _ = _rays(rng, lo, hi, n)
+    rays8 = rays8[np.isfinite(rays8).all(axis=1)].copy()
+    m = rays8.shape[0]
+    i = np.arange(m)
+    rays8[i % 53 == 14, 0] = 3e38  # (b - o) * inv overflows
+    rays8[i % 59 == 15, 1] = -3.3e38
+    rays8[i % 61 == 16, 7] = np.inf
+    rays8[i % 67 == 17, 7] = 0.0
+    rays8[i % 71 == 18, 7] = -0.0
+    face = i % 7 == 5
+    rays8[face, 0] = hi[i[face] % len(hi), 0]
+    rays8[face, 3] = -1.0  # leaving through the face: entry -0 or +0
+    return np.ascontiguousarray(rays8), m
+
+
+@pytest.mark.parametrize("c", [256, 300])
+def test_fast_path_min_max_matches_entry_exact(c):
+    """On finite rays and boxes, B3's fast path (plain fmin/fmax, the
+    folded t_max compare) gives _entry_exact's entries as numbers (a zero
+    may change sign, which no compare sees) and nearest_box_reference's
+    index bit for bit. On NaN rays the same arithmetic would not: that is
+    why the kernel keeps the NaN-propagating loop for them."""
+    rng = np.random.default_rng(120 + c)
+    lo, hi = _boxes(rng, c)
+    lo[7], hi[7] = 1e30, -1e30  # an empty cluster's box
+    rays8, m = _finite_rays(rng, lo, hi)
+    r, tlo, thi = _t(rays8, lo, hi)
+    want_e = cull._entry_exact(r[:, 0:3], r[:, 3:6], r[:, 6], r[:, 7],
+                               tlo, thi)
+    got_e, got_i = _fast_path(r, tlo, thi)
+    np.testing.assert_array_equal(got_e.numpy() == want_e.numpy(), True)
+    np.testing.assert_array_equal(
+        got_i.numpy(), cull.nearest_box_reference(r, tlo, thi).numpy())
+    # the cases bite: overflowed slabs, hits, misses, zero entries, ties
+    assert np.isinf(got_e.numpy()).any() and (got_i.numpy() < c).mean() > 0.2
+    assert (got_i.numpy() == c).any() and (want_e.numpy() == 0.0).any()
+    assert not np.isin(got_i.numpy(), (10, 11)).any()
+    nan_rays, _ = _rays(np.random.default_rng(5), lo, hi)
+    nan_rays = nan_rays[np.isnan(nan_rays[:, :6]).any(axis=1)
+                        & (nan_rays[:, 7] >= 0)]
+    nr = torch.from_numpy(np.ascontiguousarray(nan_rays))
+    assert (_fast_path(nr, tlo, thi)[1]
+            != cull.nearest_box_reference(nr, tlo, thi)).any()
+
+
 def test_wrappers_dispatch_on_device():
     """A CPU tensor runs the plain version (no launch counted); any other
     device launches the kernel or raises, and never falls back."""
@@ -237,6 +312,52 @@ def test_nearest_box_kernel_matches_plain_version_on_card(dev, c):
     assert cull.nearest_box.launches == launches + 1
     want = cull.nearest_box_reference(rays8, lo, hi)
     np.testing.assert_array_equal(got.cpu().numpy(), want.cpu().numpy())
+
+
+def _mixed_warp_case(seed, c):
+    """Finite rays (_finite_rays) with NaN and infinite ones mixed into
+    every warp of the kernel's layout (thread t holds rays t, t + 128, t +
+    256, t + 384 of each 512), origins on box planes, duplicate boxes
+    across a 256-box tile boundary (255 and 256, 3 and 300), and an empty
+    cluster's box (lo 1e30 > hi -1e30)."""
+    rng = np.random.default_rng(seed)
+    lo, hi = _boxes(rng, c)
+    lo[256], hi[256] = lo[255], hi[255]
+    lo[300], hi[300] = lo[3], hi[3]
+    lo[7], hi[7] = 1e30, -1e30
+    rays8, m = _finite_rays(rng, lo, hi, n=2 * N)
+    i = np.arange(m)
+    rays8[i % 32 == 5, 0] = np.nan  # one NaN ray in every warp
+    rays8[i % 96 == 6, 4] = np.inf  # infinite direction
+    rays8[i % 96 == 38, 2] = -np.inf  # infinite origin
+    rays8[i % 512 == 9, 3] = np.nan  # a thread with one NaN ray of four
+    on = i % 11 == 1  # start on a box plane
+    rays8[on, 1] = lo[i[on] % c, 1]
+    return rays8, lo, hi
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("c", [301, 3079])
+def test_nearest_box_kernel_adversarial_on_card(dev, c):
+    """B3's fast and NaN-propagating paths in one warp, against the plain
+    version: NaN and infinite rays among finite ones, origins on box
+    planes, ties across tile boundaries, C no multiple of the tile, a ray
+    count no multiple of a block's 512; then a tile holding an infinite
+    box (that tile runs the NaN-propagating loop for every ray)."""
+    rays8, lo, hi = _mixed_warp_case(130 + c, c)
+    rays8, lo, hi = (x.to(dev) for x in _t(rays8[:-37], lo, hi))
+    got = cull.nearest_box(rays8, lo, hi)
+    want = cull.nearest_box_reference(rays8, lo, hi)
+    np.testing.assert_array_equal(got.cpu().numpy(), want.cpu().numpy())
+    w = want.cpu().numpy()
+    assert (w < c).mean() > 0.2 and (w == c).any()
+    assert not np.isin(w, (10, 11, 256, 300)).any()  # first index on ties
+    lo[c // 2, 0] = -torch.inf
+    hi[c - 1, 2] = torch.inf
+    got = cull.nearest_box(rays8, lo, hi)
+    np.testing.assert_array_equal(
+        got.cpu().numpy(),
+        cull.nearest_box_reference(rays8, lo, hi).cpu().numpy())
 
 
 @pytest.mark.cuda

@@ -18,7 +18,8 @@ import torch
 
 from raytracer2_tpu_torch.models import procedural as proc
 from raytracer2_tpu_torch.ops import cuda_traverse as ct
-from raytracer2_tpu_torch.ops.cluster import build_clusters
+from raytracer2_tpu_torch.ops.cluster import (
+    _wald_matrices as wald_matrices, build_clusters)
 from raytracer2_tpu_torch.ops.intersect import (
     intersect_brute_force, occluded_brute_force)
 from raytracer2_tpu_torch.render.rays import zorder_permutation
@@ -94,7 +95,8 @@ def test_kernel_matches_plain_version_on_card(dev, tiny, cls):
     args = (rays8, prep.cand_idx, prep.cand_t, prep.cand_count,
             tiny["tables"].wald_rows)
     launches = ct.walk_closest.launches
-    got = ct.walk_closest(*args, group=cfg["group"])
+    got = ct.walk_closest(*args, group=cfg["group"],
+                          lanes=tiny["tables"].lanes)
     torch.cuda.synchronize()
     assert ct.walk_closest.launches == launches + 1
     want = ct.walk_closest_reference(*args, group=cfg["group"])
@@ -127,12 +129,93 @@ def test_kernel_tie_rule_on_card(dev, tiny):
                                         device=dev),
                     torch.zeros((1, 2), device=dev),
                     torch.tensor([2], dtype=torch.int32, device=dev), wald)
-            got = ct.walk_closest(*args, group=group)
+            got = ct.walk_closest(*args, group=group,
+                                  lanes=ct.walk_lanes(wald))
             want = order[0] * sp + code % sp
             assert (got == want).all(), (group, order)
             np.testing.assert_array_equal(
                 got.cpu().numpy(),
                 ct.walk_closest_reference(*args, group=group).cpu().numpy())
+
+
+def _synthetic_walk(dev, p, k=16, seed=11):
+    """A Wald table of 15 clusters of 128 lanes with real counts 0 to 128
+    (clusters 13 and 14 copies of 1 and 4: equal keys across group members
+    and steps) over random triangles in 2 < z < 10, and 6 bundles of p rays
+    toward +z whose candidate lists are 0, 1, 5, 13, 15 and 16 long (no
+    multiple of the group but the last), with rising entry distances up to
+    20 so the early exit fires (bundles 4 and 5 end their segments at 12).
+    Bundle 1 holds a ray with a NaN t_max (its walk ends at once), bundle 2
+    dead rays, bundle 3 a ray with a NaN origin. Returns the walk's args
+    without group."""
+    rng = np.random.default_rng(seed)
+    counts = [0, 128, 1, 37, 128, 77, 5, 128, 0, 100, 64, 3, 128]
+    sp = 128
+    wald = np.zeros((len(counts) + 2, 16, sp), np.float32)
+    for ci, n in enumerate(counts):
+        v0 = np.concatenate([rng.uniform(-2, 2, (n, 2)),
+                             rng.uniform(2, 10, (n, 1))], 1)
+        e1, e2 = rng.normal(scale=0.8, size=(2, n, 3))
+        w = wald_matrices(v0, e1, e2)  # [n, 3 outputs, 4 inputs]
+        wald[ci, :12, :n] = w.transpose(2, 1, 0).reshape(12, n)
+    wald[len(counts)], wald[len(counts) + 1] = wald[1], wald[4]
+    nb = 6
+    o = np.concatenate([rng.uniform(-1.5, 1.5, (nb * p, 2)),
+                        np.zeros((nb * p, 1))], 1)
+    d = np.concatenate([rng.normal(scale=0.15, size=(nb * p, 2)),
+                        np.ones((nb * p, 1))], 1)
+    d /= np.linalg.norm(d, axis=1, keepdims=True)
+    tn = np.full(nb * p, 1e-3)
+    tx = np.full(nb * p, 1e5)
+    o[3 * p + 3, 0] = np.nan
+    tx[p + 7] = np.nan
+    tx[2 * p:3 * p:3] = -1.0
+    tx[4 * p:] = 12.0  # a finite bundle max: later candidates are skipped
+    rays8 = np.concatenate([o, d, tn[:, None], tx[:, None]], 1)
+    lists = [[], [7], [1, 13, 4, 14, 2], [0, 1, 2, 3, 4, 5, 6, 7, 8, 9, 10,
+                                         11, 12],
+             [13, 9, 1, 14, 4, 7, 12, 3, 5, 10, 11, 0, 2, 8, 6],
+             [4, 1, 14, 13, 7, 12, 9, 5, 3, 10, 11, 2, 0, 6, 8, 1]]
+    cand_idx = np.zeros((nb, k), np.int32)
+    cand_t = np.full((nb, k), np.inf, np.float32)
+    for b, lst in enumerate(lists):
+        cand_idx[b, :len(lst)] = lst
+        cand_t[b, :len(lst)] = np.sort(rng.uniform(0, 20, len(lst)))
+    count = np.array([len(x) for x in lists], np.int32)
+    return tuple(torch.from_numpy(np.ascontiguousarray(x)).to(dev) for x in (
+        rays8.astype(np.float32), cand_idx, cand_t, count, wald))
+
+
+@pytest.mark.parametrize("p,group", [(256, 4), (128, 8), (64, 1)])
+def test_kernel_adversarial_cases_on_card(dev, p, group):
+    """The walk kernel against its plain version, bit for bit, on clusters
+    of 0 to 128 real triangles at both classes' shapes (and group 1),
+    candidate lists of lengths no multiple of the group, equal keys across
+    group members and steps, a NaN ray, a NaN t_max and dead rays; then
+    again with each ray's t_max set to the exact t of its hit (a hit at
+    t_max still wins)."""
+    args = _synthetic_walk(dev, p)
+    lanes = ct.walk_lanes(args[4])
+    assert lanes.count.tolist()[:13] == [0, 128, 1, 37, 128, 77, 5, 128, 0,
+                                         100, 64, 3, 128]
+    got = ct.walk_closest(*args, group=group, lanes=lanes)
+    want = ct.walk_closest_reference(*args, group=group)
+    np.testing.assert_array_equal(got.cpu().numpy(), want.cpu().numpy())
+    hit = want != ct.MISS_CODE
+    assert hit[3 * p:].float().mean() > 0.2  # the cases bite
+    assert not hit[p:2 * p].any()  # the NaN t_max ends bundle 1's walk
+    # t_max at the exact t of each hit, as the plain test computes it
+    rays8, wald = args[0].clone(), args[4]
+    sp = wald.shape[-1]
+    rows = wald[(want[hit] // sp).long(), :12, (want[hit] % sp).long()]
+    t, ok = ct._wald_test(rays8[hit][:, None, :], rows[:, :, None, None])
+    assert ok.all()
+    rays8[hit, 7] = t[:, 0, 0]
+    args = (rays8,) + args[1:]
+    got = ct.walk_closest(*args, group=group, lanes=lanes)
+    want2 = ct.walk_closest_reference(*args, group=group)
+    np.testing.assert_array_equal(got.cpu().numpy(), want2.cpu().numpy())
+    assert (want2 != ct.MISS_CODE).sum() > p
 
 
 @pytest.mark.parametrize("presorted", [True, False])

@@ -270,8 +270,9 @@ def test_walk_closest_dispatches_on_device(tiny, monkeypatch):
                       dim=1).contiguous()
     args = (rays8, prep.cand_idx, prep.cand_t, prep.cand_count,
             tiny["tables"].wald_rows)
+    lanes = tiny["tables"].lanes
     launches = ct.walk_closest.launches
-    code = ct.walk_closest(*args, group=8)
+    code = ct.walk_closest(*args, group=8, lanes=lanes)
     assert ct.walk_closest.launches == launches  # the plain version ran
     np.testing.assert_array_equal(
         code.numpy(), ct.walk_closest_reference(*args, group=8).numpy())
@@ -282,11 +283,52 @@ def test_walk_closest_dispatches_on_device(tiny, monkeypatch):
         np.testing.assert_array_equal(
             code.numpy(), ct.walk_closest_reference(*args, group=8).numpy())
     with pytest.raises(ValueError, match="cuda or cpu"):
-        ct.walk_closest(*(a.to("meta") for a in args), group=8)
+        ct.walk_closest(*(a.to("meta") for a in args), group=8,
+                        lanes=lanes)
     with pytest.raises(TypeError):
-        ct.walk_closest(rays8.double(), *args[1:], group=8)
+        ct.walk_closest(rays8.double(), *args[1:], group=8, lanes=lanes)
     with pytest.raises(ValueError):
-        ct.walk_closest(*args, group=16)
+        ct.walk_closest(*args, group=16, lanes=lanes)
+
+
+def test_walk_lanes_table(tiny):
+    """The closest-hit kernel's lane-major table: each lane's 12 rows of
+    wald_rows in LANE_ROWS order, and per cluster a lane count that covers
+    every lane able to hit. Real triangles are a prefix of each cluster
+    row (meta_rows' ids), so stopping at the count skips padding only."""
+    tables = tiny["tables"]
+    wald = tables.wald_rows
+    c, _, sp = wald.shape
+    lanes = tables.lanes
+    assert lanes.coeffs.shape == (c, sp, 12) and lanes.count.shape == (c,)
+    assert lanes.coeffs.dtype == torch.float32
+    assert lanes.count.dtype == torch.int32 and lanes.coeffs.is_contiguous()
+    for i, row in enumerate(ct.LANE_ROWS):
+        np.testing.assert_array_equal(lanes.coeffs[:, :, i].numpy(),
+                                      wald[:, row, :].numpy())
+    assert sorted(ct.LANE_ROWS) == list(range(12))
+    real = (tables.meta_rows[:, 12] >= 0).reshape(c, sp)
+    n_real = real.sum(dim=1)
+    lane = torch.arange(sp)
+    assert (real == (lane[None, :] < n_real[:, None])).all()  # a prefix
+    count = lanes.count.long()
+    # lanes past the count hold zero rows (padding, or a degenerate real
+    # triangle's zero map): d'_z == 0, never a hit
+    past = lane[None, :] >= count[:, None]
+    assert (wald[:, :12, :].permute(0, 2, 1)[past] == 0).all()
+    assert (count <= n_real).all() and (count == n_real).float().mean() > 0.5
+    # every real triangle with a nonzero map is tested
+    live = (wald[:, :12, :] != 0).any(dim=1)
+    assert not (live & past).any()
+    assert (count < sp).all()  # 4-triangle clusters: padding is skipped
+    # a table built from wald_rows alone is the same
+    again = ct.walk_lanes(wald)
+    np.testing.assert_array_equal(again.count.numpy(), lanes.count.numpy())
+    # a cluster with no triangle tests no lane; a full one tests all
+    empty = ct.walk_lanes(torch.zeros((2, 16, sp)))
+    assert empty.count.tolist() == [0, 0]
+    full = ct.walk_lanes(torch.ones((1, 16, sp)))
+    assert full.count.tolist() == [sp]
 
 
 def _tie_case(tiny, order, group):
