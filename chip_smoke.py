@@ -23,8 +23,9 @@ which raises on failure:
                         builder ran) and the tracers on the card; then
                         occupancy: resident blocks per SM, registers and
                         shared bytes per block of walk_closest at each
-                        closest-hit class's bundle size and of
-                        nearest_box.
+                        closest-hit class's bundle size, of walk_occluded
+                        at the visibility class's, and of nearest_box and
+                        bundle_union.
 4. kernel             - walk_closest against its plain torch version on the
                         reference path's 262,144-ray batch of each
                         closest-hit class (pixel tiles, BRDF bounces), winner
@@ -356,7 +357,7 @@ def walk_bound(args, group: int, work: ct.WalkWork, real, kw) -> dict:
     per ray. Operations: WALD_TEST_OPS per (ray, real triangle) test over
     the steps each bundle takes, as the plain version counts them (padding
     lanes left out; an any-hit ray counts up to its first hit)."""
-    rays8, cand_idx, _, cand_count, wald = args
+    rays8, cand_idx, _, cand_count, _ = args
     walked = torch.minimum(work.steps * group, cand_count.long())
     mask = (torch.arange(cand_idx.shape[1], device=cand_idx.device)[None, :]
             < walked[:, None])
@@ -368,13 +369,9 @@ def walk_bound(args, group: int, work: ct.WalkWork, real, kw) -> dict:
     ops = int(work.ray_lanes) * WALD_TEST_OPS
     bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
     ops_ms = ops / FP32_OPS_PER_S * 1e3
-    # what the bundles stage in all (mostly from L2), for comparison: the
-    # closest-hit kernel each walked cluster's lanes up to its lane count,
-    # the any-hit kernel every lane of each walked cluster
-    if "lanes" in kw:
-        lanes = int(kw["lanes"].count[cand_idx[mask].long()].long().sum())
-    else:
-        lanes = int(mask.sum()) * wald.shape[-1]
+    # what the bundles stage in all (mostly from L2), for comparison: each
+    # walked cluster's lanes up to its lane count
+    lanes = int(kw["lanes"].count[cand_idx[mask].long()].long().sum())
     return {"bound_ms": max(bytes_ms, ops_ms),
             "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
             "bytes": nbytes, "ops": ops, "steps": int(work.steps.sum()),
@@ -386,8 +383,8 @@ def check_walk(kernel: str, cls: str, args, group: int, real,
                **kw) -> dict:
     """One walk kernel against its plain version on one batch: outputs
     bit for bit, both times (CUDA events, median of 5) and the bound. kw:
-    the kernel's own table arguments (walk_closest's lanes). Raises on any
-    mismatch or on a batch that tests nothing."""
+    the kernel's own table argument (lanes). Raises on any mismatch or on
+    a batch that tests nothing."""
     walk = getattr(ct, kernel)
     reference = getattr(ct, f"{kernel}_reference")
     got = walk(*args, group=group, **kw)
@@ -468,8 +465,8 @@ def check_cull(kernel: str, cls: str, args) -> dict:
     """One cull kernel against its plain version on one batch: outputs bit
     for bit (the union table compared as int32 bits, its +0 and -0 counted
     and any sign-of-zero difference reported apart), both times (CUDA
-    events) and the bound. Raises on any mismatch or a batch that tests
-    nothing."""
+    events) and the bound. Raises on any mismatch, a -0 in the kernel's
+    union table, or a batch that tests nothing."""
     fn = getattr(cull, kernel)
     reference = getattr(cull, f"{kernel}_reference")
     got = fn(*args)
@@ -497,7 +494,9 @@ def check_cull(kernel: str, cls: str, args) -> dict:
             "plus_zero": int((zero & ~torch.signbit(want)).sum()),
             "minus_zero": int((zero & torch.signbit(want)).sum()),
             "zero_sign_differences": int((zero & (got == 0.0)
-                                          & (gb != wb)).sum())}
+                                          & (gb != wb)).sum()),
+            "kernel_minus_zero": int(((got == 0.0)
+                                      & torch.signbit(got)).sum())}
         trivial = not bool(finite.any())
     log("kernel-cull", kernel=kernel, cls=cls, rays=rays8.shape[0],
         live_rays=bound["live_rays"],
@@ -511,6 +510,8 @@ def check_cull(kernel: str, cls: str, args) -> dict:
     if mismatches:
         raise RuntimeError(f"{kernel} ({cls}): kernel and plain version "
                            f"disagree on {mismatches} values")
+    if outcome.get("kernel_minus_zero"):
+        raise RuntimeError(f"{kernel} ({cls}): the union table holds -0")
     if trivial:
         raise RuntimeError(f"{kernel} ({cls}): the batch overlaps no box, "
                            "it tests nothing")
@@ -530,15 +531,21 @@ def phase_kernel(renderer, batches) -> dict:
 
 
 def phase_occupancy(renderer) -> dict:
-    """B1 at each closest-hit class's bundle size and B3 at its block:
-    resident blocks per SM, threads, registers and shared bytes per block
-    (the kernels' occupancy entry points)."""
+    """B1 at each closest-hit class's bundle size, B2 at the visibility
+    class's, and B3 and B4 at their blocks: resident blocks per SM,
+    threads, registers and shared bytes per block (the kernels' occupancy
+    entry points)."""
     tracers = renderer.tracers
     sp = tracers.tables.wald_rows.shape[-1]
-    out = {"walk_closest": {}, "nearest_box": {
-        "all": _build.occupancy("rt2_nearest_box_occupancy")}}
+    out = {"walk_closest": {}, "walk_occluded": {}, "nearest_box": {
+        "all": _build.occupancy("rt2_nearest_box_occupancy")},
+        "bundle_union": {
+            "all": _build.occupancy("rt2_bundle_union_occupancy")}}
     for cls, cfg in tracers.shapes_by_class.items():
-        if cls != "shadow":
+        if cls == "shadow":
+            out["walk_occluded"]["visibility"] = _build.occupancy(
+                "rt2_walk_occluded_occupancy", cfg["bundle_size"], sp)
+        else:
             name = "pixel_tiles" if cls else "bounces"
             out["walk_closest"][name] = _build.occupancy(
                 "rt2_walk_closest_occupancy", cfg["bundle_size"], sp)
@@ -687,7 +694,7 @@ class TraceLog:
 
     def _walk(self, inner, *args, **kwargs):
         # the trace path passes the walk's six arguments positionally, and
-        # the closest-hit walk its per-scene lanes by keyword
+        # its per-scene lanes by keyword
         if self.keep and self._cls is not None and self._cls not in self.walks:
             self.walks[self._cls] = (inner.__name__, tuple(
                 a.clone() for a in args[:5]), args[5], dict(kwargs))

@@ -63,8 +63,9 @@
 // (ops/cuda_traverse.py::_wald_test), the divide is IEEE, and nothing is
 // fused, so the kernel agrees with walk_closest_reference bit for bit.
 //
-// The any-hit walk (bundle_occlude.cu) still stages row-major tiles
-// through walk_common.cuh's stage_rows / wald_test / block_max.
+// The any-hit walk (bundle_occlude.cu) shares this design and its helpers
+// (walk_common.cuh: the cluster ring, the group-start exit, the lane test,
+// the bundle order, the launch and the occupancy).
 
 #include <climits>
 
@@ -72,82 +73,15 @@
 
 namespace {
 
+using rt2::cp_async_wait;
+using rt2::float_order;
+using rt2::kChunks;
 using rt2::kMaxBundle;
-using rt2::kMaxGroup;
-using rt2::kMaxLanes;
+using rt2::kRing;
 
 constexpr int kSlotMask = (1 << 10) - 1;
 constexpr int kMissCode = 0x7FFFFFFF;
-constexpr int kRing = 4;      // cluster slots in shared memory
-constexpr int kChunks = 3;    // 16-byte vectors per lane: u, v, z rows
 constexpr int kMinBlocks = 4;  // of kMaxBundle threads: <= 64 registers
-constexpr int kOrderThreads = 1024;
-constexpr int kOrderBins = 4096;  // counts above share the last bin
-
-__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s),
-               "l"(src)
-               : "memory");
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
-}
-
-// The float order of bits as an int order; NaN is INT_MAX (no other value
-// maps there: a positive float's bits are below 0x7F800001, a negative
-// one's map below 0).
-__device__ __forceinline__ int float_order(int bits) {
-  if (isnan(__int_as_float(bits))) return INT_MAX;
-  return bits >= 0 ? bits : bits ^ 0x7FFFFFFF;
-}
-
-// Starts the copies of the first `lanes` lanes of cluster ci into a slot
-// (lanes * kChunks 16-byte vectors, strided over the block).
-__device__ __forceinline__ void stage_cluster(float4* slot,
-                                              const float4* __restrict__ coeffs,
-                                              int ci, int lanes, int s_pad) {
-  const float4* src = coeffs + static_cast<long long>(ci) * s_pad * kChunks;
-  for (int i = threadIdx.x; i < lanes * kChunks; i += blockDim.x) {
-    cp_async16(slot + i, src + i);
-  }
-}
-
-// The bundles in decreasing candidate count (a counting sort in one
-// block over min(count, bins - 1); the order inside a bin is the
-// atomics', which no result sees): the walk kernel's block i takes bundle
-// order[i], so the few bundles with hundreds of candidates (sky and
-// grazing pixel tiles) start first instead of running on alone at the end
-// of the batch.
-__global__ void __launch_bounds__(kOrderThreads)
-bundle_order_kernel(const int* __restrict__ cand_count, int n_bundles,
-                    int bins, int* __restrict__ order) {
-  extern __shared__ int start[];  // [bins]: bundles per bin, then starts
-  for (int v = threadIdx.x; v < bins; v += blockDim.x) start[v] = 0;
-  __syncthreads();
-  for (int b = threadIdx.x; b < n_bundles; b += blockDim.x) {
-    atomicAdd(&start[min(max(cand_count[b], 0), bins - 1)], 1);
-  }
-  __syncthreads();
-  if (threadIdx.x == 0) {
-    int s = 0;
-    for (int v = bins - 1; v >= 0; --v) {
-      const int n = start[v];
-      start[v] = s;
-      s += n;
-    }
-  }
-  __syncthreads();
-  for (int b = threadIdx.x; b < n_bundles; b += blockDim.x) {
-    order[atomicAdd(&start[min(max(cand_count[b], 0), bins - 1)], 1)] = b;
-  }
-}
 
 __global__ void __launch_bounds__(kMaxBundle, kMinBlocks)
 walk_closest_kernel(const float* __restrict__ rays8,
@@ -178,23 +112,9 @@ walk_closest_kernel(const float* __restrict__ rays8,
   const int n_cand = cand_count[bundle];
   const int* ci_row = cand_idx + static_cast<long long>(bundle) * k;
   const float* ct_row = cand_t + static_cast<long long>(bundle) * k;
-  const int slot_size = s_pad * kChunks;
-
-  // candidates 0 .. kRing - 2 in flight, one commit group each
-  for (int q = 0; q < kRing - 1; ++q) {
-    if (q < n_cand) {
-      const int ci = ci_row[q];
-      const int lanes = lane_count[ci];
-      if (tid == 0) slot_lanes[q] = lanes;
-      stage_cluster(ring + q * slot_size, coeffs, ci, lanes, s_pad);
-    }
-    cp_async_commit();
-  }
-  // the cluster iteration j stages (j + kRing - 1) and the one after it,
-  // loaded an iteration early so that the loads wait behind a cluster test
-  int ci_next = kRing - 1 < n_cand ? ci_row[kRing - 1] : 0;
-  int lanes_next = lane_count[ci_next];
-  int ci_after = kRing < n_cand ? ci_row[kRing] : 0;
+  rt2::ClusterRing cr{ring, slot_lanes, coeffs, lane_count, ci_row, n_cand,
+                      s_pad};
+  cr.prime();
 
   int buf = 0;  // warp_worst half of this group start
   int g = 0;    // j % group
@@ -209,49 +129,22 @@ walk_closest_kernel(const float* __restrict__ rays8,
     // slot, and the warps' maxima are written
     __syncthreads();
     if (g == 0) {
-      int worst = warp_worst[buf][0];
-      for (int w = 1; w < n_warps; ++w) worst = max(worst, warp_worst[buf][w]);
+      const bool on = rt2::walk_goes_on(warp_worst[buf], n_warps, ct_row + j);
       buf ^= 1;  // the next group start writes the other half
-      if (worst == INT_MAX ||
-          !(ct_row[j] <= __int_as_float(worst >= 0 ? worst
-                                                   : worst ^ 0x7FFFFFFF))) {
-        break;
-      }
+      if (!on) break;
     }
-    // refill the slot cluster j - 1 used
-    const int jn = j + kRing - 1;
-    if (jn < n_cand) {
-      const int slot = jn % kRing;
-      if (tid == 0) slot_lanes[slot] = lanes_next;
-      stage_cluster(ring + slot * slot_size, coeffs, ci_next, lanes_next,
-                    s_pad);
-      ci_next = ci_after;
-      lanes_next = lane_count[ci_after];
-      ci_after = jn + 2 < n_cand ? ci_row[jn + 2] : 0;
-    }
-    cp_async_commit();
+    cr.refill(j);
 
-    const int slot = j % kRing;
-    const float4* tile = ring + slot * slot_size;
-    const int lanes = slot_lanes[slot];
+    const float4* tile = cr.tile(j);
+    const int lanes = cr.lanes(j);
     const int s0 = g * s_pad;
     const int before = best_key;
 #pragma unroll 4
     for (int l = 0; l < lanes; ++l) {
-      const float4 u = tile[l * kChunks + 0];  // w0 w3 w6 w9
-      const float4 v = tile[l * kChunks + 1];  // w1 w4 w7 w10
-      const float4 z = tile[l * kChunks + 2];  // w2 w5 w8 w11
-      const float op_u = ((r.ox * u.x + r.oy * u.y) + r.oz * u.z) + u.w;
-      const float op_v = ((r.ox * v.x + r.oy * v.y) + r.oz * v.z) + v.w;
-      const float op_z = ((r.ox * z.x + r.oy * z.y) + r.oz * z.z) + z.w;
-      const float dp_u = (r.dx * u.x + r.dy * u.y) + r.dz * u.z;
-      const float dp_v = (r.dx * v.x + r.dy * v.y) + r.dz * v.z;
-      const float dp_z = (r.dx * z.x + r.dy * z.y) + r.dz * z.z;
-      const float t = -op_z / dp_z;
-      const float uu = op_u + t * dp_u;
-      const float vv = op_v + t * dp_v;
-      const bool hit = fabsf(dp_z) > 1e-12f && uu >= 0.0f && vv >= 0.0f &&
-                       uu + vv <= 1.0f && t > r.tn;
+      float t;
+      const bool hit = rt2::wald_lane_test(r, tile[l * kChunks + 0],
+                                           tile[l * kChunks + 1],
+                                           tile[l * kChunks + 2], t);
       const int key = (__float_as_int(t) & ~kSlotMask) | (s0 + l);
       if (hit) best_key = min(best_key, key);
     }
@@ -266,10 +159,6 @@ walk_closest_kernel(const float* __restrict__ rays8,
     code = ci_row[best_j] * s_pad + lane;
   }
   out_code[ray] = code;
-}
-
-size_t ring_bytes(int s_pad) {
-  return sizeof(float4) * kRing * kChunks * static_cast<size_t>(s_pad);
 }
 
 }  // namespace
@@ -287,51 +176,16 @@ int rt2_walk_closest(const float* rays8, const int* cand_idx,
                      const float* coeffs, const int* lane_count, int* order,
                      int* out_code, int n_bundles, int p, int k, int s_pad,
                      int group, void* stream) {
-  if (n_bundles <= 0) return 0;
-  if (p <= 0 || p > kMaxBundle || p % 32 != 0 || group < 1 ||
-      group > kMaxGroup || s_pad <= 0 || group * s_pad > kMaxLanes ||
-      k < 1) {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
-  const auto s = static_cast<cudaStream_t>(stream);
-  const int bins = k + 1 < kOrderBins ? k + 1 : kOrderBins;
-  bundle_order_kernel<<<1, kOrderThreads, sizeof(int) * bins, s>>>(
-      cand_count, n_bundles, bins, order);
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const size_t smem = ring_bytes(s_pad);
-  err = cudaFuncSetAttribute(walk_closest_kernel,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             static_cast<int>(smem));
-  if (err != cudaSuccess) return static_cast<int>(err);
-  walk_closest_kernel<<<n_bundles, p, smem, s>>>(
-      rays8, cand_idx, cand_t, cand_count,
-      reinterpret_cast<const float4*>(coeffs), lane_count, order, out_code,
-      k, s_pad, group);
-  return static_cast<int>(cudaGetLastError());
+  return rt2::launch_walk(walk_closest_kernel, rays8, cand_idx, cand_t,
+                          cand_count, coeffs, lane_count, order, out_code,
+                          n_bundles, p, k, s_pad, group, stream);
 }
 
 // out[4]: resident blocks per SM at p threads a block and s_pad lanes a
 // cluster, p, registers per thread, shared bytes per block. Returns a
 // cudaError_t (0 on success).
 int rt2_walk_closest_occupancy(int p, int s_pad, int* out) {
-  cudaFuncAttributes attr;
-  cudaError_t err = cudaFuncGetAttributes(&attr, walk_closest_kernel);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const size_t smem = ring_bytes(s_pad);
-  err = cudaFuncSetAttribute(walk_closest_kernel,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             static_cast<int>(smem));
-  if (err != cudaSuccess) return static_cast<int>(err);
-  int blocks = 0;
-  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-      &blocks, walk_closest_kernel, p, smem);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  out[0] = blocks;
-  out[1] = p;
-  out[2] = attr.numRegs;
-  out[3] = static_cast<int>(attr.sharedSizeBytes + smem);
-  return 0;
+  return rt2::walk_occupancy(walk_closest_kernel, p, s_pad, out);
 }
 
 const char* rt2_error_string(int code) {

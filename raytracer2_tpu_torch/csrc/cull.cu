@@ -34,8 +34,9 @@
 // at the card's 67 TFLOP/s, a rate that counts an FMA as two operations:
 // 13.5 instruction issues a test. None of these is an FMA, so an exact
 // kernel that issues ~28 instructions a test stays under ~48% of that
-// bound. The bytes (rays, boxes, the [N] i32 or [B, C] f32 output) are far
-// below it.
+// bound (B4's fast loop needs fewer, ~20 a test, by choosing the slab
+// corners per octant instead of taking their min and max). The bytes
+// (rays, boxes, the [N] i32 or [B, C] f32 output) are far below it.
 //
 // B3 (redesigned for this card): kNearThreads threads a block, each
 // holding kRaysPerThread rays (coalesced: ray q of thread t is t + q *
@@ -58,7 +59,7 @@
 // of a zero, and a zero's sign reaches only compares (sign-blind) and the
 // clamp max(near, 0) (a zero either way); the output is an index, so no
 // bit changes. Other threads, and tiles with a non-finite box, run the
-// NaN-propagating entry() of B4. What bounds B3 now is instruction issue:
+// NaN-propagating entry(). What bounds B3 now is instruction issue:
 // per box and four rays the fast loop is 24 FADD, 24 FMUL, 44 FMNMX, 12
 // FSETP and 8 selects, ~30 a test. Tried and dropped: sorting a block's
 // rays by octant so that each axis' near and far corners are chosen once
@@ -66,19 +67,51 @@
 // threads at a class boundary take the min/max loop and their warps run
 // both loops.
 //
-// B4 (the first port's design, still on entry() with nan_min / nan_max):
-// one block per bundle; its P rays are staged once into shared memory as
-// (o, inv, t_min, t_max), and the threads stride over the C boxes, each
-// taking the min over the P rays of its box's e (the rays are broadcasts)
-// and writing it at out[b, c], coalesced along C. Later work: B3's finite
-// fast path and several boxes per thread, and B4's rays split across warps.
+// B4 (redesigned for this card): what held the first design back was
+// entry()'s NaN-propagating min and max (an isnan-isnan-compare-select
+// chain each, ten a test) and one box per thread, so each ray read from
+// shared memory served one test. Now each block takes one bundle and a
+// tile of kUnionTile boxes: each of its kUnionThreads threads holds
+// kUnionBoxes boxes in registers (box c0 + k * kUnionThreads + t, so loads
+// and the output row stay coalesced along C), and the bundle's rays stream
+// past them as two 16-byte broadcasts, (o, t_min) and (inv, t_max), each
+// serving kUnionBoxes independent tests. 128 threads, 8 blocks per SM at
+// <= 64 registers; 6 tiles cover C = 3,072, so a 16,200-bundle batch is
+// 97,200 blocks.
+// - The lists. Staging sorts the bundle's live rays into nine lists: the
+//   rays whose six o and d floats are finite, by octant (the signs of
+//   inv), then the rest. The rays are broadcasts, so a list is the same
+//   for every thread of a block and a warp never runs two loops (B3's
+//   per-thread rays could not be split so). A tile whose boxes are all
+//   finite (the cluster boxes are) sorts each box's corners per axis; a
+//   tile with a non-finite box runs entry() for every ray.
+// - The fast loop, per octant. For a finite ray and a finite box the slab
+//   distances are numbers (B3's argument above). inv is nonzero; where
+//   inv_a > 0, lo <= hi gives (lo - o) * inv <= (hi - o) * inv (rounding
+//   is monotone), and where inv_a < 0 the reverse: the min of the pair is
+//   the near corner's, chosen at compile time per octant, so the per-axis
+//   min and max cost nothing. {t0, t1} is the same pair for the sorted box
+//   (min(t0, t1) and max(t0, t1) are symmetric), so an empty cluster's
+//   inverted +-1e30 box gets the plain version's result too. Per test: 6
+//   FADD, 6 FMUL, 4 FMNMX across the axes, 3 compares and one min, ~20
+//   instructions. Their rate is what bounds B4 now: it runs at ~46% of
+//   the bound on a flagship bounce batch (PERF.md).
+// - The clamp leaves the loop. The loop keeps the least raw near over the
+//   hits (fminf: its operands are never NaN, so the order of rays and
+//   lists does not matter), and the store writes best > 0 ? best : +0:
+//   max(., 0) is monotone, so that is the least max(near, +0), and a zero
+//   of either sign, or a -inf near, leaves as +0. Not fmaxf(best, 0),
+//   whose zero sign would be the instruction's choice.
+// - The rest (a NaN or infinite o or d) run entry() against the same
+//   registers, after the octant lists; entry() gives +0 or more, or +inf.
+
+#include <climits>
 
 #include <cuda_runtime.h>
 #include <math.h>
 
 namespace {
 
-constexpr int kThreads = 256;
 constexpr int kMaxBundle = 256;
 constexpr float kEps = 1e-12f;
 constexpr int kNearThreads = 128;
@@ -86,6 +119,12 @@ constexpr int kRaysPerThread = 4;
 constexpr int kNearRays = kNearThreads * kRaysPerThread;  // per block
 constexpr int kNearTile = 256;  // boxes per shared-memory tile (8 KB)
 constexpr int kNearMinBlocks = 8;  // per SM: <= 64 registers a thread
+constexpr int kUnionThreads = 128;
+constexpr int kUnionBoxes = 4;  // boxes a thread holds in registers
+constexpr int kUnionTile = kUnionThreads * kUnionBoxes;  // boxes per block
+constexpr int kUnionLists = 9;  // finite rays by octant, then the rest
+constexpr int kUnionStage = kMaxBundle / kUnionThreads;  // rays a thread
+constexpr int kUnionMinBlocks = 8;  // per SM: <= 64 registers a thread
 
 // torch.minimum / torch.maximum on float32: NaN if either operand is NaN
 __device__ __forceinline__ float nan_min(float a, float b) {
@@ -106,13 +145,6 @@ __device__ __forceinline__ float safe_inv(float d) {
 struct SlabRay {
   float ox, oy, oz, ix, iy, iz, tn, tx;
 };
-
-__device__ __forceinline__ SlabRay load_slab_ray(const float* rays8,
-                                                 long long ray) {
-  const float* r = rays8 + ray * 8;
-  return SlabRay{r[0], r[1], r[2], safe_inv(r[3]), safe_inv(r[4]),
-                 safe_inv(r[5]), r[6], r[7]};
-}
 
 // The conservative entry distance of a live ray r (t_max >= 0, tested by
 // the caller) into box (lo, hi), in the plain version's order: x, then y,
@@ -232,36 +264,186 @@ nearest_box_kernel(const float* __restrict__ rays8,
   }
 }
 
-__global__ void __launch_bounds__(kThreads)
+// B4's fast loop over the finite rays of one octant (the signs of inv as
+// bits x 1, y 2, z 4; set where inv < 0) against the thread's finite boxes,
+// sorted per axis (lo <= hi): on axis a the near corner is lo where
+// inv_a > 0 and hi where inv_a < 0, so the slab's min and max need no
+// instruction (see the header). Folds each hit's raw near into best.
+template <int kOct>
+__device__ __forceinline__ void union_octant(
+    const float4* __restrict__ ra, const float4* __restrict__ rb, int i0,
+    int i1, const float (&lo)[kUnionBoxes][3],
+    const float (&hi)[kUnionBoxes][3], float (&best)[kUnionBoxes]) {
+  constexpr bool kNegX = kOct & 1, kNegY = kOct & 2, kNegZ = kOct & 4;
+#pragma unroll 2
+  for (int i = i0; i < i1; ++i) {
+    const float4 a = ra[i];  // ox oy oz t_min
+    const float4 b = rb[i];  // ix iy iz t_max
+#pragma unroll
+    for (int k = 0; k < kUnionBoxes; ++k) {
+      const float nx = ((kNegX ? hi[k][0] : lo[k][0]) - a.x) * b.x;
+      const float fx = ((kNegX ? lo[k][0] : hi[k][0]) - a.x) * b.x;
+      const float ny = ((kNegY ? hi[k][1] : lo[k][1]) - a.y) * b.y;
+      const float fy = ((kNegY ? lo[k][1] : hi[k][1]) - a.y) * b.y;
+      const float nz = ((kNegZ ? hi[k][2] : lo[k][2]) - a.z) * b.z;
+      const float fz = ((kNegZ ? lo[k][2] : hi[k][2]) - a.z) * b.z;
+      const float near = fmaxf(fmaxf(nx, ny), nz);
+      const float far = fminf(fminf(fx, fy), fz);
+      if (near <= far && far >= a.w && near <= b.w) {
+        best[k] = fminf(best[k], near);
+      }
+    }
+  }
+}
+
+// B4's exact loop: entry() of each staged ray in [i0, i1) against the
+// thread's boxes (as given, or sorted where they are finite: entry() is
+// symmetric in lo and hi on each axis, up to the sign of a zero that no
+// compare sees and the clamp erases).
+__device__ __forceinline__ void union_exact(
+    const float4* __restrict__ ra, const float4* __restrict__ rb, int i0,
+    int i1, const float (&lo)[kUnionBoxes][3],
+    const float (&hi)[kUnionBoxes][3], float (&best)[kUnionBoxes]) {
+  for (int i = i0; i < i1; ++i) {
+    const float4 a = ra[i], b = rb[i];
+    const SlabRay r{a.x, a.y, a.z, b.x, b.y, b.z, a.w, b.w};
+#pragma unroll
+    for (int k = 0; k < kUnionBoxes; ++k) {
+      best[k] = fminf(best[k], entry(r, lo[k][0], lo[k][1], lo[k][2],
+                                     hi[k][0], hi[k][1], hi[k][2]));
+    }
+  }
+}
+
+// boxes: [6, c] f32, rows lo.x lo.y lo.z hi.x hi.y hi.z. Block x takes
+// bundle x / n_tiles and the kUnionTile boxes of tile x % n_tiles.
+__global__ void __launch_bounds__(kUnionThreads, kUnionMinBlocks)
 bundle_union_kernel(const float* __restrict__ rays8,
                     const float* __restrict__ boxes,
-                    float* __restrict__ out, int p, int c) {
-  __shared__ SlabRay rays[kMaxBundle];
-  __shared__ int n_live;
-  const int b = blockIdx.x;
-  if (threadIdx.x == 0) n_live = 0;
-  __syncthreads();
-  // stage the bundle's live rays (t_max >= 0); a dead ray contributes +inf
-  // to every box and drops out. The atomic slot order is arbitrary, which
-  // the min does not see: its operands are never NaN and never -0
-  for (int i = threadIdx.x; i < p; i += kThreads) {
-    const SlabRay r = load_slab_ray(rays8, static_cast<long long>(b) * p + i);
-    if (r.tx >= 0.0f) rays[atomicAdd(&n_live, 1)] = r;
-  }
-  __syncthreads();
-  const int m = n_live;
-  float* row = out + static_cast<long long>(b) * c;
-  for (int j = threadIdx.x; j < c; j += kThreads) {
-    const float lx = boxes[j], ly = boxes[c + j], lz = boxes[2 * c + j];
-    const float hx = boxes[3 * c + j], hy = boxes[4 * c + j],
-                hz = boxes[5 * c + j];
-    float best = INFINITY;
-    for (int i = 0; i < m; ++i) {
-      const float e = entry(rays[i], lx, ly, lz, hx, hy, hz);
-      best = e < best ? e : best;
+                    float* __restrict__ out, int p, int c, int n_tiles) {
+  __shared__ float4 ray_a[kMaxBundle];  // ox oy oz t_min, by list
+  __shared__ float4 ray_b[kMaxBundle];  // ix iy iz t_max
+  __shared__ int list_count[kUnionLists];
+  __shared__ int list_start[kUnionLists + 1];
+  const int tid = threadIdx.x;
+  const int b = blockIdx.x / n_tiles;
+  const int c0 = (blockIdx.x - b * n_tiles) * kUnionTile;
+  if (tid < kUnionLists) list_count[tid] = 0;
+
+  // the thread's boxes c0 + k * kUnionThreads + tid (coalesced along C);
+  // past c a zero box, finite, never stored
+  float lo[kUnionBoxes][3], hi[kUnionBoxes][3];
+  bool finite = true;
+#pragma unroll
+  for (int k = 0; k < kUnionBoxes; ++k) {
+    const int j = c0 + k * kUnionThreads + tid;
+#pragma unroll
+    for (int a = 0; a < 3; ++a) {
+      lo[k][a] = j < c ? boxes[a * c + j] : 0.0f;
+      hi[k][a] = j < c ? boxes[(3 + a) * c + j] : 0.0f;
+      finite = finite && isfinite(lo[k][a]) && isfinite(hi[k][a]);
     }
-    row[j] = best;
   }
+  __syncthreads();  // list_count is zero
+
+  // stage the bundle's live rays (t_max >= 0; a dead ray contributes +inf
+  // to every box) into nine lists: the finite rays of each octant, then the
+  // rest. The atomic slot order is arbitrary, which the min does not see
+  float4 sa[kUnionStage], sb[kUnionStage];
+  int list[kUnionStage], slot[kUnionStage];
+#pragma unroll
+  for (int q = 0; q < kUnionStage; ++q) {
+    const int i = tid + q * kUnionThreads;
+    list[q] = -1;
+    if (i < p) {
+      const float* r = rays8 + (static_cast<long long>(b) * p + i) * 8;
+      const float ix = safe_inv(r[3]), iy = safe_inv(r[4]),
+                  iz = safe_inv(r[5]);
+      sa[q] = make_float4(r[0], r[1], r[2], r[6]);
+      sb[q] = make_float4(ix, iy, iz, r[7]);
+      if (r[7] >= 0.0f) {  // false for t_max < 0 or NaN
+        bool fin = true;
+#pragma unroll
+        for (int a = 0; a < 6; ++a) fin = fin && isfinite(r[a]);
+        list[q] = fin ? (ix < 0.0f) | (iy < 0.0f) << 1 | (iz < 0.0f) << 2
+                      : kUnionLists - 1;
+        slot[q] = atomicAdd(&list_count[list[q]], 1);
+      }
+    }
+  }
+  const bool tile_finite = __syncthreads_and(finite);
+  if (tid == 0) {
+    int s = 0;
+    for (int l = 0; l < kUnionLists; ++l) {
+      list_start[l] = s;
+      s += list_count[l];
+    }
+    list_start[kUnionLists] = s;
+  }
+  __syncthreads();
+#pragma unroll
+  for (int q = 0; q < kUnionStage; ++q) {
+    if (list[q] >= 0) {
+      const int at = list_start[list[q]] + slot[q];
+      ray_a[at] = sa[q];
+      ray_b[at] = sb[q];
+    }
+  }
+  __syncthreads();
+
+  float best[kUnionBoxes];
+#pragma unroll
+  for (int k = 0; k < kUnionBoxes; ++k) best[k] = INFINITY;
+  if (tile_finite) {
+#pragma unroll
+    for (int k = 0; k < kUnionBoxes; ++k) {
+#pragma unroll
+      for (int a = 0; a < 3; ++a) {
+        const float l = fminf(lo[k][a], hi[k][a]);
+        hi[k][a] = fmaxf(lo[k][a], hi[k][a]);
+        lo[k][a] = l;
+      }
+    }
+    const int* st = list_start;
+    union_octant<0>(ray_a, ray_b, st[0], st[1], lo, hi, best);
+    union_octant<1>(ray_a, ray_b, st[1], st[2], lo, hi, best);
+    union_octant<2>(ray_a, ray_b, st[2], st[3], lo, hi, best);
+    union_octant<3>(ray_a, ray_b, st[3], st[4], lo, hi, best);
+    union_octant<4>(ray_a, ray_b, st[4], st[5], lo, hi, best);
+    union_octant<5>(ray_a, ray_b, st[5], st[6], lo, hi, best);
+    union_octant<6>(ray_a, ray_b, st[6], st[7], lo, hi, best);
+    union_octant<7>(ray_a, ray_b, st[7], st[8], lo, hi, best);
+    union_exact(ray_a, ray_b, st[8], st[9], lo, hi, best);
+  } else {
+    union_exact(ray_a, ray_b, 0, list_start[kUnionLists], lo, hi, best);
+  }
+  float* row = out + static_cast<long long>(b) * c;
+#pragma unroll
+  for (int k = 0; k < kUnionBoxes; ++k) {
+    const int j = c0 + k * kUnionThreads + tid;
+    // max(min over rays of near, +0) is the min over rays of max(near,
+    // +0), and a zero of either sign leaves as +0
+    if (j < c) row[j] = best[k] > 0.0f ? best[k] : 0.0f;
+  }
+}
+
+// out[4]: resident blocks per SM of a kernel with static shared memory
+// only, at `threads` a block; threads; registers per thread; shared bytes
+// per block. Returns a cudaError_t (0 on success).
+template <typename Kernel>
+int block_occupancy(Kernel kernel, int threads, int* out) {
+  cudaFuncAttributes attr;
+  cudaError_t err = cudaFuncGetAttributes(&attr, kernel);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  int blocks = 0;
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, kernel,
+                                                      threads, 0);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  out[0] = blocks;
+  out[1] = threads;
+  out[2] = attr.numRegs;
+  out[3] = static_cast<int>(attr.sharedSizeBytes);
+  return 0;
 }
 
 }  // namespace
@@ -286,18 +468,7 @@ int rt2_nearest_box(const float* rays8, const float* boxes, int* out, int n,
 // block, registers per thread, shared bytes per block. Returns a
 // cudaError_t (0 on success).
 int rt2_nearest_box_occupancy(int* out) {
-  cudaFuncAttributes attr;
-  cudaError_t err = cudaFuncGetAttributes(&attr, nearest_box_kernel);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  int blocks = 0;
-  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-      &blocks, nearest_box_kernel, kNearThreads, 0);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  out[0] = blocks;
-  out[1] = kNearThreads;
-  out[2] = attr.numRegs;
-  out[3] = static_cast<int>(attr.sharedSizeBytes);
-  return 0;
+  return block_occupancy(nearest_box_kernel, kNearThreads, out);
 }
 
 // rays8 [n_bundles * p, 8] f32, boxes [6, c] f32, out [n_bundles, c] f32.
@@ -308,10 +479,20 @@ int rt2_bundle_union(const float* rays8, const float* boxes, float* out,
   if (p <= 0 || p > kMaxBundle || c <= 0) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  bundle_union_kernel<<<n_bundles, kThreads, 0,
-                        static_cast<cudaStream_t>(stream)>>>(rays8, boxes,
-                                                             out, p, c);
+  const int n_tiles = (c + kUnionTile - 1) / kUnionTile;
+  const long long blocks = static_cast<long long>(n_bundles) * n_tiles;
+  if (blocks > INT_MAX) return static_cast<int>(cudaErrorInvalidValue);
+  bundle_union_kernel<<<static_cast<int>(blocks), kUnionThreads, 0,
+                        static_cast<cudaStream_t>(stream)>>>(
+      rays8, boxes, out, p, c, n_tiles);
   return static_cast<int>(cudaGetLastError());
+}
+
+// out[4]: resident blocks per SM of rt2_bundle_union's kernel, threads per
+// block, registers per thread, shared bytes per block. Returns a
+// cudaError_t (0 on success).
+int rt2_bundle_union_occupancy(int* out) {
+  return block_occupancy(bundle_union_kernel, kUnionThreads, out);
 }
 
 }  // extern "C"

@@ -109,15 +109,13 @@ def library() -> ctypes.CDLL:
         ci, ci, ci, ci, ci,  # n_bundles, p, k, s_pad, group
         vp]  # stream
     lib.rt2_walk_occluded.restype = ci
-    lib.rt2_walk_occluded.argtypes = [
-        vp, vp, vp, vp, vp, vp,  # rays8, cand_idx, cand_t, cand_count,
-        #                          wald, out
-        ci, ci, ci, ci, ci,  # n_bundles, p, k, s_pad, group
-        vp]  # stream
-    lib.rt2_walk_closest_occupancy.restype = ci
-    lib.rt2_walk_closest_occupancy.argtypes = [ci, ci, vp]  # p, s_pad, out
-    lib.rt2_nearest_box_occupancy.restype = ci
-    lib.rt2_nearest_box_occupancy.argtypes = [vp]  # out
+    lib.rt2_walk_occluded.argtypes = lib.rt2_walk_closest.argtypes
+    for entry in ("rt2_walk_closest_occupancy", "rt2_walk_occluded_occupancy"):
+        getattr(lib, entry).restype = ci
+        getattr(lib, entry).argtypes = [ci, ci, vp]  # p, s_pad, out
+    for entry in ("rt2_nearest_box_occupancy", "rt2_bundle_union_occupancy"):
+        getattr(lib, entry).restype = ci
+        getattr(lib, entry).argtypes = [vp]  # out
     lib.rt2_nearest_box.restype = ci
     lib.rt2_nearest_box.argtypes = [vp, vp, vp,  # rays8, boxes, out
                                     ci, ci,  # n, c
@@ -144,7 +142,8 @@ def library() -> ctypes.CDLL:
 
 def occupancy(entry: str, *args: int) -> dict:
     """A kernel's residency on the card, from its occupancy entry point
-    (rt2_walk_closest_occupancy(p, s_pad), rt2_nearest_box_occupancy()):
+    (rt2_walk_closest_occupancy(p, s_pad), rt2_walk_occluded_occupancy(p,
+    s_pad), rt2_nearest_box_occupancy(), rt2_bundle_union_occupancy()):
     resident blocks per SM (cudaOccupancyMaxActiveBlocksPerMultiprocessor),
     threads per block, registers per thread and shared bytes per block."""
     lib = library()

@@ -116,13 +116,13 @@ def tri_meta(clusters: Clusters, tri_geometry: torch.Tensor,
         c * sp, 16)
 
 
-# wald_rows' rows in the closest-hit kernel's lane order: per lane the u,
+# wald_rows' rows in the walk kernels' lane order: per lane the u,
 # v and z outputs' (x, y, z, bias) inputs, one 16-byte vector each
 LANE_ROWS = (0, 3, 6, 9, 1, 4, 7, 10, 2, 5, 8, 11)
 
 
 class WalkLanes(NamedTuple):
-    """The closest-hit kernel's view of the Wald table: each lane's 12
+    """The walk kernels' view of the Wald table: each lane's 12
     coefficients contiguous, and per cluster the lanes it must test."""
 
     coeffs: torch.Tensor  # [C, S_pad, 12] f32, rows in LANE_ROWS order
@@ -146,7 +146,7 @@ class WalkTables(NamedTuple):
 
     wald_rows: torch.Tensor  # [C, 16, S_pad] f32
     meta_rows: torch.Tensor  # [C*S_pad, 16] i32
-    lanes: WalkLanes  # the closest-hit kernel's lane-major copy of wald_rows
+    lanes: WalkLanes  # the walk kernels' lane-major copy of wald_rows
 
 
 def build_tables(clusters: Clusters, tri_geometry, tri_primitive
@@ -191,25 +191,27 @@ def _check_walk_args(rays8, cand_idx, cand_t, cand_count, wald, group):
     return b, k, p, sp
 
 
-def _launch(entry, name, rays8, cand_idx, cand_t, cand_count, tables,
-            b, p, k, sp, group):
-    """Launch one walk kernel of the library on the current stream and
-    return its [B*P] i32 output; raises if the launch is refused. tables:
-    the tensors the kernel takes before its output (wald_rows, or
-    WalkLanes' two and a bundle-order scratch)."""
+def _launch(entry, name, rays8, cand_idx, cand_t, cand_count, wald_rows,
+            lanes, b, p, k, sp, group):
+    """Launch one walk kernel of the library (it reads the table as
+    `lanes`) on the current stream and return its [B*P] i32 output; raises
+    if the launch is refused."""
     if p > MAX_BUNDLE or p % 32:
         raise ValueError(f"bundle size {p} must be a multiple of 32, "
                          f"<= {MAX_BUNDLE}")
+    _check_lanes(lanes, wald_rows)
     from raytracer2_tpu_torch.ops import _build
 
     lib = _build.library()
+    order = torch.empty(b, dtype=torch.int32, device=rays8.device)
     out = torch.empty(b * p, dtype=torch.int32, device=rays8.device)
     with torch.cuda.device(rays8.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = getattr(lib, entry)(
             rays8.data_ptr(), cand_idx.data_ptr(), cand_t.data_ptr(),
-            cand_count.data_ptr(), *(t.data_ptr() for t in tables),
-            out.data_ptr(), b, p, k, sp, group, ctypes.c_void_p(stream))
+            cand_count.data_ptr(), lanes.coeffs.data_ptr(),
+            lanes.count.data_ptr(), order.data_ptr(), out.data_ptr(), b, p,
+            k, sp, group, ctypes.c_void_p(stream))
     if err != 0:
         raise RuntimeError(f"{name} launch failed: "
                            f"{lib.rt2_error_string(err).decode()} ({err})")
@@ -311,10 +313,8 @@ def walk_closest(rays8, cand_idx, cand_t, cand_count, wald_rows, group, *,
     if rays8.device.type != "cuda":
         raise ValueError(f"walk_closest runs on cuda or cpu, "
                          f"not {rays8.device}")
-    _check_lanes(lanes, wald_rows)
-    order = torch.empty(b, dtype=torch.int32, device=rays8.device)
     out = _launch("rt2_walk_closest", "walk_closest", rays8, cand_idx,
-                  cand_t, cand_count, (*lanes, order), b, p, k, sp, group)
+                  cand_t, cand_count, wald_rows, lanes, b, p, k, sp, group)
     walk_closest.launches += 1
     return out
 
@@ -376,14 +376,16 @@ def walk_closest_reference(rays8, cand_idx, cand_t, cand_count, wald_rows,
     return out if lane_real is None else (out, work)
 
 
-def walk_occluded(rays8, cand_idx, cand_t, cand_count, wald_rows, group):
+def walk_occluded(rays8, cand_idx, cand_t, cand_count, wald_rows, group, *,
+                  lanes: WalkLanes):
     """Any-hit bundle walk: [B*P] i32 per ray, 1 where a triangle blocks
     the open segment (t_min, t_max), else 0; rays with t_max <= t_min
     (padding) report 0. Arguments as walk_closest's.
 
     A CUDA tensor launches csrc/bundle_occlude.cu on the current stream
-    (and counts the launch in walk_occluded.launches); a CPU tensor runs
-    walk_occluded_reference. Anything else raises."""
+    (and counts the launch in walk_occluded.launches); the kernel reads the
+    table as `lanes`. A CPU tensor runs walk_occluded_reference on
+    wald_rows. Anything else raises."""
     b, k, p, sp = _check_walk_args(rays8, cand_idx, cand_t, cand_count,
                                    wald_rows, group)
     if rays8.device.type == "cpu":
@@ -393,7 +395,7 @@ def walk_occluded(rays8, cand_idx, cand_t, cand_count, wald_rows, group):
         raise ValueError(f"walk_occluded runs on cuda or cpu, "
                          f"not {rays8.device}")
     out = _launch("rt2_walk_occluded", "walk_occluded", rays8, cand_idx,
-                  cand_t, cand_count, (wald_rows,), b, p, k, sp, group)
+                  cand_t, cand_count, wald_rows, lanes, b, p, k, sp, group)
     walk_occluded.launches += 1
     return out
 
@@ -758,7 +760,8 @@ def occluded_bundle(clusters: Clusters, tables: WalkTables,
     prep = _prepare(clusters, origins, directions, tn_o, tx_o, scene_min,
                     scene_max, p, presorted, "exact", k_cand)
     hit = walk_occluded(_rays8(prep), prep.cand_idx, prep.cand_t,
-                        prep.cand_count, tables.wald_rows, group)[:n_orig]
+                        prep.cand_count, tables.wald_rows, group,
+                        lanes=tables.lanes)[:n_orig]
     blocked = _unsort(hit, prep) != 0
 
     n_ovf = int(prep.overflowed.sum())

@@ -211,6 +211,62 @@ def test_fast_path_min_max_matches_entry_exact(c):
             != cull.nearest_box_reference(nr, tlo, thi)).any()
 
 
+def _union_fast_path(rays8, lo, hi, p):
+    """csrc/cull.cu's fast loop of B4 in plain torch, for finite rays and
+    boxes: each box's corners sorted per axis, on each axis the near corner
+    chosen by the sign of the ray's inv (lo where inv > 0, hi where inv <
+    0) in place of the slab's min and max, NaN-dropping fmax/fmin across the
+    axes, per bundle and box the least raw near over the hits, and the
+    clamp to +0 once, at the store. Returns (table [B, C], the raw least
+    near [B, C])."""
+    o, d, tn, tx = rays8[:, 0:3], rays8[:, 3:6], rays8[:, 6], rays8[:, 7]
+    eps = 1e-12
+    ds = torch.where(torch.abs(d) < eps, torch.where(d >= 0, eps, -eps), d)
+    inv = 1.0 / ds
+    s_lo, s_hi = torch.fmin(lo, hi), torch.fmax(lo, hi)
+    neg = (inv < 0)[:, None, :]  # [n, 1, 3]
+    t_near = (torch.where(neg, s_hi, s_lo) - o[:, None]) * inv[:, None]
+    t_far = (torch.where(neg, s_lo, s_hi) - o[:, None]) * inv[:, None]
+    near = torch.fmax(torch.fmax(t_near[..., 0], t_near[..., 1]),
+                      t_near[..., 2])
+    far = torch.fmin(torch.fmin(t_far[..., 0], t_far[..., 1]), t_far[..., 2])
+    hit = ((near <= far) & (far >= tn[:, None]) & (near <= tx[:, None])
+           & (tx >= 0.0)[:, None])
+    best = torch.where(hit, near, torch.inf).reshape(-1, p, lo.shape[0])
+    best = best.amin(dim=1)
+    return torch.where(best > 0.0, best, 0.0), best
+
+
+@pytest.mark.parametrize("c", [256, 300])
+def test_union_fast_path_matches_entry_exact(c):
+    """On finite rays and boxes, B4's fast loop (corners chosen per octant,
+    plain fmin/fmax, the clamp moved to the store) gives
+    bundle_union_reference's table bit for bit, +0 included, though its
+    raw minima hold negative entries and -0; on an empty cluster's
+    inverted box too. On NaN rays the same arithmetic would not: that is
+    why the kernel keeps entry() for them."""
+    rng = np.random.default_rng(140 + c)
+    lo, hi = _boxes(rng, c)
+    lo[7], hi[7] = 1e30, -1e30  # an empty cluster's box
+    rays8, m = _finite_rays(rng, lo, hi)
+    r, tlo, thi = _t(rays8[:m // P * P], lo, hi)
+    want = cull.bundle_union_reference(r, tlo, thi, P).numpy()
+    got, raw = _union_fast_path(r, tlo, thi, P)
+    np.testing.assert_array_equal(got.numpy().view(np.uint32),
+                                  want.view(np.uint32))
+    # the cases bite: zeros that the clamp makes +0 from a negative or -0
+    # least near, misses, and the inverted box's hits
+    raw = raw.numpy()
+    assert (want == 0.0).any() and np.isinf(want).any()
+    assert (raw < 0).any() and (np.signbit(raw) & (raw == 0.0)).any()
+    assert np.isfinite(want[:, 7]).any()
+    nan_rays, _ = _rays(np.random.default_rng(6), lo, hi)
+    nr = torch.from_numpy(np.ascontiguousarray(nan_rays))
+    assert (_union_fast_path(nr, tlo, thi, P)[0].numpy().view(np.uint32)
+            != cull.bundle_union_reference(nr, tlo, thi, P).numpy()
+            .view(np.uint32)).any()
+
+
 def test_wrappers_dispatch_on_device():
     """A CPU tensor runs the plain version (no launch counted); any other
     device launches the kernel or raises, and never falls back."""
@@ -371,3 +427,39 @@ def test_bundle_union_kernel_matches_plain_version_on_card(dev, c, p):
     want = cull.bundle_union_reference(rays8, lo, hi, p)
     np.testing.assert_array_equal(got.cpu().numpy().view(np.uint32),
                                   want.cpu().numpy().view(np.uint32))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("c,p", [(3079, 32), (3079, 128), (301, 256)])
+def test_bundle_union_kernel_adversarial_on_card(dev, c, p):
+    """B4's octant lists, its list of non-finite rays and its tiles with a
+    non-finite box against the plain version, bit for bit: NaN and
+    infinite rays among finite ones in one bundle, dead and padded rays, an
+    all-dead bundle, origins inside boxes and on box planes (entries of -0
+    and +0, which must leave as +0), an empty cluster's inverted box, C no
+    multiple of the 512-box tile; then tiles holding an infinite box."""
+    rays8, lo, hi = _mixed_warp_case(150 + p, c)
+    rays8 = rays8[:rays8.shape[0] // p * p].copy()
+    i = np.arange(rays8.shape[0])
+    inside = (i % 13 == 6) & (i % 32 != 5)  # keep each bundle's NaN ray
+    rays8[inside, 0:3] = 0.5 * (lo[3] + hi[3])  # inside box 3
+    rays8[p:2 * p, 7] = -1.0  # an all-dead bundle
+    rays8, lo, hi = (x.to(dev) for x in _t(rays8, lo, hi))
+    # every bundle mixes finite rays with NaN or infinite ones
+    bad = ~torch.isfinite(rays8[:, :6]).all(dim=1)
+    assert bad.reshape(-1, p).any(dim=1).all()
+    got = cull.bundle_union(rays8, lo, hi, p)
+    want = cull.bundle_union_reference(rays8, lo, hi, p)
+    np.testing.assert_array_equal(got.cpu().numpy().view(np.uint32),
+                                  want.cpu().numpy().view(np.uint32))
+    w = want.cpu().numpy()
+    assert np.isinf(w[1]).all()  # the all-dead bundle
+    assert (w == 0.0).any() and np.isinf(w).any()
+    assert np.isfinite(w).mean() > 0.05
+    lo[c // 2, 0] = -torch.inf
+    hi[c - 1, 2] = torch.inf
+    got = cull.bundle_union(rays8, lo, hi, p)
+    np.testing.assert_array_equal(
+        got.cpu().numpy().view(np.uint32),
+        cull.bundle_union_reference(rays8, lo, hi, p).cpu().numpy()
+        .view(np.uint32))

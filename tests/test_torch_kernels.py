@@ -237,7 +237,8 @@ def test_occluded_kernel_matches_plain_version_on_card(dev, tiny, presorted):
             tiny["tables"].wald_rows)
     for group in (1, 4, 8):
         launches = ct.walk_occluded.launches
-        got = ct.walk_occluded(*args, group=group)
+        got = ct.walk_occluded(*args, group=group,
+                               lanes=tiny["tables"].lanes)
         torch.cuda.synchronize()
         assert ct.walk_occluded.launches == launches + 1
         want = ct.walk_occluded_reference(*args, group=group)
@@ -251,3 +252,61 @@ def test_occluded_kernel_matches_plain_version_on_card(dev, tiny, presorted):
     np.testing.assert_array_equal(blocked.cpu().numpy(), ref.cpu().numpy())
     live = (tx > 0).cpu().numpy()
     assert 0 < ref.cpu().numpy()[live].sum() < live.sum()
+
+
+def _blocking_cluster(sp=128):
+    """[16, sp] Wald rows of one cluster whose single triangle spans the
+    plane z = 1 over |x|, |y| < 50: every ray of _synthetic_walk's bundles
+    (origins at z = 0, heading +z) crosses it."""
+    w = wald_matrices(np.float64([[-50, -50, 1]]), np.float64([[150, 0, 0]]),
+                      np.float64([[0, 150, 0]]))
+    rows = np.zeros((16, sp), np.float32)
+    rows[:12, 0] = w.transpose(2, 1, 0).reshape(12)
+    return rows
+
+
+@pytest.mark.parametrize("p,group", [(128, 8), (256, 4), (64, 1)])
+def test_occluded_kernel_adversarial_on_card(dev, p, group):
+    """The any-hit kernel against its plain version, flag for flag, on
+    clusters of 0, 1 and 128 real triangles (and counts between),
+    candidate lists of lengths no multiple of the group, a NaN t_max (its
+    bundle's walk ends at once), a NaN origin, dead rays, a bundle whose
+    first candidate blocks every ray (its walk ends at the next group
+    start); then with each ray's t_max at the exact t of its closest hit
+    (the open segment excludes that triangle)."""
+    rays8, cand_idx, cand_t, count, wald = _synthetic_walk(dev, p)
+    wald = torch.cat([wald, torch.from_numpy(_blocking_cluster()).to(dev)
+                      [None]]).contiguous()
+    blocker = wald.shape[0] - 1
+    cand_idx, cand_t, count = cand_idx.clone(), cand_t.clone(), count.clone()
+    cand_idx[0, :4] = torch.tensor([blocker, 1, 4, 7])  # bundle 0: was empty
+    cand_t[0, :4] = torch.tensor([0.5, 2.0, 3.0, 4.0])
+    count[0] = 4
+    lanes = ct.walk_lanes(wald)
+    assert lanes.count.tolist()[:13] == [0, 128, 1, 37, 128, 77, 5, 128, 0,
+                                         100, 64, 3, 128]
+    assert lanes.count[blocker] == 1
+    args = (rays8, cand_idx, cand_t, count, wald)
+    got = ct.walk_occluded(*args, group=group, lanes=lanes)
+    want = ct.walk_occluded_reference(*args, group=group)
+    np.testing.assert_array_equal(got.cpu().numpy(), want.cpu().numpy())
+    live = (rays8[:, 7] > rays8[:, 6]).cpu()
+    w = want.cpu().bool()
+    assert w[:p].all()  # every ray blocked by the first candidate
+    assert not w[p:2 * p].any()  # the NaN t_max ends bundle 1's walk
+    assert w[3 * p:].any() and (~w[3 * p:] & live[3 * p:]).any()
+    # t_max at the exact t of each ray's closest hit: a blocker exactly at
+    # t_max does not block
+    code = ct.walk_closest_reference(*args, group=group)
+    hit = code != ct.MISS_CODE
+    sp = wald.shape[-1]
+    rows = wald[(code[hit] // sp).long(), :12, (code[hit] % sp).long()]
+    t, ok = ct._wald_test(rays8[hit][:, None, :], rows[:, :, None, None])
+    assert ok.all()
+    rays8 = rays8.clone()
+    rays8[hit, 7] = t[:, 0, 0]
+    args = (rays8,) + args[1:]
+    got = ct.walk_occluded(*args, group=group, lanes=lanes)
+    want2 = ct.walk_occluded_reference(*args, group=group)
+    np.testing.assert_array_equal(got.cpu().numpy(), want2.cpu().numpy())
+    assert (w & ~want2.cpu().bool()).any()  # the case bites

@@ -37,8 +37,10 @@ from raytracer2_tpu.scene.camera import default_camera
 from raytracer2_tpu.scene.scene import build_scene
 from raytracer2_tpu_torch import convert
 from raytracer2_tpu_torch.ops import binning
+from raytracer2_tpu_torch.ops import cluster as tcluster
 from raytracer2_tpu_torch.ops import cuda_pairs as cp
 from raytracer2_tpu_torch.ops import cuda_traverse as ct
+from raytracer2_tpu_torch.ops import native as tnative
 from raytracer2_tpu_torch.render import app_bridge
 from raytracer2_tpu_torch.render import frame as tframe
 
@@ -68,12 +70,23 @@ def _rays(seed=77, n=N):
 
 @pytest.fixture(scope="module")
 def tiny(tmp_path_factory):
+    """The sphere's SAH clusters (33 of 4 triangles), built once by the
+    port and given to both packages. JAX's builder is not asked: in a fresh
+    checkout its loader runs `make` into the library's own path, so a
+    worker that loads while another worker's make writes the file falls
+    back to a Morton build for its whole process (25 clusters), and 25
+    clusters leave the groups of 5 unpadded. The port's builder renames a
+    finished library into place, and SAH is required here."""
     p = tmp_path_factory.mktemp("pairs") / "s.glb"
     proc.write_glb(p, proc.sphere_grid_glb(n=1, lat=6, lon=8))
     j_scene = build_scene(gltf.load_file(p))
-    jc = jcluster.build_clusters(j_scene.tri_v0, j_scene.tri_edge1,
-                                 j_scene.tri_edge2, cluster_size=4)
-    tc = convert.clusters_from_numpy(convert.to_numpy_tree(jc), device=CPU)
+    assert tnative.available(), "the native SAH cluster builder must load"
+    arrays = tcluster.cluster_arrays(j_scene.host_tri_v0,
+                                     j_scene.host_tri_edge1,
+                                     j_scene.host_tri_edge2, cluster_size=4)
+    jc = jcluster.Clusters(**{f: jnp.asarray(arrays[f])
+                              for f in jcluster.Clusters._fields})
+    tc = tcluster.clusters_from_arrays(arrays, device=CPU)
     t_scene = convert.scene_from_numpy(convert.to_numpy_tree(j_scene),
                                        device=CPU)
     return dict(

@@ -473,8 +473,9 @@ def test_walk_occluded_dispatches_on_device(tiny, shadow_rays, monkeypatch):
                       dim=1).contiguous()
     args = (rays8, prep.cand_idx, prep.cand_t, prep.cand_count,
             tiny["tables"].wald_rows)
+    lanes = tiny["tables"].lanes
     launches = ct.walk_occluded.launches
-    got = ct.walk_occluded(*args, group=4)
+    got = ct.walk_occluded(*args, group=4, lanes=lanes)
     assert ct.walk_occluded.launches == launches  # the plain version ran
     assert got.dtype == torch.int32
     np.testing.assert_array_equal(
@@ -490,9 +491,10 @@ def test_walk_occluded_dispatches_on_device(tiny, shadow_rays, monkeypatch):
     assert not nan_out[:P].any()
     np.testing.assert_array_equal(nan_out[P:].numpy(), got[P:].numpy())
     with pytest.raises(ValueError, match="cuda or cpu"):
-        ct.walk_occluded(*(a.to("meta") for a in args), group=4)
+        ct.walk_occluded(*(a.to("meta") for a in args), group=4,
+                         lanes=lanes)
     with pytest.raises(ValueError):
-        ct.walk_occluded(*args, group=16)
+        ct.walk_occluded(*args, group=16, lanes=lanes)
 
 
 def test_make_tracers_occluded_counts_fallback_bundles(tiny, shadow_rays,
