@@ -11,7 +11,9 @@ GConst plus DI; GI temporal and spatial off), the ReSTIR DI frame of
 bench.py's DI validation config (4 local-light + 1 BRDF candidates, final
 visibility, accumulation; GI off) and the reference-mode frame, through the
 default bundle-walk backend; then the flagship and DI frames again through
-the pair-sweep backend (create_renderer(..., backend="pairs")). Six
+the pair-sweep backend (create_renderer(..., backend="pairs")); and the
+flagship frame under a 2048x1024 EXR skybox, on checkerboard fields and
+stopped after each pass (the per-pass split). Six
 hand-written CUDA kernels carry them: the closest-hit and any-hit walks
 (B1, B2), the exact cull's nearest box and bundle union (B3, B4), and the
 pair engine's sweep (B5) and stable counting sort (B6). The phases, each of
@@ -66,20 +68,49 @@ which raises on failure:
                         under torch.profiler (busy/idle).
 13. gi-resampling     - two frames of the goldens' configuration (GI temporal
                         and spatial resampling on), checked finite.
-14. frames            - one reference-mode render_frame and one
+14. skybox            - a 2048x1024 procedural sky written as a float16 PIZ
+                        EXR and read back, exact to float16 (skybox-exr,
+                        taken before the DI frames: a worker process
+                        started with the run does this pure-Python host
+                        work while only the kernel checks run, and is
+                        stopped once its result is in); the ladder
+                        scene under that sky and create_renderer on the
+                        card: the environment pdf's size, the seconds, the
+                        share of environment RIS words that are filled.
+15. checkerboard-     - one flagship frame with environment=1 on checkerboard
+    capture             field 1 under the sky, keeping the inputs of the
+                        first B1, B3 and B4 launch of each bounce trace, and
+                        one DI-config frame on field 1 keeping those of B2
+                        and B4 on its visibility trace; each bounce and
+                        visibility trace must cast H*W/2 rays; then
+                        kernel-checkerboard: B1, B3 and B4 (and B2, B4 on
+                        the visibility batch) against their plain versions
+                        on those half-grid batches.
+16. checkerboard-     - four sky frames on fields 1, 2, 1, 2 (bench.py's
+    frames              at_frame), two full-grid sky frames and two DI-config
+                        frames on fields 1, 2; B1, B3 and B4 (and B2 in the
+                        DI frames) must have launched; every display lit.
+17. flagship-passes   - each FRAME_PASSES prefix of the full-grid flagship
+                        frame (no sky) and of its checkerboard variant,
+                        5 synchronised runs each taken in turns, their
+                        median, spread and signed differences; and, in
+                        the same turns, whole frames with each pass
+                        synchronised and timed inside the frame: the
+                        per-pass split.
+18. frames            - one reference-mode render_frame and one
                         render_reference frame; walk_closest must have
                         launched.
-15. pairs-scene       - (right after scene) the pair-sweep tracers on the
+19. pairs-scene       - (right after scene) the pair-sweep tracers on the
                         same scene: superclusters, lanes, table bytes; then
                         oracle-pairs, after oracle and oracle-occlude: the
                         same 4,096 rays of each class through them against
                         the brute-force oracles.
-16. pairs-capture     - one flagship and one DI frame through the pairs
+20. pairs-capture     - one flagship and one DI frame through the pairs
                         backend that hold every launch of B5 and B6 (every
                         262,144-ray batch) to its plain version, and keep
                         the inputs of the first launch in each trace call
                         and each trace call's rays.
-17. kernel-pairs      - on those first batches, pair_sweep and bin_scatter
+21. kernel-pairs      - on those first batches, pair_sweep and bin_scatter
                         against their plain versions, bit for bit and timed
                         (with the capture's tally of every batch), and
                         bin_scatter on 2^22 ids in 256 bins (the probe's
@@ -87,7 +118,7 @@ which raises on failure:
                         pairs-ties: each kept trace through both backends,
                         every hit that differs a t-tie (a blocked flag that
                         differs, a rounding tie as in oracle-occlude).
-18. pairs-frames      - two flagship frames and one DI frame through the
+22. pairs-frames      - two flagship frames and one DI frame through the
                         pairs backend; B5 and B6 must have launched; the
                         rays that took the overflow fallback per class, and
                         the pixels that differ from the bundle backend's
@@ -99,8 +130,9 @@ which raises on failure:
 Each kernel check prints its time, its plain version's and its bound (the
 least time the card could take: the larger of the bytes the kernel must
 move over the memory rate and the FP32 operations its data needs over the
-FP32 rate). The last lines are the card's name and power limit, one JSON
-object about the kernels and the result line {"ok": true, "device": {...}}.
+FP32 rate). The last lines are the run's wall seconds, the card's name and
+power limit, one JSON object about the kernels and the result line
+{"ok": true, "device": {...}}.
 Imports nothing of JAX.
 """
 
@@ -108,13 +140,16 @@ from __future__ import annotations
 
 import dataclasses
 import json
+import multiprocessing
 import statistics
 import subprocess
 import sys
 import tempfile
 import time
+from concurrent.futures import ProcessPoolExecutor
 from pathlib import Path
 
+import numpy as np
 import torch
 
 sys.path.insert(0, str(Path(__file__).resolve().parent))
@@ -125,7 +160,8 @@ from raytracer2_tpu_torch.ops import cuda_pairs as cp  # noqa: E402
 from raytracer2_tpu_torch.ops import cuda_traverse as ct  # noqa: E402
 from raytracer2_tpu_torch.ops.intersect import (  # noqa: E402
     intersect_brute_force, moller_trumbore, occluded_brute_force)
-from raytracer2_tpu_torch.params import default_gconst  # noqa: E402
+from raytracer2_tpu_torch.params import (  # noqa: E402
+    BACKGROUND_DEPTH, default_gconst)
 from raytracer2_tpu_torch.render import frame as fr  # noqa: E402
 from raytracer2_tpu_torch.render import app_bridge  # noqa: E402
 from raytracer2_tpu_torch.render import rays as raysmod  # noqa: E402
@@ -133,10 +169,12 @@ from raytracer2_tpu_torch.render.reference import (  # noqa: E402
     render_reference)
 from raytracer2_tpu_torch.render.surface import (  # noqa: E402
     get_surface_brdf_sample, surface_from_hit)
-from raytracer2_tpu_torch.scene import gltf  # noqa: E402
+from raytracer2_tpu_torch.scene import exr, gltf  # noqa: E402
 from raytracer2_tpu_torch.scene.camera import default_camera  # noqa: E402
 from raytracer2_tpu_torch.scene.scene import build_scene  # noqa: E402
 from raytracer2_tpu_torch.utils import rng as rtrng  # noqa: E402
+from raytracer2_tpu_torch.utils.profiler import (  # noqa: E402
+    PassTimer, count_frame_rays)
 
 WIDTH, HEIGHT = 1920, 1080
 BATCH = 1 << 18  # render_reference's chunk_pixels: one trace batch
@@ -168,6 +206,11 @@ SLAB_TEST_OPS = 27
 FLAGSHIP_FRAMES = 3
 PAIRS_FLAGSHIP_FRAMES = 2
 PROBE_IDS, PROBE_BINS = 1 << 22, 256  # scripts/binning_ab.py's probe size
+SKY_HEIGHT = 1024  # the skybox phase's equirect sky is 2 * SKY_HEIGHT wide
+CHECKERBOARD_FRAMES = 4  # fields 1, 2, 1, 2
+SKY_FULL_FRAMES = 2
+CHECKERBOARD_DI_FRAMES = 2  # fields 1, 2
+PASS_REPEATS = 5  # synchronised runs of each frame prefix
 # the flagship frame's bounce-class traces, in the order the frame casts
 # them (the G-buffer's pixel tiles take the interval cull, not B3/B4)
 FLAGSHIP_BOUNCES = ("di_brdf_candidate", "gi_brdf_rays",
@@ -243,7 +286,8 @@ def phase_scene(dev: torch.device):
         path = Path(d) / "ladder.glb"
         proc.write_glb(path, proc.corridor_glb(
             segments=24, pillars_per_side=12, lat=34, lon=53))
-        scene = build_scene(gltf.load_file(path), device=dev)
+        model = gltf.load_file(path)
+    scene = build_scene(model, device=dev)
     renderer = fr.create_renderer(scene, WIDTH, HEIGHT, backend="auto")
     torch.cuda.synchronize()
     cam = default_camera(window_size=(WIDTH, HEIGHT), position=(0, 4, 90),
@@ -257,7 +301,7 @@ def phase_scene(dev: torch.device):
         shapes=json.dumps({str(k): v for k, v in tr.shapes_by_class.items()},
                           separators=(",", ":")),
         seconds=f"{time.perf_counter() - t0:.1f}")
-    return scene, renderer, view
+    return scene, renderer, view, model
 
 
 def reference_gconst(scene, view):
@@ -380,18 +424,20 @@ def walk_bound(args, group: int, work: ct.WalkWork, real, kw) -> dict:
 
 
 def check_walk(kernel: str, cls: str, args, group: int, real,
-               **kw) -> dict:
+               plain_reps: int = 5, **kw) -> dict:
     """One walk kernel against its plain version on one batch: outputs
-    bit for bit, both times (CUDA events, median of 5) and the bound. kw:
-    the kernel's own table argument (lanes). Raises on any mismatch or on
-    a batch that tests nothing."""
+    bit for bit, both times (CUDA events, median of 5 for the kernel, of
+    plain_reps for the plain version) and the bound. kw: the kernel's own
+    table argument (lanes). Raises on any mismatch or on a batch that
+    tests nothing."""
     walk = getattr(ct, kernel)
     reference = getattr(ct, f"{kernel}_reference")
     got = walk(*args, group=group, **kw)
     want, work = reference(*args, group=group, lane_real=real)
     torch.cuda.synchronize()
     ms = _median_ms(lambda: walk(*args, group=group, **kw))
-    plain_ms = _median_ms(lambda: reference(*args, group=group))
+    plain_ms = _median_ms(lambda: reference(*args, group=group),
+                          reps=plain_reps)
     bound = walk_bound(args, group, work, real, kw)
     rays8, _, _, cand_count, _ = args
     mismatches = int((got != want).sum())
@@ -617,8 +663,9 @@ class TraceLog:
     rays, and holds every launch of B5 and B6 in a trace call (every
     262,144-ray batch) to the kernel's plain version on the same inputs,
     keeping per (name, kernel) the batches, mismatches and hits (keys
-    below MISS_KEY) in `checked`. It launches no kernel itself;
-    restore() takes its hooks out."""
+    below MISS_KEY) in `checked`. It also keeps the ray count of each
+    named trace call (`trace_rays`). It launches no kernel itself; restore()
+    takes its hooks out."""
 
     def __init__(self, tracers, pairs: bool = False):
         self.keep = False
@@ -627,6 +674,7 @@ class TraceLog:
         self.pair_kernels = {}  # (name, kernel) -> (args, kwargs)
         self.checked = {}  # (name, kernel) -> [batches, mismatches, hits]
         self.traces = {}  # name -> (o, d, t_min, t_max, presorted)
+        self.trace_rays = {}  # name -> rays of its first trace call
         self.oracle_rays = None
         self.rays = self.blocked = 0
         self._cls = None
@@ -656,6 +704,8 @@ class TraceLog:
         self.keep = False
 
     def _traced(self, cls, inner, *args, **kwargs):
+        if self.keep and cls is not None:
+            self.trace_rays.setdefault(cls, args[0].shape[0])
         if (self._pairs and self.keep and cls is not None
                 and cls not in self.traces):
             self.traces[cls] = tuple(
@@ -1174,6 +1224,298 @@ def phase_gi_resampling(scene, renderer, view) -> None:
             raise RuntimeError("the GI reservoirs are not finite")
 
 
+# ---------------------------------------------------------------------------
+# The skybox, checkerboard fields and the per-pass split
+# ---------------------------------------------------------------------------
+
+def exr_round_trip(height: int) -> tuple[np.ndarray, dict]:
+    """procedural_sky(height) written as a float16 PIZ EXR and read back
+    with load_exr (app.py --skybox's loader): the sky as loaded, and the
+    seconds, bytes and the largest difference from the sky rounded to
+    float16. Pure host work, run in a worker process."""
+    sky = exr.procedural_sky(height=height)
+    with tempfile.TemporaryDirectory() as d:
+        path = Path(d) / "sky.exr"
+        t0 = time.perf_counter()
+        exr.write_exr(path, sky, compression="piz", dtype="float16")
+        t1 = time.perf_counter()
+        back = exr.load_exr(path)
+        t2 = time.perf_counter()
+        nbytes = path.stat().st_size
+    want = sky.astype(np.float16).astype(np.float32)
+    return back, {"shape": back.shape, "write_s": t1 - t0, "load_s": t2 - t1,
+                  "bytes": nbytes,
+                  "max_abs_err_vs_f16": float(np.abs(back - want).max()),
+                  "bit_equal_f16": bool(np.array_equal(
+                      back.view(np.uint32), want.view(np.uint32)))}
+
+
+def phase_skybox_exr(pool, sky_job) -> np.ndarray:
+    """The EXR round trip's result, which must equal the sky rounded to
+    float16 bit for bit. Taken before the first frame timed on the host's
+    clock, so the worker's host work overlaps only the kernel checks,
+    which CUDA events time; the worker process is then stopped."""
+    t0 = time.perf_counter()
+    sky, rt = sky_job.result()
+    pool.shutdown()
+    log("skybox-exr", shape=rt["shape"], write_s=f"{rt['write_s']:.2f}",
+        load_s=f"{rt['load_s']:.2f}", mbytes=f"{rt['bytes'] / 1e6:.2f}",
+        bit_equal_f16=rt["bit_equal_f16"],
+        max_abs_err_vs_f16=rt["max_abs_err_vs_f16"],
+        waited_s=f"{time.perf_counter() - t0:.2f}")
+    if not rt["bit_equal_f16"] or sky.shape != (SKY_HEIGHT, 2 * SKY_HEIGHT,
+                                                3):
+        raise RuntimeError("the sky did not round-trip through the EXR "
+                           "file within float16")
+    return sky
+
+
+def phase_skybox(model, sky: np.ndarray, dev: torch.device):
+    """The ladder scene under the round-tripped sky and its renderer on
+    the card: the environment pdf's size, create_renderer's seconds and
+    the share of environment RIS words filled."""
+    t0 = time.perf_counter()
+    scene = build_scene(model, skybox=sky, device=dev)
+    t1 = time.perf_counter()
+    renderer = fr.create_renderer(scene, WIDTH, HEIGHT)
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    mips = renderer.scene_lights.env_pdf_mips
+    env = renderer.ris_buffer[renderer.ris_buffer.shape[0] // 2:]
+    filled = float((env[:, 1] != 0).float().mean())
+    log("skybox", env_pdf_texture=tuple(mips[0].shape), env_pdf_mips=len(mips),
+        build_scene_s=f"{t1 - t0:.2f}", create_renderer_s=f"{t2 - t1:.2f}",
+        env_ris_words=env.shape[0], env_ris_filled_share=f"{filled:.6f}")
+    if filled == 0.0:
+        raise RuntimeError("no environment RIS word is filled")
+    return scene, renderer
+
+
+def on_field(g, field: int):
+    """g on checkerboard field 1 or 2 (app.py --checkerboard), or on the
+    full grid for field 0."""
+    return g.replace(runtime_params=dataclasses.replace(
+        g.runtime_params, active_checkerboard_field=field))
+
+
+def sky_gconst(renderer, view, field: int = 0, frame: int = 0):
+    """The flagship config with environment=1 (app.py --skybox), on a
+    checkerboard field when field is 1 or 2."""
+    return on_field(flagship_gconst(renderer, view, environment=1)
+                    .replace(frame=frame), field)
+
+
+def cb_di_gconst(scene, view, frame: int):
+    """The DI validation config (di_gconst) on field 1 + (frame & 1), with
+    phase_di_frames' blend factor."""
+    return on_field(di_gconst(scene, view).replace(
+        frame=frame, blend_factor=1.0 / (frame + 1)), 1 + (frame & 1))
+
+
+def phase_checkerboard_capture(scene, renderer, view) -> TraceLog:
+    """One flagship sky frame on checkerboard field 1 that keeps the inputs
+    of the first B1, B3 and B4 launch of each bounce trace, and one frame
+    of the DI config on field 1 that keeps those of B2 and B4 on its
+    visibility trace (get_conservative_visibility over the [H, W/2]
+    grid); each bounce and visibility trace must cast HEIGHT*WIDTH/2
+    rays, each G-buffer HEIGHT*WIDTH."""
+    trace_log = TraceLog(renderer.tracers)
+    bounces = tuple(f"cb_{b}" for b in FLAGSHIP_BOUNCES)
+    frames = (("cb_", bounces, sky_gconst(renderer, view, field=1)),
+              ("cbdi_", ("cbdi_brdf_candidate",),
+               cb_di_gconst(scene, view, frame=0)))
+    t0 = time.perf_counter()
+    try:
+        for prefix, names, g in frames:
+            trace_log.start(prefix, names)
+            state = fr.init_frame_state(WIDTH, HEIGHT, checkerboard=True,
+                                        device=scene.device)
+            fr.render_frame(renderer, g, state)
+            torch.cuda.synchronize()
+            trace_log.stop()
+    finally:
+        trace_log.restore()
+    half = HEIGHT * WIDTH // 2
+    want = {"cb_gbuffer": HEIGHT * WIDTH, "cbdi_gbuffer": HEIGHT * WIDTH,
+            "cbdi_brdf_candidate": half, "cbdi_visibility": half} | {
+        b: half for b in bounces}
+    log("checkerboard-capture", seconds=f"{time.perf_counter() - t0:.3f}",
+        trace_rays=json.dumps(trace_log.trace_rays, separators=(",", ":")),
+        kept=json.dumps({f"{c}:{k}": v[0].shape[0]
+                         for (c, k), v in sorted(trace_log.culls.items())},
+                        separators=(",", ":")),
+        visibility_rays=trace_log.rays,
+        blocked_share=f"{trace_log.share():.4f}")
+    if trace_log.trace_rays != want:
+        raise RuntimeError(f"the checkerboard frames' traces cast "
+                           f"{trace_log.trace_rays}, not {want}")
+    missing = ({(b, k) for b in bounces for k in CULLS}
+               | {("cbdi_visibility", "bundle_union")}) - set(trace_log.culls)
+    missing |= set(bounces + ("cbdi_visibility",)) - set(trace_log.walks)
+    if missing:
+        raise RuntimeError(f"the checkerboard frames launched no cull or "
+                           f"walk for {sorted(missing, key=str)}")
+    return trace_log
+
+
+def phase_kernel_checkerboard(renderer, trace_log: TraceLog) -> dict:
+    """B1, B3 and B4 against their plain versions on the checkerboard
+    frame's half-grid bounce batches, B2 and B4 on the DI frame's
+    half-grid visibility batch (each plain walk timed once, it takes
+    seconds a batch): {kernel: {class: result}}."""
+    real = lane_real(renderer.tracers)
+    out = {"walk_closest": {}, "walk_occluded": {}, "nearest_box": {},
+           "bundle_union": {}}
+    checks = [(f"cb_{b}", k) for b in FLAGSHIP_BOUNCES for k in CULLS]
+    checks.append(("cbdi_visibility", "bundle_union"))
+    for cls in [f"cb_{b}" for b in FLAGSHIP_BOUNCES] + ["cbdi_visibility"]:
+        kernel, args, group, kw = trace_log.walks[cls]
+        out[kernel][cls] = check_walk(kernel, cls, args, group, real,
+                                      plain_reps=1, **kw)
+    for cls, k in checks:
+        out[k][cls] = check_cull(k, cls, trace_log.culls[cls, k])
+    return out
+
+
+def phase_checkerboard_frames(scene, renderer, view) -> dict:
+    """CHECKERBOARD_FRAMES sky frames on fields 1, 2, 1, 2 (bench.py's
+    at_frame, bench.py:275-281) from a checkerboard state, then
+    SKY_FULL_FRAMES full-grid sky frames, then CHECKERBOARD_DI_FRAMES
+    frames of the DI config on fields 1, 2; every count is reset just
+    before each run, and B1, B3 and B4 (and B2 in the DI run) must have
+    launched. Returns the launches of each run."""
+    tracers = renderer.tracers
+    paths = {}
+    runs = (
+        ("checkerboard_frames", CHECKERBOARD_FRAMES, True,
+         lambda f: sky_gconst(renderer, view, field=1 + (f & 1), frame=f)),
+        ("skybox_frames", SKY_FULL_FRAMES, False,
+         lambda f: sky_gconst(renderer, view, frame=f)),
+        ("checkerboard_di_frames", CHECKERBOARD_DI_FRAMES, True,
+         lambda f: cb_di_gconst(scene, view, f)))
+    for name, n, checkerboard, gconst in runs:
+        state = fr.init_frame_state(WIDTH, HEIGHT, checkerboard=checkerboard,
+                                    device=scene.device)
+        _reset_counts(tracers)
+        seconds = []
+        for f in range(n):
+            g = gconst(f)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            state, img = fr.render_frame(renderer, g, state)
+            torch.cuda.synchronize()
+            seconds.append(time.perf_counter() - t0)
+            _check_image(f"{name} display", img, display=True)
+        background = float((state.gbuffer.depth == BACKGROUND_DEPTH)
+                           .float().mean())
+        launches = _launches()
+        log("checkerboard-frames", run=name,
+            seconds=json.dumps([round(x, 3) for x in seconds]),
+            background_share=f"{background:.4f}",
+            rays_per_frame=count_frame_rays(g, WIDTH, HEIGHT),
+            launches=json.dumps(launches, separators=(",", ":")),
+            fallback_bundles=json.dumps(
+                {str(k): v for k, v in tracers.fallback_by_class.items()},
+                separators=(",", ":")))
+        _check_image(f"{name} diffuse_lighting", state.diffuse_lighting,
+                     display=False)
+        need = CULLS + WALKS if name == "checkerboard_di_frames" else (
+            "walk_closest",) + CULLS
+        for kernel in need:
+            if launches[kernel] <= 0:
+                raise RuntimeError(f"the {name} never launched {kernel}")
+        paths[name] = launches
+    return paths
+
+
+# the function render_frame calls for each FRAME_PASSES name
+PASS_FUNCTIONS = {"gbuffer": "gbuffer_pass",
+                  "di": "di_fused_resampling_pass",
+                  "brdf_rays": "brdf_rays_pass",
+                  "shade_secondary": "shade_secondary_surfaces_pass",
+                  "gi_temporal": "gi_temporal_pass",
+                  "gi_spatial": "gi_spatial_pass",
+                  "gi_final": "gi_final_shading_pass",
+                  "post": "post_process"}
+
+
+def _pass_hook(timer: PassTimer, name: str):
+    """A _Patch hook that times each call under `name` (synchronised)."""
+    def hook(inner, *args, **kwargs):
+        with timer.time(name):
+            return inner(*args, **kwargs)
+    return hook
+
+
+def _ms(xs) -> dict:
+    return {"median": 1e3 * statistics.median(xs), "min": 1e3 * min(xs),
+            "max": 1e3 * max(xs)}
+
+
+def phase_flagship_passes(scene, renderer, g_flag) -> None:
+    """The per-pass split of the flagship frame (no sky), on the full grid
+    and on checkerboard field 1, two ways. As bench.py's per_pass measures
+    it (bench.py:374-393): each FRAME_PASSES prefix
+    (render_frame(stop_after=...)) timed PASS_REPEATS times, synchronised,
+    with its median, spread and the signed difference of the medians
+    (prefix differences carry the spread of two whole prefixes). And
+    inside whole frames: each pass's function synchronised and timed in
+    the frame (a pass that does not run has no sample), the rest of the
+    frame outside them. After one untimed frame the runs take turns (all
+    prefixes, then one whole frame), so a drift of the host's speed
+    reaches all of them alike."""
+    for variant, field in (("full", 0), ("checkerboard", 1)):
+        g = on_field(g_flag, field)
+        state = fr.init_frame_state(WIDTH, HEIGHT, checkerboard=field != 0,
+                                    device=scene.device)
+        fr.render_frame(renderer, g, state)
+        prefixes, passes = PassTimer(scene.device), PassTimer(scene.device)
+        outside = []
+        for i in range(PASS_REPEATS):
+            g_i = g.replace(frame=i + 1)
+            for stop in fr.FRAME_PASSES:
+                with prefixes.time(stop):
+                    fr.render_frame(renderer, g_i, state, stop_after=stop)
+            hooks = [_Patch(fr, PASS_FUNCTIONS[stop], _pass_hook(passes, stop))
+                     for stop in fr.FRAME_PASSES]
+            before = {k: len(v) for k, v in passes.samples.items()}
+            try:
+                with passes.time("frame"):
+                    fr.render_frame(renderer, g_i, state)
+            finally:
+                for h in reversed(hooks):
+                    h.restore()
+            if any(len(passes.samples[k]) != i + 1
+                   for k in ("gbuffer", "di", "post")):
+                raise RuntimeError("the frame's passes were not timed "
+                                   "once each inside it")
+            in_passes = sum(sum(v[before.get(k, 0):])
+                            for k, v in passes.samples.items()
+                            if k != "frame")
+            outside.append(passes.samples["frame"][-1] - in_passes)
+        prev = 0.0
+        for stop in fr.FRAME_PASSES:
+            cum = _ms(prefixes.samples[stop])
+            runs = passes.samples.get(stop, [])
+            inside = _ms(runs) if runs else None
+            log("flagship-passes", variant=variant, stop_after=stop,
+                cumulative_ms=f"{cum['median']:.2f}",
+                cumulative_spread_ms=f"{cum['min']:.2f}-{cum['max']:.2f}",
+                difference_ms=f"{cum['median'] - prev:.2f}",
+                in_frame_ms=(f"{inside['median']:.2f}" if inside
+                             else "not run"),
+                in_frame_spread_ms=(f"{inside['min']:.2f}-{inside['max']:.2f}"
+                                    if inside else "not run"))
+            prev = cum["median"]
+        frame = _ms(passes.samples["frame"])
+        log("flagship-passes", variant=variant,
+            frame_ms=f"{frame['median']:.2f}",
+            frame_spread_ms=f"{frame['min']:.2f}-{frame['max']:.2f}",
+            outside_passes_ms=f"{1e3 * statistics.median(outside):.2f}",
+            whole_prefix_ms=f"{prev:.2f}",
+            rays_per_frame=count_frame_rays(g, WIDTH, HEIGHT))
+
+
 def phase_frames(scene, renderer, g) -> dict:
     """One reference-mode render_frame (12 spp, 5 bounces, its defaults)
     and one render_reference frame at bench's ladder cell (8 spp)."""
@@ -1547,11 +1889,25 @@ def kernel_entry(name: str, classes: dict, launches: int,
 
 
 def main() -> None:
+    t_start = time.perf_counter()
     dev, smi = phase_device()
+    # the skybox's EXR round trip is pure-Python host work (tens of seconds
+    # at 2048x1024): a worker process runs it beside the kernel checks
+    pool = ProcessPoolExecutor(
+        max_workers=1, mp_context=multiprocessing.get_context("spawn"))
+    try:
+        run(dev, smi, pool, pool.submit(exr_round_trip, SKY_HEIGHT),
+            t_start)
+    finally:
+        pool.shutdown(cancel_futures=True)
+
+
+def run(dev: torch.device, smi: str, pool, sky_job,
+        t_start: float) -> None:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     phase_build()
-    scene, renderer, view = phase_scene(dev)
+    scene, renderer, view, model = phase_scene(dev)
     occupancy = phase_occupancy(renderer)
     renderer_p = phase_pairs_scene(scene)
     g_ref, g_di = reference_gconst(scene, view), di_gconst(scene, view)
@@ -1571,6 +1927,7 @@ def main() -> None:
                          phase="oracle-pairs")
     trace_log.walks.clear()
     trace_log.oracle_rays = None
+    sky = phase_skybox_exr(pool, sky_job)
     paths = {}
     paths["di_frames"], di_imgs = phase_di_frames(scene, renderer, g_di,
                                                   trace_log)
@@ -1587,6 +1944,17 @@ def main() -> None:
         scene, renderer, g_flag)
     phase_flagship_breakdown(scene, renderer, g_flag)
     phase_gi_resampling(scene, renderer, view)
+
+    sky_scene, sky_renderer = phase_skybox(model, sky, dev)
+    del model, sky
+    cb_log = phase_checkerboard_capture(sky_scene, sky_renderer, view)
+    for kernel, by_cls in phase_kernel_checkerboard(sky_renderer,
+                                                    cb_log).items():
+        classes[kernel].update(by_cls)
+    del cb_log
+    paths.update(phase_checkerboard_frames(sky_scene, sky_renderer, view))
+    del sky_scene, sky_renderer
+    phase_flagship_passes(scene, renderer, g_flag)
     paths["reference_frames"] = phase_frames(scene, renderer, g_ref)
 
     pair_log = TraceLog(renderer_p.tracers, pairs=True)
@@ -1606,6 +1974,7 @@ def main() -> None:
     main_path = {name: "di_frames" if name == "walk_occluded"
                  else "pairs_frames" if name in PAIR_KERNELS
                  else "flagship_frames" for name in KERNELS}
+    log("run", wall_seconds=f"{time.perf_counter() - t_start:.1f}")
     print(smi, flush=True)
     print(json.dumps({"kernels": [
         kernel_entry(name, classes[name], paths[main_path[name]][name],

@@ -11,9 +11,11 @@
 // which the host decodes through one meta-row gather. A step's keys are
 // unique (the slot is in the low bits) and a later step replaces the winner
 // only with a strictly smaller key, so ties resolve exactly as on the TPU.
-// A lane that hits nothing leaves the ray untouched (the TPU kernel's
-// MISS_KEY sentinel could win only for a t_max above 1.7e38, which no caller
-// passes). Before each step the bundle takes the max over its rays of
+// A lane that hits nothing leaves the ray untouched. (The TPU kernel's
+// MISS_KEY sentinel wins over a t_max above 1.7e38, such as the FLT_MAX of
+// a BRDF candidate ray with brdf_cutoff 0, and then reports a hit on a
+// slot the ray missed; here, as in the plain version, the ray misses.)
+// Before each step the bundle takes the max over its rays of
 // float(best_key | SLOT_MASK) and stops once the next candidate's entry
 // distance exceeds it, a NaN in any ray ending the walk.
 //

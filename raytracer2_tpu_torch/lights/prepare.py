@@ -11,8 +11,7 @@ src/shaders/prepare_lights.comp).
 - the environment record at light index `lights + 1` (main.rs:381-386);
 - the environment pdf (luminance x cos(elevation)) and its mips when the
   scene has a skybox (a scene without one has a 1x1 skybox and none);
-- the RIS-tile presamples of the local lights. The environment's
-  (presample_environment_map) come with the environment slice.
+- the RIS-tile presamples of the local lights and of the environment.
 """
 
 from __future__ import annotations
@@ -132,3 +131,29 @@ def presample_local_lights(rng_seed: int, scene_lights: SceneLights,
     inv_pdf = torch.where(ok, 1.0 / torch.clamp_min(pdf, 1e-30), 0.0)
     entry_index = torch.where(ok, zcurve_to_linear(x, y), 0)
     return torch.stack([entry_index, _f32_bits(inv_pdf)], dim=-1)
+
+
+def presample_environment_map(rng_seed: int, scene_lights: SceneLights,
+                              tile_count: int = 128, tile_size: int = 1024
+                              ) -> torch.Tensor:
+    """Environment presampling (presample_environment.comp,
+    PresamplingFunctions.hlsli:135-162): [tile_count * tile_size, 2] int64
+    holding uint32 (packed uv, invPdf bits). Each slot descends the
+    environment pdf mips, then jitters inside the chosen texel with the
+    next two uniforms of the same sampler."""
+    mips = scene_lights.env_pdf_mips
+    if mips is None:
+        raise ValueError("the scene has no environment pdf (no skybox)")
+    n = tile_count * tile_size
+    x, y, pdf, state = pdf_texture.sample_pdf_mipmap(
+        _slot_samplers(rng_seed, n, mips[0].device), mips, (n,))
+    jx, state = rtrng.sample_uniform(state)
+    jy, state = rtrng.sample_uniform(state)
+    h, w = mips[0].shape
+    u = torch.clamp((x.to(torch.float32) + jx) / w, 0.0, 1.0)
+    v = torch.clamp((y.to(torch.float32) + jy) / h, 0.0, 1.0)
+    # float32 products truncated to integers, as the uint32 conversion does
+    packed_uv = ((u * 0xFFFF).to(torch.int64)
+                 | ((v * 0xFFFF).to(torch.int64) << 16)) & 0xFFFFFFFF
+    inv_pdf = torch.where(pdf > 0.0, 1.0 / torch.clamp_min(pdf, 1e-30), 0.0)
+    return torch.stack([packed_uv, _f32_bits(inv_pdf)], dim=-1)

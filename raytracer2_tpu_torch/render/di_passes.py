@@ -43,10 +43,14 @@ def di_fused_resampling_pass(
     specular_img: torch.Tensor,
     width: int,
     height: int,
+    field: int = 0,
     primary_surface: Surface | None = None,
 ) -> tuple[dires.DIReservoir, torch.Tensor, torch.Tensor]:
     """Returns (reservoirs for the shading-input slot, diffuse, specular),
-    [H, W] planes. primary_surface: the launch grid's surface
+    [H, W] planes, or [H, W//2] under a checkerboard field (1 or 2), where
+    only the active half of the pixels is sampled and shaded
+    (di_fused_resampling.rgen:19); diffuse_img and specular_img are then
+    that half too. primary_surface: the launch grid's surface
     (surface_from_gbuffer_grid), computed once per frame by render_frame;
     None reads it through the bridge."""
     if g_const.enable_di_resampling:
@@ -56,7 +60,7 @@ def di_fused_resampling_pass(
     if g_const.restir_di.temporal_resampling_params.enable_boiling_filter:
         raise NotImplementedError("the DI boiling filter is not ported")
     dev = diffuse_img.device
-    px, py = raysmod.pixel_grid(width, height, device=dev)
+    px, py = raysmod.active_pixel_grid(width, height, field, device=dev)
     surface = (primary_surface if primary_surface is not None
                else bridge.get_gbuffer_surface(px, py, False))
 
@@ -64,8 +68,8 @@ def di_fused_resampling_pass(
         return _di_fused_body(g_const, bridge, light_ctx, px, py, surface,
                               dif, spec)
 
-    return banded(body, height, width, _BAND_THRESHOLD, px, py, surface,
-                  diffuse_img, specular_img)
+    return banded(body, height, px.shape[1], _BAND_THRESHOLD, px, py,
+                  surface, diffuse_img, specular_img)
 
 
 def _di_fused_body(g_const: GConst, bridge: Bridge,

@@ -1,13 +1,15 @@
 """The frame entry point, port of raytracer2_tpu/render/frame.py:
-Renderer, create_renderer, FrameState, init_frame_state and render_frame.
+Renderer, create_renderer, FrameState, init_frame_state, FRAME_PASSES and
+render_frame.
 
 Two branches are ported: the reference mode (GConst.refrence_mode=1,
 frame.py:242-267 of the JAX package) and the ReSTIR frame graph
 (frame.py:269-414): G-buffer, the DI fused pass in mode 0, the GI chain
 (BRDF rays, secondary shading, GI temporal and spatial resampling, GI
-final shading) with its reservoir slots, and post-processing. DI
-spatio-temporal resampling, checkerboard fields and ReGIR (ROADMAP queue
-A) raise rather than render anything in their place.
+final shading) with its reservoir slots, and post-processing, on the full
+grid or on one checkerboard field, whole or stopped after one pass. DI
+spatio-temporal resampling and ReGIR (ROADMAP queue A) raise rather than
+render anything in their place.
 """
 
 from __future__ import annotations
@@ -19,8 +21,10 @@ import torch
 
 from raytracer2_tpu_torch.lights.pdf_texture import fill_neighbor_offsets
 from raytracer2_tpu_torch.lights.prepare import (
-    SceneLights, prepare_lights, presample_local_lights)
+    SceneLights, prepare_lights, presample_environment_map,
+    presample_local_lights)
 from raytracer2_tpu_torch.params import BACKGROUND_DEPTH, GConst
+from raytracer2_tpu_torch.render import rays as raysmod
 from raytracer2_tpu_torch.render.app_bridge import (
     Tracers, make_bridge, make_tracers)
 from raytracer2_tpu_torch.render.di_passes import di_fused_resampling_pass
@@ -59,11 +63,17 @@ class FrameState(NamedTuple):
     secondary: SecondaryGBuffer
 
 
-def init_frame_state(width: int, height: int, *, device) -> FrameState:
+def init_frame_state(width: int, height: int, checkerboard: bool = False,
+                     *, device) -> FrameState:
+    """checkerboard=True sizes the per-lane buffers (reservoirs, secondary
+    G-buffer) at [H, W//2], the reservoir layout of
+    RTXDI_PixelPosToReservoirPos (RtxdiHelpers.hlsli:45-51); the G-buffer,
+    motion and the lighting images stay full resolution."""
     def img3():
         return torch.zeros((height, width, 3), device=device)
 
-    shape = (height, width)
+    w_res = width // 2 if checkerboard else width
+    shape = (height, w_res)
     return FrameState(
         gbuffer=empty_gbuffer(height, width, device=device),
         prev_gbuffer=empty_gbuffer(height, width, device=device),
@@ -72,7 +82,7 @@ def init_frame_state(width: int, height: int, *, device) -> FrameState:
                        empty_gi_reservoir(shape, device=device)),
         di_reservoirs=(empty_di_reservoir(shape, device=device),
                        empty_di_reservoir(shape, device=device)),
-        secondary=empty_secondary_gbuffer(height, width, device=device))
+        secondary=empty_secondary_gbuffer(height, w_res, device=device))
 
 
 @dataclasses.dataclass(frozen=True)
@@ -113,14 +123,13 @@ def create_renderer(scene: Scene, width: int, height: int,
     scene_lights = prepare_lights(scene)
     ris_buffer = None
     if presample and scene_lights.num_local_lights > 0:
-        if scene_lights.env_pdf_mips is not None:
-            raise NotImplementedError(
-                "environment-map presampling (a scene with a skybox) comes "
-                "with the environment slice (ROADMAP queue A)")
         local = presample_local_lights(presample_seed, scene_lights)
         # a scene without a skybox has no environment pdf: its tiles are
         # zeros, as frame.py:167 of the JAX package fills them
-        ris_buffer = torch.cat([local, torch.zeros_like(local)])
+        env = (presample_environment_map(presample_seed, scene_lights)
+               if scene_lights.env_pdf_mips is not None
+               else torch.zeros_like(local))
+        ris_buffer = torch.cat([local, env])
     return Renderer(
         scene=scene, tracers=make_tracers(scene, backend=backend),
         scene_lights=scene_lights,
@@ -128,10 +137,29 @@ def create_renderer(scene: Scene, width: int, height: int,
         width=width, height=height, ris_buffer=ris_buffer)
 
 
-def render_frame(renderer: Renderer, g_const: GConst, state: FrameState
-                 ) -> tuple[FrameState, torch.Tensor]:
+# the passes in execution order: render_frame(stop_after=name) ends the
+# frame after that pass, so the differences of the prefixes' times give
+# each pass's time
+FRAME_PASSES = ("gbuffer", "di", "brdf_rays", "shade_secondary",
+                "gi_temporal", "gi_spatial", "gi_final", "post")
+
+
+def render_frame(renderer: Renderer, g_const: GConst, state: FrameState,
+                 stop_after: str | None = None):
     """One frame (light_passes.rs:550-663 + post-process + frame-state
-    rotation): (new state, display image [H, W, 3] in [0, 1])."""
+    rotation): (new state, display image [H, W, 3] in [0, 1]).
+
+    stop_after (a FRAME_PASSES name) ends a ReSTIR frame after that pass
+    and returns (state, that pass's intermediate tuple), the input state
+    and not an image, as the JAX package's prefixes do; "post" is the
+    whole frame. Under a checkerboard field (runtime_params.
+    active_checkerboard_field 1 or 2) every lighting pass launches on the
+    active half of the pixels and the inactive half keeps last frame's
+    lighting; the state must come from init_frame_state(checkerboard=True).
+    The input state is never written to."""
+    if stop_after is not None and stop_after not in FRAME_PASSES:
+        raise ValueError(f"stop_after must be one of {FRAME_PASSES}, "
+                         f"not {stop_after!r}")
     scene = renderer.scene
     width, height = renderer.width, renderer.height
     prev_gbuffer = state.gbuffer
@@ -157,19 +185,32 @@ def render_frame(renderer: Renderer, g_const: GConst, state: FrameState
         output, _ = post_process(scene, g_const, inputs)
         return new_state, output
 
-    if g_const.runtime_params.active_checkerboard_field:
-        raise NotImplementedError("checkerboard rendering is not ported "
-                                  "(ROADMAP queue A)")
     if (g_const.restir_di.initial_sampling_params.local_light_sampling_mode
             == 2):
         raise NotImplementedError("ReGIR local-light sampling (mode 2) is "
                                   "not ported (ROADMAP queue A)")
+    # checkerboard rendering (RtxdiHelpers.hlsli:16-61): field 1 or 2
+    # launches every lighting pass on that half of the pixels; the
+    # G-buffer and post stay full resolution
+    field = int(g_const.runtime_params.active_checkerboard_field)
+    w_res = width // 2 if field else width
+    if state.secondary.pdf.shape != (height, w_res):
+        raise ValueError(
+            f"field {field} needs a state of [{height}, {w_res}] reservoirs "
+            f"(init_frame_state(checkerboard={bool(field)})), not "
+            f"{list(state.secondary.pdf.shape)}")
 
     # 1. G-buffer pass (light_passes.rs:598-606)
     gbuffer, motion = gbuffer_pass(scene, g_const,
                                    renderer.tracers.closest_hit, width,
                                    height)
-    diffuse, specular = state.diffuse_lighting, state.specular_lighting
+    if stop_after == "gbuffer":
+        return state, (gbuffer, motion)
+    # the passes read and write the active field of the persistent
+    # lighting images, scattered back after the GI chain
+    diffuse = raysmod.gather_field(state.diffuse_lighting, field)
+    specular = raysmod.gather_field(state.specular_lighting, field)
+    motion_act = raysmod.gather_field(motion, field)
     gi_slots = list(state.gi_reservoirs)
     di_slots = list(state.di_reservoirs)
     secondary = state.secondary
@@ -183,41 +224,57 @@ def render_frame(renderer: Renderer, g_const: GConst, state: FrameState
         light_ctx = renderer.light_ctx(g_const)
         # every lighting pass reads the primary surface at the launch grid:
         # reconstructed once, from whole planes
-        primary = surface_from_gbuffer_grid(gbuffer, g_const.view)
+        primary = surface_from_gbuffer_grid(gbuffer, g_const.view, field)
 
     # 2. DI fused resampling (light_passes.rs:608-619)
     if g_const.enable_restir_di:
         di_res, diffuse, specular = di_fused_resampling_pass(
             g_const, bridge, light_ctx, diffuse, specular, width, height,
-            primary_surface=primary)
+            field=field, primary_surface=primary)
         di_slots[g_const.restir_di.buffer_indices
                  .shading_input_buffer_index] = di_res
+    if stop_after == "di":
+        return state, (diffuse, specular)
 
     # 3. ReSTIR GI chain (light_passes.rs:621-660)
     if g_const.enable_restir_gi:
         gi_idx = g_const.restir_gi.buffer_indices
         secondary, diffuse, specular = brdf_rays_pass(
             scene, g_const, renderer.tracers, bridge, diffuse, specular,
-            width, height, primary_surface=primary)
+            width, height, field=field, primary_surface=primary)
+        if stop_after == "brdf_rays":
+            return state, (secondary, diffuse, specular)
         current, secondary, diffuse, specular = shade_secondary_surfaces_pass(
             scene, g_const, renderer.tracers, bridge, light_ctx, secondary,
-            diffuse, specular, width, height, primary_surface=primary)
+            diffuse, specular, width, height, field=field,
+            primary_surface=primary)
         gi_slots[gi_idx.secondary_surface_restir_di_output_buffer_index] = \
             current
+        if stop_after == "shade_secondary":
+            return state, (current, diffuse, specular)
         if g_const.enable_temporal_resampling:
             prev_src = state.gi_reservoirs[
                 gi_idx.temporal_resampling_input_buffer_index]
             current = gi_temporal_pass(g_const, bridge, current, prev_src,
-                                       motion, width, height,
-                                       primary_surface=primary)
+                                       motion_act, width, height,
+                                       field=field, primary_surface=primary)
             gi_slots[gi_idx.temporal_resampling_output_buffer_index] = current
+        if stop_after == "gi_temporal":
+            return state, (current, diffuse, specular)
         if g_const.enable_spatial_resampling:
             current = gi_spatial_pass(g_const, bridge, current, width, height,
-                                      primary_surface=primary)
+                                      field=field, primary_surface=primary)
             gi_slots[gi_idx.spatial_resampling_output_buffer_index] = current
+        if stop_after == "gi_spatial":
+            return state, (current, diffuse, specular)
         diffuse, specular = gi_final_shading_pass(
             g_const, bridge, current, secondary, diffuse, specular, width,
-            height, primary_surface=primary)
+            height, field=field, primary_surface=primary)
+    if stop_after == "gi_final":
+        return state, (diffuse, specular)
+    diffuse = raysmod.scatter_field(state.diffuse_lighting, diffuse, field)
+    specular = raysmod.scatter_field(state.specular_lighting, specular,
+                                     field)
 
     # 4. post-process (post_processing.comp)
     inputs = PostProcessInputs(

@@ -9,10 +9,12 @@ Whole-image ports of the GI raygen shaders (SURVEY.md §3.4):
   around restir/gi_resampling.py)
 - gi_final_shading.rgen:43-101 (optional final visibility, split BRDF, MIS)
 
-The passes run on the full [H, W] grid (checkerboard fields and row
-sharding are not ported; render_frame raises for them). Launches above
-_BAND_THRESHOLD lanes run the per-pixel passes (BRDF rays, secondary
-shading, final shading) in row bands, which bounds their temporaries:
+The passes launch on the full [H, W] grid, or under a checkerboard field
+(1 or 2) on its active half of the pixels, with [H, W//2] reservoirs,
+secondary G-buffer and lighting images (row sharding is not ported).
+Launches above _BAND_THRESHOLD lanes run the per-pixel passes (BRDF rays,
+secondary shading, final shading) in row bands, which bounds their
+temporaries:
 every RNG stream is seeded by pixel coordinates, so banding changes no
 value (the BRDF rays' band-local bounce sort changes no hit, the exact
 cull being exact).
@@ -92,9 +94,12 @@ def _flat(x, n: int):
     return x.reshape((n,) + x.shape[2:])
 
 
-def _primary(bridge: Bridge, width: int, height: int, primary_surface,
-             device) -> tuple[torch.Tensor, torch.Tensor, Surface]:
-    px, py = raysmod.pixel_grid(width, height, device=device)
+def _primary(bridge: Bridge, width: int, height: int, field: int,
+             primary_surface, device
+             ) -> tuple[torch.Tensor, torch.Tensor, Surface]:
+    """The launch grid's pixels and primary surface: [H, W], or the
+    active field's [H, W//2]."""
+    px, py = raysmod.active_pixel_grid(width, height, field, device=device)
     if primary_surface is None:
         primary_surface = bridge.get_gbuffer_surface(px, py, False)
     return px, py, primary_surface
@@ -113,21 +118,24 @@ def brdf_rays_pass(
     specular_img: torch.Tensor,
     width: int,
     height: int,
+    field: int = 0,
     primary_surface: Surface | None = None,
 ) -> tuple[SecondaryGBuffer, torch.Tensor, torch.Tensor]:
     """brdf_rays.rgen:19-194. Returns (secondary G-buffer, diffuse,
-    specular), [H, W] planes. primary_surface: the launch grid's surface
+    specular), planes of the launch grid: [H, W], or [H, W//2] under a
+    checkerboard field (brdf_rays.rgen:21), whose half diffuse_img and
+    specular_img then are too. primary_surface: the launch grid's surface
     (surface_from_gbuffer_grid), computed once per frame by render_frame;
     None reads it through the bridge."""
-    px, py, surface = _primary(bridge, width, height, primary_surface,
-                               diffuse_img.device)
+    px, py, surface = _primary(bridge, width, height, field,
+                               primary_surface, diffuse_img.device)
 
     def body(px, py, surface, dif, spec):
         return _brdf_rays_body(scene, g_const, tracers, px, py, surface, dif,
                                spec)
 
-    return banded(body, height, width, _BAND_THRESHOLD, px, py, surface,
-                  diffuse_img, specular_img)
+    return banded(body, height, px.shape[1], _BAND_THRESHOLD, px, py,
+                  surface, diffuse_img, specular_img)
 
 
 def _brdf_rays_body(scene, g_const, tracers, px, py, surface, diffuse_img,
@@ -325,20 +333,22 @@ def shade_secondary_surfaces_pass(
     specular_img: torch.Tensor,
     width: int,
     height: int,
+    field: int = 0,
     primary_surface: Surface | None = None,
 ) -> tuple[GIReservoir, SecondaryGBuffer, torch.Tensor, torch.Tensor]:
     """shade_secondary_surfaces.rgen:26-157. Returns (initial GI
-    reservoirs, updated secondary G-buffer, diffuse, specular)."""
-    px, py, primary = _primary(bridge, width, height, primary_surface,
-                               diffuse_img.device)
+    reservoirs, updated secondary G-buffer, diffuse, specular), planes of
+    the launch grid (brdf_rays_pass)."""
+    px, py, primary = _primary(bridge, width, height, field,
+                               primary_surface, diffuse_img.device)
 
     def body(px, py, primary, secondary, dif, spec):
         return _shade_secondary_body(scene, g_const, tracers, bridge,
                                      light_ctx, px, py, primary, secondary,
                                      dif, spec)
 
-    return banded(body, height, width, _BAND_THRESHOLD, px, py, primary,
-                  secondary, diffuse_img, specular_img)
+    return banded(body, height, px.shape[1], _BAND_THRESHOLD, px, py,
+                  primary, secondary, diffuse_img, specular_img)
 
 
 def _shade_secondary_body(scene, g_const, tracers, bridge, light_ctx, px, py,
@@ -436,17 +446,22 @@ def _shade_secondary_body(scene, g_const, tracers, bridge, light_ctx, px, py,
 def gi_temporal_pass(
     g_const: GConst,
     bridge: Bridge,
-    input_reservoirs: GIReservoir,  # [H, W] current initial reservoirs
-    prev_reservoirs: GIReservoir,  # [H, W] previous frame source
-    motion: torch.Tensor,  # [H, W, 3]
+    input_reservoirs: GIReservoir,  # launch grid: current initial ones
+    prev_reservoirs: GIReservoir,  # launch grid: previous frame source
+    motion: torch.Tensor,  # [H, W, 3], or the active field's [H, W//2, 3]
     width: int,
     height: int,
+    field: int = 0,
     primary_surface: Surface | None = None,
 ) -> GIReservoir:
-    """temporal_resampling.rgen:13-48."""
-    px, py, primary = _primary(bridge, width, height, primary_surface,
-                               motion.device)
-    n = height * width
+    """temporal_resampling.rgen:13-48, on the launch grid (brdf_rays_pass);
+    under a checkerboard field the neighbour math stays in full-resolution
+    pixels and the library maps them to reservoir positions
+    (temporal_resampling.rgen:16)."""
+    px, py, primary = _primary(bridge, width, height, field,
+                               primary_surface, motion.device)
+    h, w = px.shape
+    n = h * w
     rng = rtrng.init_random_sampler(px, py, g_const.frame + 7 * 13)
     motion_px = raysmod.convert_motion_vector_to_pixel_space(
         g_const.view, g_const.prev_view, px, py, motion)
@@ -470,8 +485,7 @@ def gi_temporal_pass(
         _flat(input_reservoirs, n), _flat(rng, n), spec,
         motion_px.reshape(-1, 3), int(tp.uniform_random_number),
         max_age.reshape(-1), prev_reservoirs, bridge)
-    out = GIReservoir(*(a.reshape((height, width) + a.shape[1:])
-                        for a in out))
+    out = GIReservoir(*(a.reshape((h, w) + a.shape[1:]) for a in out))
     if tp.enable_boiling_filter:
         # at the end of the temporal pass (GIResamplingFunctions.hlsli:
         # 885-894)
@@ -482,15 +496,19 @@ def gi_temporal_pass(
 def gi_spatial_pass(
     g_const: GConst,
     bridge: Bridge,
-    input_reservoirs: GIReservoir,  # [H, W]
+    input_reservoirs: GIReservoir,  # launch grid
     width: int,
     height: int,
+    field: int = 0,
     primary_surface: Surface | None = None,
 ) -> GIReservoir:
-    """spatial_resampling.rgen:13-39."""
+    """spatial_resampling.rgen:13-39, on the launch grid
+    (brdf_rays_pass)."""
     dev = input_reservoirs.weight_sum.device
-    px, py, primary = _primary(bridge, width, height, primary_surface, dev)
-    n = height * width
+    px, py, primary = _primary(bridge, width, height, field,
+                               primary_surface, dev)
+    h, w = px.shape
+    n = h * w
     rng = rtrng.init_random_sampler(px, py, g_const.frame + 8 * 13)
     sp = g_const.restir_gi.spatial_resampling_params
     spec = gi_resampling.GISpatialSpec(
@@ -506,8 +524,7 @@ def gi_spatial_pass(
         px.reshape(-1), py.reshape(-1), _flat(primary, n),
         _flat(input_reservoirs, n), _flat(rng, n), spec, input_reservoirs,
         bridge)
-    out = GIReservoir(*(a.reshape((height, width) + a.shape[1:])
-                        for a in out))
+    out = GIReservoir(*(a.reshape((h, w) + a.shape[1:]) for a in out))
     return where_gi(primary.valid, out, input_reservoirs)
 
 
@@ -533,25 +550,27 @@ def _get_mis_weight(rough_brdf, true_brdf, diffuse_albedo) -> torch.Tensor:
 def gi_final_shading_pass(
     g_const: GConst,
     bridge: Bridge,
-    reservoirs: GIReservoir,  # [H, W] final reservoirs
+    reservoirs: GIReservoir,  # launch grid: final reservoirs
     secondary: SecondaryGBuffer,
     diffuse_img: torch.Tensor,
     specular_img: torch.Tensor,
     width: int,
     height: int,
+    field: int = 0,
     primary_surface: Surface | None = None,
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """gi_final_shading.rgen:43-101: optional final visibility, the split
-    BRDF and MIS against the initial sample."""
-    _, _, primary = _primary(bridge, width, height, primary_surface,
-                             diffuse_img.device)
+    BRDF and MIS against the initial sample, on the launch grid
+    (brdf_rays_pass)."""
+    px, _, primary = _primary(bridge, width, height, field,
+                              primary_surface, diffuse_img.device)
 
     def body(primary, res, sec, dif, spec):
         return _gi_final_shading_body(g_const, bridge, res, sec, dif, spec,
                                       primary)
 
-    return banded(body, height, width, _BAND_THRESHOLD, primary, reservoirs,
-                  secondary, diffuse_img, specular_img)
+    return banded(body, height, px.shape[1], _BAND_THRESHOLD, primary,
+                  reservoirs, secondary, diffuse_img, specular_img)
 
 
 def _gi_final_shading_body(g_const, bridge, reservoirs, secondary,

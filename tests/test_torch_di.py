@@ -258,8 +258,9 @@ def test_di_frame_counts_walks_and_fallbacks(cornell, monkeypatch):
     ("active_checkerboard_field", 1),
 ])
 def test_render_frame_raises_off_path(cornell, field, value):
-    """The DI boiling filter, DI resampling, ReGIR and checkerboard fields
-    raise rather than render a DI image without them."""
+    """The DI boiling filter, DI resampling (also on a checkerboard field,
+    which the frame renders) and ReGIR raise rather than render a DI image
+    without them."""
     t_g = _t_g(cornell["j_g"])
     if field == "enable_boiling_filter":
         di = t_g.restir_di
@@ -272,11 +273,14 @@ def test_render_frame_raises_off_path(cornell, field, value):
             di, initial_sampling_params=dataclasses.replace(
                 di.initial_sampling_params, local_light_sampling_mode=value)))
     elif field == "active_checkerboard_field":
-        t_g = t_g.replace(runtime_params=dataclasses.replace(
-            t_g.runtime_params, active_checkerboard_field=value))
+        t_g = t_g.replace(enable_di_resampling=1,
+                          runtime_params=dataclasses.replace(
+                              t_g.runtime_params,
+                              active_checkerboard_field=value))
     else:
         t_g = t_g.replace(**{field: value})
-    state = tframe.init_frame_state(W, H, device=CPU)
+    state = tframe.init_frame_state(
+        W, H, t_g.runtime_params.active_checkerboard_field != 0, device=CPU)
     with pytest.raises(NotImplementedError):
         tframe.render_frame(cornell["t_renderer"], t_g, state)
 

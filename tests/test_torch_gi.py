@@ -484,16 +484,15 @@ def test_gi_boiling_filter_and_jacobian_match_jax():
 
 
 def test_render_frame_off_path_options_still_raise(cornell):
-    """Checkerboard fields and ReGIR stay unported and raise rather than
-    render a DI+GI frame in their place."""
+    """ReGIR and DI spatio-temporal resampling stay unported and raise
+    rather than render a DI+GI frame in their place."""
     t_g = _t_g(cornell["gconsts"]["flagship"])
     state = tframe.init_frame_state(W, H, device=CPU)
-    cb = t_g.replace(runtime_params=dataclasses.replace(
-        t_g.runtime_params, active_checkerboard_field=1))
     di = t_g.restir_di
     regir = t_g.replace(restir_di=dataclasses.replace(
         di, initial_sampling_params=dataclasses.replace(
             di.initial_sampling_params, local_light_sampling_mode=2)))
-    for g in (cb, regir):
+    di_temporal = t_g.replace(enable_di_resampling=1)
+    for g in (regir, di_temporal):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             tframe.render_frame(cornell["t_renderer"], g, state)

@@ -24,8 +24,9 @@ old = sorted(m for m in sys.modules
 print(len(names), jax_free, ",".join(names), ",".join(old))
 """
 
-# the modules of the GI slice, the dense cull and the pair engine, named so
-# that a missing one fails here rather than go unprobed
+# the modules of the GI slice, the dense cull, the pair engine and the
+# environment slice, named so that a missing one fails here rather than go
+# unprobed
 SLICE_MODULES = {
     "raytracer2_tpu_torch.ops.cull",
     "raytracer2_tpu_torch.ops.cuda_pairs",
@@ -34,6 +35,9 @@ SLICE_MODULES = {
     "raytracer2_tpu_torch.restir.gi_resampling",
     "raytracer2_tpu_torch.render.gi_passes",
     "raytracer2_tpu_torch.render.banding",
+    "raytracer2_tpu_torch.scene.exr",
+    "raytracer2_tpu_torch.scene.piz",
+    "raytracer2_tpu_torch.utils.profiler",
 }
 
 # the JAX package's modules the port may load: none (the port keeps its own
@@ -50,7 +54,7 @@ def test_every_submodule_imports_without_jax():
                          check=True).stdout.split()
     n_modules, jax_free = int(out[0]), out[1]
     old = set(out[3].split(",")) if len(out) > 3 else set()
-    assert n_modules >= 46
+    assert n_modules >= 49
     assert SLICE_MODULES <= set(out[2].split(","))
     assert jax_free == "True"
     assert old <= SHARED, old - SHARED

@@ -157,12 +157,14 @@ def test_store_shading_output_matches_jax(accumulate, correct, first):
 
 
 def test_render_frame_restir_mode_raises(cornell):
-    """The ReSTIR mode raises for what it does not port (here a
-    checkerboard field) rather than render without it."""
+    """The ReSTIR mode raises for what it does not port (here ReGIR
+    local-light sampling) rather than render without it."""
     _, _, t_scene, t_g = cornell
     renderer = tframe.create_renderer(t_scene, W, H, backend="brute")
     state = tframe.init_frame_state(W, H, device=CPU)
-    t_g = t_g.replace(refrence_mode=0, runtime_params=dataclasses.replace(
-        t_g.runtime_params, active_checkerboard_field=1))
+    di = t_g.restir_di
+    t_g = t_g.replace(refrence_mode=0, restir_di=dataclasses.replace(
+        di, initial_sampling_params=dataclasses.replace(
+            di.initial_sampling_params, local_light_sampling_mode=2)))
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         tframe.render_frame(renderer, t_g, state)
