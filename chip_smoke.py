@@ -23,11 +23,13 @@ which raises on failure:
 2. build              - nvcc builds every kernel from raytracer2_tpu_torch/csrc.
 3. scene              - the ladder scene, its clusters (and which cluster
                         builder ran) and the tracers on the card; then
-                        occupancy: resident blocks per SM, registers and
-                        shared bytes per block of walk_closest at each
-                        closest-hit class's bundle size, of walk_occluded
-                        at the visibility class's, and of nearest_box and
-                        bundle_union.
+                        pairs-scene (19) and occupancy: resident blocks per
+                        SM, registers and shared bytes per block of
+                        walk_closest at each closest-hit class's bundle
+                        size, of walk_occluded at the visibility class's, of
+                        nearest_box and bundle_union, of pair_sweep at the
+                        pair scene's S_pad and of bin_scatter's count, scan
+                        and scatter kernels at its bins.
 4. kernel             - walk_closest against its plain torch version on the
                         reference path's 262,144-ray batch of each
                         closest-hit class (pixel tiles, BRDF bounces), winner
@@ -112,12 +114,23 @@ which raises on failure:
                         and each trace call's rays.
 21. kernel-pairs      - on those first batches, pair_sweep and bin_scatter
                         against their plain versions, bit for bit and timed
-                        (with the capture's tally of every batch), and
-                        bin_scatter on 2^22 ids in 256 bins (the probe's
+                        (with the capture's tally of every batch; each
+                        kernel and torch.argsort timed as one call, B6 also
+                        as one L2-cold CUDA graph replay, graph_ms),
+                        and bin_scatter on 2^22 ids in 256 bins (the probe's
                         size); then
                         pairs-ties: each kept trace through both backends,
                         every hit that differs a t-tie (a blocked flag that
-                        differs, a rounding tie as in oracle-occlude).
+                        differs, a rounding tie as in oracle-occlude), and
+                        the most superclusters one ray of it overlaps; then
+                        pairs-no-overflow: the flagship frame's four traces
+                        and the DI visibility trace through the pair engine
+                        alone at k_cand = K, the smallest multiple of 8 at
+                        or above that count: no ray overflows, the answers
+                        equal the bundle walk's up to the same ties, and
+                        each trace's time (median of 3), its B5 and B6
+                        time, and the bundle backend's trace and walk time
+                        on the same rays.
 22. pairs-frames      - two flagship frames and one DI frame through the
                         pairs backend; B5 and B6 must have launched; the
                         rays that took the overflow fallback per class, and
@@ -133,11 +146,17 @@ move over the memory rate and the FP32 operations its data needs over the
 FP32 rate). The last lines are the run's wall seconds, the card's name and
 power limit, one JSON object about the kernels and the result line
 {"ok": true, "device": {...}}.
+
+    python3 chip_smoke.py --dump-bin DIR
+
+also saves each B6 input that kernel-pairs checks into DIR (torch.save, one
+file per trace and one for the probe), the inputs of tools/bin_scatter_ab.py.
 Imports nothing of JAX.
 """
 
 from __future__ import annotations
 
+import argparse
 import dataclasses
 import json
 import multiprocessing
@@ -175,6 +194,7 @@ from raytracer2_tpu_torch.scene.scene import build_scene  # noqa: E402
 from raytracer2_tpu_torch.utils import rng as rtrng  # noqa: E402
 from raytracer2_tpu_torch.utils.profiler import (  # noqa: E402
     PassTimer, count_frame_rays)
+from tools import bin_scatter_ab  # noqa: E402
 
 WIDTH, HEIGHT = 1920, 1080
 BATCH = 1 << 18  # render_reference's chunk_pixels: one trace batch
@@ -206,11 +226,13 @@ SLAB_TEST_OPS = 27
 FLAGSHIP_FRAMES = 3
 PAIRS_FLAGSHIP_FRAMES = 2
 PROBE_IDS, PROBE_BINS = 1 << 22, 256  # scripts/binning_ab.py's probe size
+DUMP_BIN: Path | None = None  # --dump-bin: where check_bin saves B6's inputs
 SKY_HEIGHT = 1024  # the skybox phase's equirect sky is 2 * SKY_HEIGHT wide
 CHECKERBOARD_FRAMES = 4  # fields 1, 2, 1, 2
 SKY_FULL_FRAMES = 2
 CHECKERBOARD_DI_FRAMES = 2  # fields 1, 2
 PASS_REPEATS = 5  # synchronised runs of each frame prefix
+NO_OVERFLOW_REPEATS = 3  # synchronised traces per backend in pairs-no-overflow
 # the flagship frame's bounce-class traces, in the order the frame casts
 # them (the G-buffer's pixel tiles take the interval cull, not B3/B4)
 FLAGSHIP_BOUNCES = ("di_brdf_candidate", "gi_brdf_rays",
@@ -219,6 +241,10 @@ FLAGSHIP_BOUNCES = ("di_brdf_candidate", "gi_brdf_rays",
 # tiles and its three bounce traces
 FLAGSHIP_WALKS = ("flagship_gbuffer",) + tuple(
     f"flagship_{b}" for b in FLAGSHIP_BOUNCES)
+# the kept pairs traces that pairs-no-overflow runs at a k_cand that keeps
+# every overlap: the flagship frame's four and the DI frame's visibility
+NO_OVERFLOW_TRACES = tuple(f"pairs_flagship_{b}" for b in (
+    "gbuffer",) + FLAGSHIP_BOUNCES) + ("pairs_di_visibility",)
 
 KERNELS = {
     "walk_closest": dict(
@@ -386,6 +412,18 @@ def _median_ms(fn, reps: int = 5) -> float:
     return statistics.median(times)
 
 
+def _bound_share(kernel: str, cls: str, bound_ms: float, ms: float) -> float:
+    """bound_ms / ms; raises where a time is not positive or the kernel
+    would beat its own bound (a measurement or a bound that is wrong)."""
+    if not ms > 0:
+        raise RuntimeError(f"{kernel} ({cls}): timed {ms} ms")
+    share = bound_ms / ms
+    if share > 1.0:
+        raise RuntimeError(f"{kernel} ({cls}): {ms} ms beats its bound of "
+                           f"{bound_ms} ms")
+    return share
+
+
 def lane_real(tracers) -> torch.Tensor:
     """[C, S_pad] bool: True on the lanes that hold a real triangle."""
     sp = tracers.tables.wald_rows.shape[-1]
@@ -451,6 +489,7 @@ def check_walk(kernel: str, cls: str, args, group: int, real,
         outcome = {"live_rays": live, "blocked": blocked,
                    "blocked_share": f"{blocked / max(live, 1):.4f}"}
         trivial = blocked in (0, live)
+    share = _bound_share(kernel, cls, bound["bound_ms"], ms)
     log("kernel-occlude" if kernel == "walk_occluded" else "kernel",
         kernel=kernel, cls=cls, rays=rays8.shape[0],
         bundles=cand_count.shape[0],
@@ -459,7 +498,7 @@ def check_walk(kernel: str, cls: str, args, group: int, real,
         cand_max=int(cand_count.max()), **outcome, mismatches=mismatches,
         kernel_ms=f"{ms:.3f}", plain_ms=f"{plain_ms:.3f}",
         bound_ms=f"{bound['bound_ms']:.4f}", bound_by=bound["bound_by"],
-        bound_share=f"{bound['bound_ms'] / ms:.3f}",
+        bound_share=f"{share:.3f}",
         steps=bound["steps"], steps_max=int(work.steps.max()),
         clusters_walked=bound["clusters_walked"],
         triangles_walked=bound["triangles_walked"],
@@ -544,13 +583,14 @@ def check_cull(kernel: str, cls: str, args) -> dict:
             "kernel_minus_zero": int(((got == 0.0)
                                       & torch.signbit(got)).sum())}
         trivial = not bool(finite.any())
+    share = _bound_share(kernel, cls, bound["bound_ms"], ms)
     log("kernel-cull", kernel=kernel, cls=cls, rays=rays8.shape[0],
         live_rays=bound["live_rays"],
         nan_rays=int(torch.isnan(rays8).any(dim=1).sum()), boxes=c,
         out_shape=tuple(got.shape), **outcome, mismatches=mismatches,
         kernel_ms=f"{ms:.3f}", plain_ms=f"{plain_ms:.3f}",
         bound_ms=f"{bound['bound_ms']:.4f}", bound_by=bound["bound_by"],
-        bound_share=f"{bound['bound_ms'] / ms:.3f}",
+        bound_share=f"{share:.3f}",
         mbytes=f"{bound['bytes'] / 1e6:.2f}",
         gops=f"{bound['ops'] / 1e9:.3f}")
     if mismatches:
@@ -576,17 +616,25 @@ def phase_kernel(renderer, batches) -> dict:
     return classes
 
 
-def phase_occupancy(renderer) -> dict:
+def phase_occupancy(renderer, renderer_p) -> dict:
     """B1 at each closest-hit class's bundle size, B2 at the visibility
-    class's, and B3 and B4 at their blocks: resident blocks per SM,
-    threads, registers and shared bytes per block (the kernels' occupancy
-    entry points)."""
+    class's, B3 and B4 at their blocks, B5 at the pair scene's S_pad and
+    B6's three kernels (count, scan, scatter) at its bins (superclusters
+    + 1): resident blocks per SM, threads, registers and shared bytes per
+    block (the kernels' occupancy entry points)."""
     tracers = renderer.tracers
     sp = tracers.tables.wald_rows.shape[-1]
+    ps = renderer_p.tracers.pair_scene
     out = {"walk_closest": {}, "walk_occluded": {}, "nearest_box": {
         "all": _build.occupancy("rt2_nearest_box_occupancy")},
         "bundle_union": {
-            "all": _build.occupancy("rt2_bundle_union_occupancy")}}
+            "all": _build.occupancy("rt2_bundle_union_occupancy")},
+        "pair_sweep": {"all": _build.occupancy("rt2_pair_sweep_occupancy",
+                                               ps.s_pad)},
+        "bin_scatter": {
+            name: _build.occupancy("rt2_bin_scatter_occupancy", i,
+                                   ps.num_superclusters + 1)
+            for i, name in enumerate(("count", "scan", "scatter"))}}
     for cls, cfg in tracers.shapes_by_class.items():
         if cls == "shadow":
             out["walk_occluded"]["visibility"] = _build.occupancy(
@@ -768,7 +816,7 @@ class TraceLog:
                 dict(kwargs))
         tally = self.checked.setdefault(key, [0, 0, 0])
         if inner.__name__ == "pair_sweep":
-            want = cp.pair_sweep_reference(*args, **kwargs)
+            want = cp.pair_sweep_reference(*args)  # it reads wald_sc
             tally[1] += int((out != want).sum())
             tally[2] += int((want < cp.MISS_KEY).sum())
         else:
@@ -1642,19 +1690,21 @@ def pair_sweep_bound(args, real_sc) -> dict:
             "superclusters_swept": int(sc_used.numel())}
 
 
-def check_pair_sweep(cls: str, args, real_sc, tally) -> dict:
+def check_pair_sweep(cls: str, args, kwargs, real_sc, tally) -> dict:
     """pair_sweep against its plain version on a trace's first batch: keys
     bit for bit, both times (CUDA events) and the bound; with the trace's
-    tally of every batch (TraceLog.checked). Raises on any mismatch, or on
-    a trace that hits nothing in all its batches."""
-    got = cp.pair_sweep(*args)
+    tally of every batch (TraceLog.checked). kwargs: the kernel's own table
+    (lanes). Raises on any mismatch, or on a trace that hits nothing in all
+    its batches."""
+    got = cp.pair_sweep(*args, **kwargs)
     want = cp.pair_sweep_reference(*args)
     torch.cuda.synchronize()
-    ms = _median_ms(lambda: cp.pair_sweep(*args))
+    ms = _median_ms(lambda: cp.pair_sweep(*args, **kwargs))
     plain_ms = _median_ms(lambda: cp.pair_sweep_reference(*args), reps=1)
     bound = pair_sweep_bound(args, real_sc)
     batches, mismatches, hits = tally
     mismatches += int((got != want).sum())
+    share = _bound_share("pair_sweep", cls, bound["bound_ms"], ms)
     log("kernel-pairs", kernel="pair_sweep", cls=cls, pairs=got.numel(),
         blocks=args[1].numel(), live_blocks=bound["live_blocks"],
         active_pair_rays=bound["active_pair_rays"],
@@ -1664,7 +1714,7 @@ def check_pair_sweep(cls: str, args, real_sc, tally) -> dict:
         mismatches=mismatches, kernel_ms=f"{ms:.3f}",
         plain_ms=f"{plain_ms:.3f}", bound_ms=f"{bound['bound_ms']:.4f}",
         bound_by=bound["bound_by"],
-        bound_share=f"{bound['bound_ms'] / ms:.3f}",
+        bound_share=f"{share:.3f}",
         mbytes=f"{bound['bytes'] / 1e6:.2f}",
         gops=f"{bound['ops'] / 1e9:.3f}")
     if mismatches:
@@ -1683,10 +1733,14 @@ def check_bin(cls: str, ids, n_bins: int, kwargs,
               tally=(0, 0, 0)) -> dict:
     """bin_scatter against its plain version on one id array (a trace's
     first batch, or the probe's): slots, counts and (when asked) ranks bit
-    for bit; the kernel's, the plain version's and
-    torch.argsort(stable=True)'s times (CUDA events); the bound, bytes: the
-    ids read once, the slots (and ranks) written once. A trace's tally of
-    every batch (TraceLog.checked) adds its mismatches."""
+    for bit. Times, all in this run: the kernel's (CUDA events around one
+    call, as every kernel here is timed), its plain version's and
+    torch.argsort(stable=True)'s on the same ids; and graph_ms, the card's
+    time alone (one replay of the call captured in a CUDA graph, the L2
+    written over before it, its output held to the plain version's:
+    tools/bin_scatter_ab.py). The bound, bytes: the ids read once, the
+    slots (and ranks) written once. A trace's tally of every batch
+    (TraceLog.checked) adds its mismatches."""
     got = binning.bin_scatter(ids, n_bins, **kwargs)
     want = binning.bin_scatter_reference(ids, n_bins, **kwargs)
     torch.cuda.synchronize()
@@ -1695,6 +1749,8 @@ def check_bin(cls: str, ids, n_bins: int, kwargs,
     max_abs = max(int((g.long() - w.long()).abs().max()) if w.numel() else 0
                   for g, w in fields)
     ms = _median_ms(lambda: binning.bin_scatter(ids, n_bins, **kwargs))
+    graph_ms = bin_scatter_ab.graph_ms(
+        lambda: binning.bin_scatter(ids, n_bins, **kwargs), want)
     plain_ms = _median_ms(
         lambda: binning.bin_scatter_reference(ids, n_bins, **kwargs), reps=3)
     library_ms = _median_ms(lambda: torch.argsort(ids, stable=True))
@@ -1707,16 +1763,25 @@ def check_bin(cls: str, ids, n_bins: int, kwargs,
         slots=got.slots.numel(), stored=stored,
         bins_used=int((got.counts > 0).sum()), batches_checked=tally[0],
         stored_all_batches=tally[2], mismatches=mismatches,
-        kernel_ms=f"{ms:.3f}", plain_ms=f"{plain_ms:.3f}",
-        library_ms=f"{library_ms:.3f}", bound_ms=f"{bound_ms:.4f}",
-        bound_by="bytes", bound_share=f"{bound_ms / ms:.3f}",
+        kernel_ms=f"{ms:.4f}", graph_ms=f"{graph_ms:.4f}",
+        plain_ms=f"{plain_ms:.3f}",
+        library_ms=f"{library_ms:.4f}", bound_ms=f"{bound_ms:.4f}",
+        bound_by="bytes",
+        bound_share=f"{_bound_share('bin_scatter', cls, bound_ms, ms):.3f}",
+        graph_bound_share=(
+            f"{_bound_share('bin_scatter', cls, bound_ms, graph_ms):.3f}"),
         mbytes=f"{nbytes / 1e6:.2f}")
     if mismatches:
         raise RuntimeError(f"bin_scatter ({cls}): kernel and plain version "
                            f"disagree on {mismatches} values")
     if int(got.counts.sum()) == 0:
         raise RuntimeError(f"bin_scatter ({cls}): no id in any bin")
-    return {"ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
+    if DUMP_BIN is not None:
+        DUMP_BIN.mkdir(parents=True, exist_ok=True)
+        torch.save({"cls": cls, "ids": ids.cpu(), "n_bins": n_bins,
+                    "kwargs": dict(kwargs)}, DUMP_BIN / f"{cls}.pt")
+    return {"ms": ms, "graph_ms": graph_ms, "plain_ms": plain_ms,
+            "library_ms": library_ms,
             "mismatches": mismatches, "max_abs_err": max_abs,
             "bound_ms": bound_ms, "bound_by": "bytes", "bytes": nbytes}
 
@@ -1731,7 +1796,8 @@ def phase_kernel_pairs(renderer, trace_log: TraceLog) -> dict:
             trace_log.pair_kernels.items()):
         tally = trace_log.checked[cls, kernel]
         if kernel == "pair_sweep":
-            out[kernel][cls] = check_pair_sweep(cls, args, real_sc, tally)
+            out[kernel][cls] = check_pair_sweep(cls, args, kwargs, real_sc,
+                                                tally)
         else:
             out[kernel][cls] = check_bin(cls, *args, kwargs, tally)
     gen = torch.Generator(device=renderer.scene.device).manual_seed(6)
@@ -1750,67 +1816,165 @@ def phase_kernel_pairs(renderer, trace_log: TraceLog) -> dict:
     return out
 
 
+def _backends_agree(phase: str, scene, renderer, name, rays, got,
+                    ref) -> dict:
+    """The pair engine's answer `got` for a kept trace's rays against the
+    bundle walk's `ref`: a hit that differs must be a key tie (KEY_TIE_REL:
+    the same miss flag and t equal above the bits the packed keys drop, so
+    the lane slot picked the winner), a blocked flag that differs a
+    rounding tie (_rounding_ties). Returns the counts to log; raises on
+    any other difference."""
+    o, d, tn, tx = rays
+    if name.endswith("visibility"):
+        differ = torch.nonzero(got != ref).reshape(-1)
+        if differ.numel() > ORACLE_RAYS:
+            raise RuntimeError(f"{phase} {name}: {differ.numel()} blocked "
+                               "flags differ between the backends")
+        r = tuple(x[differ] for x in (o, d, tn, tx))
+        ties = _rounding_ties(scene, renderer.tracers, r, got[differ])
+        tied = ties.pop("tied")
+        bad = int((~tied).sum())
+        fields = dict(blocked=int(got.sum()), differ=differ.numel(),
+                      ties=int(tied.sum()), **ties, disagree=bad)
+    else:
+        differ = got.triangle_index != ref.triangle_index
+        rel = (got.t - ref.t).abs() / ref.t.abs()
+        tie = differ & (got.missed == ref.missed) & (rel <= KEY_TIE_REL)
+        bad_rays = torch.nonzero(differ & ~tie).reshape(-1)
+        bad = bad_rays.numel()
+        fields = dict(
+            hits=int((~got.missed).sum()), differ=int(differ.sum()),
+            key_ties=int(tie.sum()),
+            max_tie_rel_t=f"{float(rel[tie].max()) if tie.any() else 0:.3g}",
+            disagree=bad, first_disagreeing=json.dumps([
+                [int(i), float(got.t[i]), float(ref.t[i]),
+                 int(got.triangle_index[i]), int(ref.triangle_index[i])]
+                for i in bad_rays[:4].tolist()]))
+    if bad:
+        log(phase, trace=name, **fields)
+        raise RuntimeError(f"{phase} {name}: {bad} rays differ between the "
+                           "backends beyond ties")
+    return fields
+
+
+def _per_ray(trace):
+    """A kept trace's rays with per-ray t_min and t_max."""
+    o, d, tn, tx, _ = trace
+    return (o, d) + tuple(torch.as_tensor(t, device=o.device).expand(
+        o.shape[0]) for t in (tn, tx))
+
+
 def phase_pairs_ties(scene, renderer, renderer_p,
-                     trace_log: TraceLog) -> None:
-    """Each trace the pairs frames kept, through both backends: a hit that
-    differs must be a key tie (KEY_TIE_REL: the same miss flag and t equal
-    above the bits the packed keys drop, so the lane slot picked the
-    winner), a blocked flag that differs a rounding tie (_rounding_ties).
-    Also logs, per trace, the most
-    superclusters one ray overlaps and how many rays overlap more than
-    the tracers' k_cand (any one sends the trace to the fallback)."""
+                     trace_log: TraceLog) -> dict:
+    """Each trace the pairs frames kept, through both backends; every
+    difference must be a tie (_backends_agree). Also logs, per trace, the
+    most superclusters one ray overlaps and how many rays overlap more than
+    the tracers' k_cand (any one sends the trace to the fallback). Returns
+    {trace: the most superclusters one ray overlaps}."""
     ps = renderer_p.tracers.pair_scene
-    for name, (o, d, tn, tx, presorted) in sorted(trace_log.traces.items()):
-        tn_r, tx_r = (torch.as_tensor(t, device=o.device).expand(o.shape[0])
-                      for t in (tn, tx))
+    max_overlap = {}
+    for name, trace in sorted(trace_log.traces.items()):
+        o, d, tn, tx, presorted = trace
+        rays = _per_ray(trace)
         overlap = torch.cat([
-            cp._slab_entry(ps, o[s:s + cp.PAIR_RAY_BATCH],
-                           d[s:s + cp.PAIR_RAY_BATCH],
-                           tn_r[s:s + cp.PAIR_RAY_BATCH],
-                           tx_r[s:s + cp.PAIR_RAY_BATCH])[1]
+            cp._slab_entry(ps, *(x[s:s + cp.PAIR_RAY_BATCH] for x in rays))[1]
             for s in range(0, o.shape[0], cp.PAIR_RAY_BATCH)])
+        max_overlap[name] = int(overlap.max())
         log("pairs-overlap", trace=name, rays=o.shape[0],
-            max_superclusters=int(overlap.max()),
+            max_superclusters=max_overlap[name],
             mean_superclusters=f"{float(overlap.float().mean()):.3f}",
             rays_over_k=int((overlap > app_bridge.PAIR_K_CAND).sum()),
             k_cand=app_bridge.PAIR_K_CAND)
-        if name.endswith("visibility"):
-            got = renderer_p.tracers.occluded(o, d, tn, tx,
+        query = "occluded" if name.endswith("visibility") else "closest_hit"
+        got, ref = (getattr(r.tracers, query)(o, d, tn, tx,
                                               presorted=presorted)
-            ref = renderer.tracers.occluded(o, d, tn, tx,
-                                            presorted=presorted)
-            differ = torch.nonzero(got != ref).reshape(-1)
-            if differ.numel() > ORACLE_RAYS:
-                raise RuntimeError(f"{name}: {differ.numel()} blocked flags "
-                                   "differ between the backends")
-            r = tuple(x[differ] for x in (o, d, tn_r, tx_r))
-            ties = _rounding_ties(scene, renderer.tracers, r, got[differ])
-            tied = ties.pop("tied")
-            bad = int((~tied).sum())
-            log("pairs-ties", trace=name, rays=o.shape[0],
-                blocked=int(got.sum()), differ=differ.numel(),
-                ties=int(tied.sum()), **ties, disagree=bad)
-        else:
-            got = renderer_p.tracers.closest_hit(o, d, tn, tx,
-                                                 presorted=presorted)
-            ref = renderer.tracers.closest_hit(o, d, tn, tx,
-                                               presorted=presorted)
-            differ = got.triangle_index != ref.triangle_index
-            rel = (got.t - ref.t).abs() / ref.t.abs()
-            tie = differ & (got.missed == ref.missed) & (rel <= KEY_TIE_REL)
-            bad_rays = torch.nonzero(differ & ~tie).reshape(-1)
-            bad = bad_rays.numel()
-            log("pairs-ties", trace=name, rays=o.shape[0],
-                hits=int((~got.missed).sum()), differ=int(differ.sum()),
-                key_ties=int(tie.sum()),
-                max_tie_rel_t=f"{float(rel[tie].max()) if tie.any() else 0:.3g}",
-                disagree=bad, first_disagreeing=json.dumps([
-                    [int(i), float(got.t[i]), float(ref.t[i]),
-                     int(got.triangle_index[i]), int(ref.triangle_index[i])]
-                    for i in bad_rays[:4].tolist()]))
-        if bad:
-            raise RuntimeError(f"{name}: {bad} rays differ between the "
-                               "backends beyond ties")
+                    for r in (renderer_p, renderer))
+        log("pairs-ties", trace=name, rays=o.shape[0],
+            **_backends_agree("pairs-ties", scene, renderer, name, rays, got,
+                              ref))
+    return max_overlap
+
+
+def _wall_median_ms(fn, reps: int = NO_OVERFLOW_REPEATS) -> float:
+    """Median host time of fn between synchronisations, in ms, after one
+    warm-up call."""
+    fn()
+    times = []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return statistics.median(times)
+
+
+def _parts_ms(fn, parts) -> dict:
+    """One more call of fn with each (owner, attr, name) part synchronised
+    and timed (_timed): {name: ms summed over its calls, name + "_calls"}."""
+    spent, calls = {}, {}
+
+    def count(name):
+        def hook(inner, *args, **kwargs):
+            calls[name] = calls.get(name, 0) + 1
+            return _timed(spent, lambda kw: name)(inner, *args, **kwargs)
+        return hook
+
+    wraps = [_Patch(owner, attr, count(name)) for owner, attr, name in parts]
+    try:
+        fn()
+    finally:
+        for w in reversed(wraps):
+            w.restore()
+    out = {f"{k}_ms": f"{v * 1e3:.3f}" for k, v in sorted(spent.items())}
+    out.update({f"{k}_calls": v for k, v in sorted(calls.items())})
+    return out
+
+
+def phase_pairs_no_overflow(scene, renderer, renderer_p,
+                            trace_log: TraceLog, max_overlap: dict) -> None:
+    """Each of NO_OVERFLOW_TRACES through the pair engine alone
+    (closest_hit_pairs / occluded_pairs, no fallback) at k_cand = K, the
+    smallest multiple of 8 at or above the most superclusters one of its
+    rays overlaps (pairs-ties' count): no ray may overflow, and the answer
+    must equal the bundle walk's up to ties (_backends_agree). Logs K, the
+    median of NO_OVERFLOW_REPEATS synchronised traces of each backend on
+    the same rays, and from one more trace of each B5's and B6's time (the
+    pair engine) and the walk's (the bundle engine), each launch
+    synchronised."""
+    tp, tb = renderer_p.tracers, renderer.tracers
+    for name in NO_OVERFLOW_TRACES:
+        trace = trace_log.traces[name]
+        o, d, tn, tx, presorted = trace
+        k = -(-max_overlap[name] // 8) * 8
+        visibility = name.endswith("visibility")
+        engine = cp.occluded_pairs if visibility else cp.closest_hit_pairs
+        walk = "walk_occluded" if visibility else "walk_closest"
+
+        def pairs():
+            return engine(tp.pair_scene, tp.clusters, tp.tables, o, d, tn, tx,
+                          tp.scene_min, tp.scene_max, k_cand=k,
+                          fallback=False)
+
+        def bundle():
+            query = tb.occluded if visibility else tb.closest_hit
+            return query(o, d, tn, tx, presorted=presorted)
+
+        got, overflowed = pairs()
+        if overflowed:
+            raise RuntimeError(f"pairs-no-overflow {name}: a ray overlaps "
+                               f"more than k_cand = {k} superclusters")
+        agree = _backends_agree("pairs-no-overflow", scene, renderer, name,
+                                _per_ray(trace), got, bundle())
+        pairs_ms, bundle_ms = _wall_median_ms(pairs), _wall_median_ms(bundle)
+        log("pairs-no-overflow", trace=name, rays=o.shape[0], k_cand=k,
+            max_superclusters=max_overlap[name], overflowed=overflowed,
+            **agree, pairs_ms=f"{pairs_ms:.2f}",
+            bundle_ms=f"{bundle_ms:.2f}",
+            pairs_over_bundle=f"{pairs_ms / bundle_ms:.3f}",
+            **_parts_ms(pairs, [(cp, "pair_sweep", "b5_pair_sweep"),
+                                (binning, "bin_scatter", "b6_bin_scatter")]),
+            **_parts_ms(bundle, [(ct, walk, f"bundle_{walk}")]))
 
 
 def _pixels_differing(img, ref) -> dict:
@@ -1889,7 +2053,14 @@ def kernel_entry(name: str, classes: dict, launches: int,
 
 
 def main() -> None:
+    global DUMP_BIN
     t_start = time.perf_counter()
+    ap = argparse.ArgumentParser(
+        description="Smoke run of the port on one NVIDIA GPU.")
+    ap.add_argument("--dump-bin", type=Path, metavar="DIR",
+                    help="save each B6 input that kernel-pairs checks "
+                         "(tools/bin_scatter_ab.py reads them)")
+    DUMP_BIN = ap.parse_args().dump_bin
     dev, smi = phase_device()
     # the skybox's EXR round trip is pure-Python host work (tens of seconds
     # at 2048x1024): a worker process runs it beside the kernel checks
@@ -1908,8 +2079,8 @@ def run(dev: torch.device, smi: str, pool, sky_job,
     torch.backends.cudnn.allow_tf32 = False
     phase_build()
     scene, renderer, view, model = phase_scene(dev)
-    occupancy = phase_occupancy(renderer)
     renderer_p = phase_pairs_scene(scene)
+    occupancy = phase_occupancy(renderer, renderer_p)
     g_ref, g_di = reference_gconst(scene, view), di_gconst(scene, view)
 
     batches = main_path_batches(scene, renderer, g_ref)
@@ -1961,7 +2132,9 @@ def run(dev: torch.device, smi: str, pool, sky_job,
     phase_pairs_capture(scene, renderer_p, g_flag, g_di, pair_log)
     pair_log.restore()
     classes.update(phase_kernel_pairs(renderer_p, pair_log))
-    phase_pairs_ties(scene, renderer, renderer_p, pair_log)
+    max_overlap = phase_pairs_ties(scene, renderer, renderer_p, pair_log)
+    phase_pairs_no_overflow(scene, renderer, renderer_p, pair_log,
+                            max_overlap)
     del pair_log
     paths["pairs_frames"] = phase_pairs_frames(scene, renderer_p, g_flag,
                                                g_di, flag_imgs, di_imgs)

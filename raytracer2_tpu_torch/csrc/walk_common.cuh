@@ -1,5 +1,5 @@
 // Code the bundle walks share (bundle_walk.cu, bundle_occlude.cu;
-// pair_sweep.cu takes the ray rows and the row-major Wald test): the ray
+// pair_sweep.cu runs the same ring over a supercluster's members): the ray
 // rows and limits, the cp.async ring's copies, the lane-major Wald test, the
 // float order the early exit reduces over, the longest-first bundle order,
 // and the walks' launch and occupancy on the host.
@@ -18,8 +18,6 @@
 
 namespace rt2 {
 
-constexpr int kWaldRows = 16;   // rows per cluster in the table (12 used)
-constexpr int kCoeffRows = 12;
 constexpr int kMaxGroup = 8;    // group * S_pad <= 1 << 10
 constexpr int kMaxLanes = 1 << 10;
 // One thread per ray, at most kMaxBundle rays per bundle.
@@ -161,32 +159,6 @@ __device__ __forceinline__ bool wald_lane_test(const Ray& r, const float4& u,
   const float dp_u = (r.dx * u.x + r.dy * u.y) + r.dz * u.z;
   const float dp_v = (r.dx * v.x + r.dy * v.y) + r.dz * v.z;
   const float dp_z = (r.dx * z.x + r.dy * z.y) + r.dz * z.z;
-  t = -op_z / dp_z;
-  const float uu = op_u + t * dp_u;
-  const float vv = op_v + t * dp_v;
-  return fabsf(dp_z) > 1e-12f && uu >= 0.0f && vv >= 0.0f &&
-         uu + vv <= 1.0f && t > r.tn;
-}
-
-// The Wald unit-triangle test of ray r against lane s of a row-major tile
-// (row k*3 + c holds input k = x, y, z, bias of output c = u, v, z), the
-// same test as wald_lane_test with each coefficient a shared-memory
-// broadcast (the pair sweep's tiles).
-__device__ __forceinline__ bool wald_test(const Ray& r, const float* tile,
-                                          int s, int w_lanes, float& t) {
-  const float* w = tile + s;
-  const float w0 = w[0 * w_lanes], w1 = w[1 * w_lanes];
-  const float w2 = w[2 * w_lanes], w3 = w[3 * w_lanes];
-  const float w4 = w[4 * w_lanes], w5 = w[5 * w_lanes];
-  const float w6 = w[6 * w_lanes], w7 = w[7 * w_lanes];
-  const float w8 = w[8 * w_lanes], w9 = w[9 * w_lanes];
-  const float w10 = w[10 * w_lanes], w11 = w[11 * w_lanes];
-  const float op_u = ((r.ox * w0 + r.oy * w3) + r.oz * w6) + w9;
-  const float op_v = ((r.ox * w1 + r.oy * w4) + r.oz * w7) + w10;
-  const float op_z = ((r.ox * w2 + r.oy * w5) + r.oz * w8) + w11;
-  const float dp_u = (r.dx * w0 + r.dy * w3) + r.dz * w6;
-  const float dp_v = (r.dx * w1 + r.dy * w4) + r.dz * w7;
-  const float dp_z = (r.dx * w2 + r.dy * w5) + r.dz * w8;
   t = -op_z / dp_z;
   const float uu = op_u + t * dp_u;
   const float vv = op_v + t * dp_v;

@@ -126,9 +126,16 @@ def library() -> ctypes.CDLL:
                                      vp]  # stream
     lib.rt2_pair_sweep.restype = ci
     lib.rt2_pair_sweep.argtypes = [
-        vp, vp, vp, vp, vp,  # rays8, block_sc, block_live, wald_sc, keys
-        ci, ci, ci, ci,  # n_blocks, n_sc, w_lanes, slot_mask
+        vp, vp, vp, vp, vp, vp,  # rays8, block_sc, block_live, lane
+        #   coeffs, lane count, keys
+        ci, ci, ci, ci, ci, ci,  # n_blocks, n_sc, n_clusters, group,
+        #   s_pad, slot_mask
         vp]  # stream
+    lib.rt2_pair_sweep_occupancy.restype = ci
+    lib.rt2_pair_sweep_occupancy.argtypes = [ci, vp]  # s_pad, out
+    lib.rt2_bin_scatter_occupancy.restype = ci
+    lib.rt2_bin_scatter_occupancy.argtypes = [ci, ci, vp]  # kernel,
+    #   n_bins, out
     ll = ctypes.c_longlong
     lib.rt2_bin_scatter.restype = ci
     lib.rt2_bin_scatter.argtypes = [
@@ -143,7 +150,9 @@ def library() -> ctypes.CDLL:
 def occupancy(entry: str, *args: int) -> dict:
     """A kernel's residency on the card, from its occupancy entry point
     (rt2_walk_closest_occupancy(p, s_pad), rt2_walk_occluded_occupancy(p,
-    s_pad), rt2_nearest_box_occupancy(), rt2_bundle_union_occupancy()):
+    s_pad), rt2_nearest_box_occupancy(), rt2_bundle_union_occupancy(),
+    rt2_pair_sweep_occupancy(s_pad), rt2_bin_scatter_occupancy(kernel,
+    n_bins) for B6's count (0), scan (1) and scatter (2) kernels):
     resident blocks per SM (cudaOccupancyMaxActiveBlocksPerMultiprocessor),
     threads per block, registers per thread and shared bytes per block."""
     lib = library()

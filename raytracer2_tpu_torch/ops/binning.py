@@ -11,9 +11,11 @@ Here the chain is the real binning of the pair engine (ops/cuda_pairs.py):
 `bin_scatter` gives every element its stable rank in its bin and stores a
 payload at `base[bin] + rank`, where `base` is the exclusive scan of the
 bin counts, each rounded up to `pad`. The kernel (csrc/binning.cu) ranks
-deterministically (a per-tile histogram, a scan of the counts, then ranks
-from warp matches), so its output does not depend on the order in which
-threads run: it equals the stable sort's, slot for slot.
+deterministically (a per-tile histogram, a scan of the counts, then a
+stable counting sort of each tile in shared memory, ranked by warp
+matches), so its output does not depend on the order in which threads run:
+it equals the stable sort's, slot for slot. It writes every slot, the -1s
+included.
 
 On a CUDA tensor `bin_scatter` launches the kernel (and counts the launch
 in `bin_scatter.launches`); on a CPU tensor it runs `bin_scatter_reference`,
@@ -83,7 +85,7 @@ def bin_scatter(ids: torch.Tensor, n_bins: int, *, pad: int = 1,
     dev = ids.device
     scratch = torch.empty(n_bins * tiles, dtype=torch.int32, device=dev)
     counts = torch.empty(n_bins, dtype=torch.int32, device=dev)
-    slots = torch.full((out_size,), -1, dtype=torch.int32, device=dev)
+    slots = torch.empty(out_size, dtype=torch.int32, device=dev)
     rank = torch.empty(n if ranks else 0, dtype=torch.int32, device=dev)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream().cuda_stream

@@ -12,7 +12,10 @@ Per batch of rays:
    stable jnp.argsort layout slot for slot.
 2. pair_sweep (B5, csrc/pair_sweep.cu): each block tests its rays against
    every lane of its supercluster's Wald rows and keeps per ray the packed
-   key (bits(t) & ~slot_mask) | lane, MISS_KEY where nothing hits.
+   key (bits(t) & ~slot_mask) | lane, MISS_KEY where nothing hits. The
+   kernel reads the rows lane-major, member cluster by member cluster, from
+   the walk tables (WalkTables.lanes: member m of supercluster s is cluster
+   s * group + m) and tests each cluster's real lanes only.
 3. A scatter-min per ray picks the best key, then the winning pair's code
    supercluster * W + lane, which is cluster * S_pad + lane, decodes
    through the bundle engine's meta rows (cuda_traverse._decode).
@@ -135,20 +138,47 @@ def _check_sweep_args(rays8, block_sc, block_live, wald_sc):
     return nblk, wald_sc.shape[0], wald_sc.shape[2]
 
 
+def _check_lanes(lanes: ct.WalkLanes, wald_sc: torch.Tensor
+                 ) -> tuple[int, int]:
+    """(clusters C, members per supercluster) of the walk tables' lanes
+    that wald_sc interleaves; raises if the table does not fit it: [C,
+    S_pad, 12] f32 and [C] i32 with W = group * S_pad and C2 = ceil(C /
+    group)."""
+    c2, _, w = wald_sc.shape
+    c = lanes.count.shape[0] if lanes.count.dim() == 1 else 0
+    sp = lanes.coeffs.shape[1] if lanes.coeffs.dim() == 3 else 0
+    group = w // sp if sp and w % sp == 0 else 0
+    fits = bool(group) and (c2 - 1) * group < c <= c2 * group
+    for name, x, dtype, shape in (
+            ("lanes.coeffs", lanes.coeffs, torch.float32, (c, sp, 12)),
+            ("lanes.count", lanes.count, torch.int32, (c,))):
+        if not fits or x.dtype != dtype or tuple(x.shape) != shape \
+                or x.device != wald_sc.device or not x.is_contiguous():
+            raise ValueError(f"{name} must be the contiguous {dtype} walk "
+                             f"table (WalkTables.lanes) of the clusters "
+                             f"that wald_sc {tuple(wald_sc.shape)} on "
+                             f"{wald_sc.device} interleaves, got {x.dtype} "
+                             f"{tuple(x.shape)} on {x.device}")
+    return c, group
+
+
 def pair_sweep(rays8_pairs: torch.Tensor, block_sc: torch.Tensor,
-               block_live: torch.Tensor, wald_sc: torch.Tensor
-               ) -> torch.Tensor:
+               block_live: torch.Tensor, wald_sc: torch.Tensor, *,
+               lanes: ct.WalkLanes) -> torch.Tensor:
     """[n_blocks * PAIR_P] i32 packed winner keys: per pair ray the min over
     its block's supercluster lanes of (bits(t) & ~slot_mask) | lane where
     the lane hits (t_min < t < t_max), MISS_KEY where none does or the
     block is dead (block_live == 0, or block_sc outside [0, C2)).
     rays8_pairs [n_blocks * PAIR_P, 8] f32 in pair order, block_sc and
-    block_live [n_blocks] i32, wald_sc [C2, 16, W] f32.
+    block_live [n_blocks] i32, wald_sc [C2, 16, W] f32 and lanes, the
+    walk tables' lane-major view of the same clusters (WalkTables.lanes).
 
-    A CUDA tensor launches csrc/pair_sweep.cu on the current stream; a CPU
-    tensor runs pair_sweep_reference."""
+    A CUDA tensor launches csrc/pair_sweep.cu on the current stream (it
+    reads `lanes`); a CPU tensor runs pair_sweep_reference (it reads
+    wald_sc)."""
     nblk, c2, w = _check_sweep_args(rays8_pairs, block_sc, block_live,
                                     wald_sc)
+    c, group = _check_lanes(lanes, wald_sc)
     if rays8_pairs.device.type == "cpu":
         return pair_sweep_reference(rays8_pairs, block_sc, block_live,
                                     wald_sc)
@@ -161,8 +191,9 @@ def pair_sweep(rays8_pairs: torch.Tensor, block_sc: torch.Tensor,
         stream = torch.cuda.current_stream().cuda_stream
         err = lib.rt2_pair_sweep(
             rays8_pairs.data_ptr(), block_sc.data_ptr(),
-            block_live.data_ptr(), wald_sc.data_ptr(), keys.data_ptr(),
-            nblk, c2, w, _slot_mask(w), ctypes.c_void_p(stream))
+            block_live.data_ptr(), lanes.coeffs.data_ptr(),
+            lanes.count.data_ptr(), keys.data_ptr(), nblk, c2, c, group,
+            w // group, _slot_mask(w), ctypes.c_void_p(stream))
     if err != 0:
         raise RuntimeError(f"pair_sweep launch failed: "
                            f"{lib.rt2_error_string(err).decode()} ({err})")
@@ -273,8 +304,8 @@ def bin_pairs(ps: PairScene, origins, directions, t_min, t_max,
 # Traces
 # ---------------------------------------------------------------------------
 
-def _trace_pairs_batch(ps: PairScene, origins, directions, t_min, t_max,
-                       k_cand: int):
+def _trace_pairs_batch(ps: PairScene, lanes: ct.WalkLanes, origins,
+                       directions, t_min, t_max, k_cand: int):
     """One ray batch: (winner code [n] i32, MISS_CODE on a miss; best key
     [n] i32; overflow, a 0-d bool tensor)."""
     n = origins.shape[0]
@@ -289,7 +320,7 @@ def _trace_pairs_batch(ps: PairScene, origins, directions, t_min, t_max,
     dead = torch.tensor(DEAD_PAIR_ROW, device=rays8.device)
     rays8_pairs = torch.where(live[:, None], rays8[safe_ray], dead)
     keys = pair_sweep(rays8_pairs.contiguous(), block_sc, block_live,
-                      ps.wald_sc)
+                      ps.wald_sc, lanes=lanes)
 
     big = ct.MISS_CODE
     keys = torch.where(live, keys, big)
@@ -309,7 +340,8 @@ def _trace_pairs_batch(ps: PairScene, origins, directions, t_min, t_max,
     return code, best_key, overflow
 
 
-def _trace_batches(ps: PairScene, origins, directions, tn, tx, k_cand: int):
+def _trace_batches(ps: PairScene, lanes: ct.WalkLanes, origins, directions,
+                   tn, tx, k_cand: int):
     """All rays in batches of min(PAIR_RAY_BATCH, n), the last padded with
     dead rays as in the JAX engine: (code [n], best key [n], overflowed)."""
     n = origins.shape[0]
@@ -324,8 +356,8 @@ def _trace_batches(ps: PairScene, origins, directions, tn, tx, k_cand: int):
     codes, keys, overflow = [], [], []
     for s in range(0, n + pad, batch):
         sl = slice(s, s + batch)
-        code, key, ovf = _trace_pairs_batch(ps, o[sl], d[sl], tn[sl], tx[sl],
-                                            k_cand)
+        code, key, ovf = _trace_pairs_batch(ps, lanes, o[sl], d[sl], tn[sl],
+                                            tx[sl], k_cand)
         codes.append(code)
         keys.append(key)
         overflow.append(ovf)
@@ -347,8 +379,8 @@ def closest_hit_pairs(ps: PairScene, clusters: Clusters,
     n = origins.shape[0]
     tn = ct._per_ray(t_min, n, origins)
     tx = ct._per_ray(t_max, n, origins)
-    code, _, overflowed = _trace_batches(ps, origins, directions, tn, tx,
-                                         k_cand)
+    code, _, overflowed = _trace_batches(ps, tables.lanes, origins,
+                                         directions, tn, tx, k_cand)
     rec = ct._decode(code, ps.meta_rows, origins, directions, tx)
     if fallback and overflowed:
         rec, _ = ct.closest_hit_bundle(clusters, tables, origins, directions,
@@ -369,8 +401,8 @@ def occluded_pairs(ps: PairScene, clusters: Clusters, tables: ct.WalkTables,
     n = origins.shape[0]
     tn = ct._per_ray(t_min, n, origins)
     tx = ct._per_ray(t_max, n, origins)
-    _, best_key, overflowed = _trace_batches(ps, origins, directions, tn, tx,
-                                             k_cand)
+    _, best_key, overflowed = _trace_batches(ps, tables.lanes, origins,
+                                             directions, tn, tx, k_cand)
     blocked = best_key < MISS_KEY
     if fallback and overflowed:
         blocked, _ = ct.occluded_bundle(clusters, tables, origins,

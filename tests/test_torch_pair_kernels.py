@@ -66,12 +66,9 @@ def _pair_scene(tiny, group):
                                s.tri_primitive, group=group)
 
 
-@pytest.mark.parametrize("group,k_cand", [(4, 24), (16, 24), (4, 2)])
-def test_pair_sweep_kernel_matches_plain_version_on_card(dev, tiny, group,
-                                                         k_cand):
-    """B5 against its plain version, key for key, on the layout bin_pairs
-    makes on the card (B6 included), W = 512 and 2048 lanes."""
-    ps = _pair_scene(tiny, group)
+def _sweep_args(dev, tiny, ps, k_cand):
+    """The pair sweep's inputs as _trace_pairs_batch makes them on the card
+    (bin_pairs, B6 included)."""
     o, d, tn, tx = tiny["rays"]
     pair_ray, block_sc, block_live, _ = cp.bin_pairs(ps, o, d, tn, tx,
                                                      k_cand)
@@ -79,14 +76,59 @@ def test_pair_sweep_kernel_matches_plain_version_on_card(dev, tiny, group,
     rays8 = ct._pack8(o, d, tn, tx)
     rays8_pairs = torch.where(live[:, None], rays8[pair_ray.clamp_min(0)],
                               torch.tensor(cp.DEAD_PAIR_ROW, device=dev))
-    args = (rays8_pairs.contiguous(), block_sc, block_live, ps.wald_sc)
+    return (rays8_pairs.contiguous(), block_sc, block_live, ps.wald_sc)
+
+
+# the scene's 540 clusters (native SAH) fill groups of 4 and 5 and leave
+# groups of 7 and 16 with padding clusters (not walked)
+@pytest.mark.parametrize("group,k_cand", [(4, 24), (16, 24), (4, 2), (5, 24),
+                                          (7, 24)])
+def test_pair_sweep_kernel_matches_plain_version_on_card(dev, tiny, group,
+                                                         k_cand):
+    """B5 against its plain version, key for key, on the layout bin_pairs
+    makes on the card (B6 included), W = 512 to 2048 lanes."""
+    ps = _pair_scene(tiny, group)
+    args = _sweep_args(dev, tiny, ps, k_cand)
     launches = cp.pair_sweep.launches
-    got = cp.pair_sweep(*args)
+    got = cp.pair_sweep(*args, lanes=tiny["tables"].lanes)
     torch.cuda.synchronize()
     assert cp.pair_sweep.launches == launches + 1
     want = cp.pair_sweep_reference(*args)
     np.testing.assert_array_equal(got.cpu().numpy(), want.cpu().numpy())
-    assert (want < cp.MISS_KEY).sum() > 100 and (block_live == 0).any()
+    assert (want < cp.MISS_KEY).sum() > 100 and (args[2] == 0).any()
+
+
+def test_pair_sweep_kernel_edge_cases_on_card(dev, tiny):
+    """B5 against its plain version where the layout is odd: a live block
+    marked dead, block_sc below 0 and at C2 in live blocks, empty segments
+    (t_max == t_min, t_max < t_min) and NaN segment ends and origins in
+    live blocks. Dead and out-of-range blocks give MISS_KEY, the others the
+    plain version's keys."""
+    ps = _pair_scene(tiny, 16)
+    rays8, block_sc, block_live, wald_sc = _sweep_args(dev, tiny, ps, 24)
+    rays8, block_sc, block_live = (x.clone() for x in (rays8, block_sc,
+                                                       block_live))
+    live = torch.nonzero(block_live).reshape(-1)
+    assert live.numel() >= 8
+    block_live[live[0]] = 0
+    block_sc[live[1]] = -1
+    block_sc[live[2]] = ps.num_superclusters
+    rows = rays8.view(-1, cp.PAIR_P, 8)
+    for i, (col, value) in enumerate(((7, None), (7, -1.0), (7, np.nan),
+                                      (6, np.nan), (0, np.nan))):
+        r = rows[live[3 + i]]
+        r[::3, col] = r[::3, 6] if value is None else value
+    args = (rays8, block_sc, block_live, wald_sc)
+    got = cp.pair_sweep(*args, lanes=tiny["tables"].lanes).view(
+        -1, cp.PAIR_P)
+    torch.cuda.synchronize()
+    want = cp.pair_sweep_reference(*args).view(-1, cp.PAIR_P)
+    np.testing.assert_array_equal(got.cpu().numpy(), want.cpu().numpy())
+    assert (want[live[:3]] == cp.MISS_KEY).all()
+    for i in range(5):  # the changed rays miss, the others of the block hit
+        w = want[live[3 + i]]
+        assert (w[::3] == cp.MISS_KEY).all()
+    assert (want[live[8:]] < cp.MISS_KEY).any()
 
 
 def test_pair_traces_match_brute_force_on_card(dev, tiny, monkeypatch):
@@ -124,39 +166,54 @@ def test_pair_traces_match_brute_force_on_card(dev, tiny, monkeypatch):
     assert int(m.sum()) > N // 8
 
 
-def _ids(dev, seed, n, n_bins, outside=False):
+def _ids(dev, seed, n, n_bins, outside=False, one_bin=False):
     rng = np.random.default_rng(seed)
     used = rng.choice(n_bins, size=max(1, n_bins // 2), replace=False)
     ids = used[rng.integers(0, used.size, n)].astype(np.int32)
+    if one_bin:
+        ids[:] = used[0]
     if outside:
         ids[::17] = n_bins
         ids[::29] = -1
     return torch.from_numpy(ids).to(dev)
 
 
-# (n, n_bins, pad, n_write, div, ids outside the bins): one tile and a
-# ragged last tile; one bin; the pair engine's layout at ladder scale (193
-# bins with a dead last one, padding to 128, payload j // 24); the most bins
-@pytest.mark.parametrize("n,n_bins,pad,n_write,div,outside", [
-    (4096, 16, 1, 16, 1, False), (10_000, 1, 1, 1, 1, False),
-    (262_144 * 2 + 77, 193, 128, 192, 24, False),
-    (100_000, binning.MAX_BINS, 8, binning.MAX_BINS, 3, True)])
+# (n, n_bins, pad, n_write, div, ids outside the bins, every id in one bin,
+# slots past the padded runs): one tile and a ragged last tile; one bin;
+# the pair engine's layout at ladder scale (193 bins with a dead last one,
+# padding to 128, payload j // 24); the most bins; all ids in one bin of
+# the pair layout; n one short of and one past whole tiles; no ids; fewer
+# slots than the padded runs take (the last ones are dropped)
+@pytest.mark.parametrize("n,n_bins,pad,n_write,div,outside,one_bin,extra", [
+    (4096, 16, 1, 16, 1, False, False, 7),
+    (10_000, 1, 1, 1, 1, False, False, 7),
+    (262_144 * 2 + 77, 193, 128, 192, 24, False, False, 7),
+    (100_000, binning.MAX_BINS, 8, binning.MAX_BINS, 3, True, False, 7),
+    (50_000, 193, 128, 192, 24, False, True, 7),
+    (4 * binning.TILE - 1, 193, 128, 192, 24, True, False, 7),
+    (4 * binning.TILE + 1, 64, 4, 60, 1, True, False, 7),
+    (0, 193, 128, 192, 24, False, False, 300),
+    (30_000, 40, 16, 40, 1, False, False, -5000)])
 def test_bin_scatter_kernel_matches_plain_version_on_card(
-        dev, n, n_bins, pad, n_write, div, outside):
-    ids = _ids(dev, n + n_bins, n, n_bins, outside)
+        dev, n, n_bins, pad, n_write, div, outside, one_bin, extra):
+    ids = _ids(dev, n + n_bins, n, n_bins, outside, one_bin)
     counts = torch.bincount(ids[(ids >= 0) & (ids < n_bins)].long(),
                             minlength=n_bins)
-    out_size = int(((counts + pad - 1) // pad * pad).sum()) + 7
-    kw = dict(pad=pad, n_write=n_write, div=div, out_size=out_size,
-              ranks=True)
-    launches = binning.bin_scatter.launches
-    got = binning.bin_scatter(ids, n_bins, **kw)
-    torch.cuda.synchronize()
-    assert binning.bin_scatter.launches == launches + 1
-    want = binning.bin_scatter_reference(ids, n_bins, **kw)
-    for name, g, w in zip(("slots", "counts", "ranks"), got, want):
-        np.testing.assert_array_equal(g.cpu().numpy(), w.cpu().numpy(),
-                                      err_msg=name)
+    out_size = max(0, int(((counts + pad - 1) // pad * pad).sum()) + extra)
+    for ranks in (True, False):
+        kw = dict(pad=pad, n_write=n_write, div=div, out_size=out_size,
+                  ranks=ranks)
+        launches = binning.bin_scatter.launches
+        got = binning.bin_scatter(ids, n_bins, **kw)
+        torch.cuda.synchronize()
+        assert binning.bin_scatter.launches == launches + 1
+        want = binning.bin_scatter_reference(ids, n_bins, **kw)
+        for name, g, w in zip(("slots", "counts", "ranks"), got, want):
+            if w is None:
+                assert g is None
+                continue
+            np.testing.assert_array_equal(g.cpu().numpy(), w.cpu().numpy(),
+                                          err_msg=name)
 
 
 def test_scatter_rate_probe_on_card(dev):

@@ -135,6 +135,42 @@ def test_build_pair_scene_bit_exact(tiny, group):
     assert (carried.group, carried.s_pad) == (got.group, got.s_pad)
 
 
+# 33 clusters: groups of 4 and 16 pad C with clusters, groups of 5 with two
+@pytest.mark.parametrize("group", [4, 5, 16])
+def test_walk_lanes_are_the_sweep_table(tiny, group):
+    """The slice of the walk tables that B5 reads (WalkTables.lanes): member
+    m of supercluster s is cluster s * group + m, whose lane-major
+    coefficients are wald_sc's lanes m * S_pad + lane in LANE_ROWS order
+    and whose lane count ends at its last nonzero lane; the members past C
+    (the kernel walks min(group, C - s * group) of them) have zero rows in
+    wald_sc, so they count 0 lanes."""
+    ts, tc = tiny["t_scene"], tiny["tc"]
+    ps = cp.build_pair_scene(tc, ts.tri_geometry, ts.tri_primitive,
+                             group=group)
+    lanes = tiny["tables"].lanes
+    c, c2, sp = tc.num_clusters, ps.num_superclusters, ps.s_pad
+    assert cp._check_lanes(lanes, ps.wald_sc) == (c, group)
+    assert c2 * group > c  # some supercluster has padding members
+    wald = ps.wald_sc.numpy()
+    coeffs, count = lanes.coeffs.numpy(), lanes.count.numpy()
+    for s in range(c2):
+        for m in range(group):
+            want = wald[s, list(ct.LANE_ROWS), m * sp:(m + 1) * sp].T
+            if s * group + m >= c:
+                assert not wald[s, :, m * sp:(m + 1) * sp].any()
+                continue
+            np.testing.assert_array_equal(_bits(coeffs[s * group + m]),
+                                          _bits(want))
+            # every lane past the count is zero (never a hit), the last
+            # lane before it is not
+            n = count[s * group + m]
+            assert not want[n:].any() and (n == 0 or want[n - 1].any())
+    # the real triangles are a prefix of each cluster row; a zero-area
+    # triangle at its end has zero rows and is not counted
+    real = (tc.tri_index >= 0).sum(dim=1).numpy()
+    assert (count <= real).all() and (count > 0).all()
+
+
 def test_build_pair_scene_keeps_the_slot_limit(tiny):
     ts = tiny["t_scene"]
     with pytest.raises(ValueError, match="11 bits"):
@@ -200,16 +236,21 @@ def test_pair_sweep_dispatches_on_device(tiny):
     """A CPU tensor runs the plain version (no launch counted); another
     device raises, and so do bad shapes and types."""
     args = _t(*_sweep_inputs(tiny)) + (tiny["t_ps"].wald_sc,)
+    lanes = tiny["tables"].lanes
     launches = cp.pair_sweep.launches
-    np.testing.assert_array_equal(cp.pair_sweep(*args).numpy(),
+    np.testing.assert_array_equal(cp.pair_sweep(*args, lanes=lanes).numpy(),
                                   cp.pair_sweep_reference(*args).numpy())
     assert cp.pair_sweep.launches == launches
     with pytest.raises(ValueError, match="cuda or cpu"):
-        cp.pair_sweep(*(x.to("meta") for x in args))
+        cp.pair_sweep(*(x.to("meta") for x in args),
+                      lanes=ct.WalkLanes(*(x.to("meta") for x in lanes)))
     with pytest.raises(TypeError):
-        cp.pair_sweep(args[0], args[1].long(), *args[2:])
+        cp.pair_sweep(args[0], args[1].long(), *args[2:], lanes=lanes)
     with pytest.raises(ValueError, match="must be"):
-        cp.pair_sweep(args[0][:-1].contiguous(), *args[1:])
+        cp.pair_sweep(args[0][:-1].contiguous(), *args[1:], lanes=lanes)
+    with pytest.raises(ValueError, match="walk table"):  # clusters cut
+        cp.pair_sweep(*args, lanes=ct.WalkLanes(lanes.coeffs[:-GROUP],
+                                                lanes.count[:-GROUP]))
 
 
 # ---------------------------------------------------------------------------
