@@ -69,7 +69,28 @@ which raises on failure:
                         B4, the ranking, the walk and the decode, and one
                         under torch.profiler (busy/idle).
 13. gi-resampling     - two frames of the goldens' configuration (GI temporal
-                        and spatial resampling on), checked finite.
+                        and spatial resampling on), checked finite. Then:
+    di-resampling     - four DI frames (the DI config with temporal and
+                        spatial resampling, ray-traced bias correction and
+                        the boiling filter; the camera moves 0.1 a frame);
+                        B1-B4 must have launched, 5 visibility batches a
+                        frame; B2 launches per frame, the median frame;
+                        one more frame keeps the inputs of B2 and B4 on its
+                        temporal and first spatial visibility batch, held
+                        to their plain versions bit for bit
+                        (kernel-occlude, kernel-cull); one frame each of
+                        modes 1, 2 and bias modes 0-2, finite.
+    regir             - create_renderer(regir=True): the ReGIR grid (16^3
+                        cells of 128 lights) built on the card, its seconds
+                        and filled share; three DI frames with local-light
+                        sampling mode 2 (B1, B2, B4 launched).
+    k-cand            - suggest_k_cand(renderer, view): the probe's two
+                        maxima (B3 and B4 launched, equal through the plain
+                        cull versions), the suggested budgets, the seconds;
+                        a flagship frame through tracers with those
+                        budgets: its fallback bundles, the pixels that
+                        differ from the default frame 0, each trace's hits
+                        against the default tracers' up to key ties.
 14. skybox            - a 2048x1024 procedural sky written as a float16 PIZ
                         EXR and read back, exact to float16 (skybox-exr,
                         taken before the DI frames: a worker process
@@ -180,7 +201,7 @@ from raytracer2_tpu_torch.ops import cuda_traverse as ct  # noqa: E402
 from raytracer2_tpu_torch.ops.intersect import (  # noqa: E402
     intersect_brute_force, moller_trumbore, occluded_brute_force)
 from raytracer2_tpu_torch.params import (  # noqa: E402
-    BACKGROUND_DEPTH, default_gconst)
+    BACKGROUND_DEPTH, LightBufferRegion, default_gconst)
 from raytracer2_tpu_torch.render import frame as fr  # noqa: E402
 from raytracer2_tpu_torch.render import app_bridge  # noqa: E402
 from raytracer2_tpu_torch.render import rays as raysmod  # noqa: E402
@@ -188,6 +209,8 @@ from raytracer2_tpu_torch.render.reference import (  # noqa: E402
     render_reference)
 from raytracer2_tpu_torch.render.surface import (  # noqa: E402
     get_surface_brdf_sample, surface_from_hit)
+from raytracer2_tpu_torch.restir.regir import (  # noqa: E402
+    presample_regir_grid)
 from raytracer2_tpu_torch.scene import exr, gltf  # noqa: E402
 from raytracer2_tpu_torch.scene.camera import default_camera  # noqa: E402
 from raytracer2_tpu_torch.scene.scene import build_scene  # noqa: E402
@@ -233,6 +256,9 @@ SKY_FULL_FRAMES = 2
 CHECKERBOARD_DI_FRAMES = 2  # fields 1, 2
 PASS_REPEATS = 5  # synchronised runs of each frame prefix
 NO_OVERFLOW_REPEATS = 3  # synchronised traces per backend in pairs-no-overflow
+RESAMPLING_FRAMES = 4  # DI resampling frames of the moving camera
+RESAMPLING_STEP = 0.1  # the camera's x step per resampling frame
+REGIR_FRAMES = 3
 # the flagship frame's bounce-class traces, in the order the frame casts
 # them (the G-buffer's pixel tiles take the interval cull, not B3/B4)
 FLAGSHIP_BOUNCES = ("di_brdf_candidate", "gi_brdf_rays",
@@ -707,15 +733,17 @@ class TraceLog:
     + "visibility") and keeps, by name, a copy of the inputs of the first
     launch of each hooked kernel in that call (the main path's own batch,
     not a fallback re-trace), and ORACLE_RAYS visibility rays from the
-    middle of the screen. With pairs=True it also keeps each trace call's
-    rays, and holds every launch of B5 and B6 in a trace call (every
-    262,144-ray batch) to the kernel's plain version on the same inputs,
+    middle of the screen. With pairs=True (or keep_traces=True) it also
+    keeps each trace call's rays; with pairs=True it holds every launch of
+    B5 and B6 in a trace call (every 262,144-ray batch) to the kernel's
+    plain version on the same inputs,
     keeping per (name, kernel) the batches, mismatches and hits (keys
     below MISS_KEY) in `checked`. It also keeps the ray count of each
     named trace call (`trace_rays`). It launches no kernel itself; restore()
     takes its hooks out."""
 
-    def __init__(self, tracers, pairs: bool = False):
+    def __init__(self, tracers, pairs: bool = False,
+                 keep_traces: bool = False):
         self.keep = False
         self.walks = {}  # name -> (walk name, args, group)
         self.culls = {}  # (name, cull kernel) -> args
@@ -727,7 +755,9 @@ class TraceLog:
         self.rays = self.blocked = 0
         self._cls = None
         self._pairs = pairs
+        self._keep_traces = pairs or keep_traces
         self._prefix, self._bounces, self._n_bounce = "", (), 0
+        self._shadows, self._n_shadow = (), 0
         self.patches = [_Patch(tracers, "closest_hit", self._closest),
                         _Patch(tracers, "occluded", self._occluded)]
         if pairs:
@@ -744,9 +774,14 @@ class TraceLog:
         for patch in reversed(self.patches):
             patch.restore()
 
-    def start(self, prefix: str, bounces) -> None:
+    def start(self, prefix: str, bounces, shadows=()) -> None:
+        """Name the trace calls from here on: prefix + "gbuffer", the
+        bounces in call order (the last name repeats) and the visibility
+        calls as `shadows` in call order (the last repeats), or all
+        prefix + "visibility" where none are given."""
         self.keep = True
         self._prefix, self._bounces, self._n_bounce = prefix, bounces, 0
+        self._shadows, self._n_shadow = shadows, 0
 
     def stop(self) -> None:
         self.keep = False
@@ -754,7 +789,7 @@ class TraceLog:
     def _traced(self, cls, inner, *args, **kwargs):
         if self.keep and cls is not None:
             self.trace_rays.setdefault(cls, args[0].shape[0])
-        if (self._pairs and self.keep and cls is not None
+        if (self._keep_traces and self.keep and cls is not None
                 and cls not in self.traces):
             self.traces[cls] = tuple(
                 a.clone() if torch.is_tensor(a) else a for a in args) + (
@@ -778,8 +813,13 @@ class TraceLog:
 
     def _occluded(self, inner, o, d, t_min, t_max, presorted=False):
         shadow = presorted == "shadow"
-        blocked = self._traced(self._prefix + "visibility" if shadow
-                               else None, inner, o, d, t_min, t_max,
+        name = None
+        if shadow and self._shadows:
+            name = self._shadows[min(self._n_shadow, len(self._shadows) - 1)]
+            self._n_shadow += 1
+        elif shadow:
+            name = self._prefix + "visibility"
+        blocked = self._traced(name, inner, o, d, t_min, t_max,
                                presorted=presorted)
         if shadow:
             self.rays += blocked.numel()
@@ -1270,6 +1310,282 @@ def phase_gi_resampling(scene, renderer, view) -> None:
         _check_image("gi-resampling display", img, display=True)
         if not finite:
             raise RuntimeError("the GI reservoirs are not finite")
+
+
+# ---------------------------------------------------------------------------
+# DI resampling, ReGIR and the k_cand probe
+# ---------------------------------------------------------------------------
+
+def _view_at(f: int):
+    """The smoke camera moved RESAMPLING_STEP along x per frame (a few
+    pixels of screen motion on the corridor), so the reprojection moves."""
+    cam = default_camera(window_size=(WIDTH, HEIGHT),
+                         position=(RESAMPLING_STEP * f, 4, 90),
+                         direction=(0, 0, 1))
+    return cam.planar_view_constants()
+
+
+def resampling_gconst(scene, f: int, mode: int = 3, bias: int = 3):
+    """The DI validation config (di_gconst) at frame f of the moving
+    camera with DI resampling mode `mode` (3: temporal and spatial),
+    temporal and spatial bias correction `bias` (3: ray-traced) and the
+    boiling filter on."""
+    g = di_gconst(scene, _view_at(f))
+    di = g.restir_di
+    return g.replace(
+        frame=f, blend_factor=1.0 / (f + 1), prev_view=_view_at(max(f - 1, 0)),
+        enable_di_resampling=mode, restir_di=dataclasses.replace(
+            di,
+            temporal_resampling_params=dataclasses.replace(
+                di.temporal_resampling_params, temporal_bias_correction=bias,
+                enable_boiling_filter=1, boiling_filter_strength=0.2),
+            spatial_resampling_params=dataclasses.replace(
+                di.spatial_resampling_params,
+                spatial_bias_correction=bias)))
+
+
+def phase_di_resampling(scene, renderer) -> tuple[dict, dict]:
+    """RESAMPLING_FRAMES DI frames with temporal and spatial resampling,
+    ray-traced bias correction and the boiling filter, the camera moving;
+    every count is reset just before them and B1-B4 must have launched.
+    The frame after them keeps the inputs of B2 and B4 on its temporal and
+    first spatial visibility batch, held to their plain versions bit for
+    bit (di-resampling-kernel). Then one frame each of modes 1 and 2 and
+    of bias modes 0-2 from the last state, each finite. Returns (the
+    launches, {kernel: {class: result}})."""
+    tracers = renderer.tracers
+    srp = resampling_gconst(scene, 0).restir_di.spatial_resampling_params
+    n_spatial = max(srp.num_spatial_samples,
+                    srp.num_disocclusion_boost_samples)
+    shadows = (("rs_temporal_visibility",)
+               + tuple(f"rs_spatial_visibility_{i}" for i in range(n_spatial))
+               + ("rs_visibility",))
+    state = fr.init_frame_state(WIDTH, HEIGHT, device=scene.device)
+    _reset_counts(tracers)
+    seconds, b2 = [], []
+    for f in range(RESAMPLING_FRAMES):
+        before = launch_count("walk_occluded")
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, img = fr.render_frame(renderer, resampling_gconst(scene, f),
+                                     state)
+        torch.cuda.synchronize()
+        seconds.append(time.perf_counter() - t0)
+        b2.append(launch_count("walk_occluded") - before)
+        _check_image("di-resampling display", img, display=True)
+    launches = _launches()
+    m = state.di_reservoirs[1].m
+    log("di-resampling", frames=RESAMPLING_FRAMES,
+        seconds=json.dumps([round(x, 3) for x in seconds]),
+        median_s=f"{statistics.median(seconds):.3f}",
+        b2_launches_per_frame=json.dumps(b2),
+        launches=json.dumps(launches, separators=(",", ":")),
+        fallback_bundles=json.dumps(
+            {str(k): v for k, v in tracers.fallback_by_class.items()},
+            separators=(",", ":")),
+        history_m_mean=f"{float(m.mean()):.3f}", history_m_max=float(m.max()),
+        peak_gib=f"{torch.cuda.max_memory_allocated() / 2**30:.2f}")
+    _check_image("di-resampling diffuse_lighting", state.diffuse_lighting,
+                 display=False)
+    for kernel in WALKS + CULLS:
+        if launches[kernel] <= 0:
+            raise RuntimeError(f"the resampling frames never launched "
+                               f"{kernel}")
+    if b2[-1] != len(shadows):
+        raise RuntimeError(f"a resampling frame cast {b2[-1]} visibility "
+                           f"batches, not {len(shadows)}")
+
+    trace_log = TraceLog(tracers)
+    try:
+        trace_log.start("rs_", ("rs_brdf_candidate",), shadows)
+        f = RESAMPLING_FRAMES
+        state, _ = fr.render_frame(renderer, resampling_gconst(scene, f),
+                                   state)
+        torch.cuda.synchronize()
+        trace_log.stop()
+    finally:
+        trace_log.restore()
+    real = lane_real(tracers)
+    out = {"walk_occluded": {}, "bundle_union": {}}
+    for cls in shadows[:2]:
+        kernel, args, group, kw = trace_log.walks[cls]
+        out[kernel][cls] = check_walk(kernel, cls, args, group, real,
+                                      plain_reps=1, **kw)
+        out["bundle_union"][cls] = check_cull(
+            "bundle_union", cls, trace_log.culls[cls, "bundle_union"])
+    del trace_log
+
+    for mode, bias in ((1, 3), (2, 3), (3, 0), (3, 1), (3, 2)):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        s2, img = fr.render_frame(
+            renderer, resampling_gconst(scene, f + 1, mode, bias), state)
+        torch.cuda.synchronize()
+        finite = all(bool(torch.isfinite(x).all())
+                     for x in s2.di_reservoirs[0] if x.is_floating_point())
+        log("di-resampling-variant", mode=mode, bias=bias,
+            seconds=f"{time.perf_counter() - t0:.3f}",
+            reservoirs_finite=finite)
+        _check_image(f"di-resampling mode {mode} bias {bias} display", img,
+                     display=True)
+        if not finite:
+            raise RuntimeError(f"mode {mode} bias {bias}: the DI reservoirs "
+                               "are not finite")
+    return launches, out
+
+
+def phase_regir(scene, view) -> dict:
+    """create_renderer(regir=True) on the ladder: the ReGIR grid (16^3
+    cells of 128 lights) built on the card, timed alone once more, and
+    the share of its slots that hold a light; then REGIR_FRAMES DI frames
+    with local-light sampling mode 2, every count reset just before them:
+    lit and finite, and B1, B2 and B4 must have launched. Returns the
+    launches."""
+    t0 = time.perf_counter()
+    renderer = fr.create_renderer(scene, WIDTH, HEIGHT, regir=True)
+    torch.cuda.synchronize()
+    create_s = time.perf_counter() - t0
+    p = renderer.regir_params
+    lights = renderer.scene_lights
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    buf = presample_regir_grid(0, lights.lights, LightBufferRegion(
+        0, lights.num_local_lights), p)
+    torch.cuda.synchronize()
+    grid_s = time.perf_counter() - t0
+    if not torch.equal(buf, renderer.regir_ris_buffer):
+        raise RuntimeError("the ReGIR grid differs between two builds")
+    filled = float((buf[:, 1] != 0).float().mean())
+    log("regir", cells=json.dumps(list(p.cells)),
+        lights_per_cell=p.lights_per_cell, slots=buf.shape[0],
+        cell_size=f"{p.cell_size:.4f}", create_renderer_s=f"{create_s:.3f}",
+        grid_s=f"{grid_s:.4f}", filled_share=f"{filled:.6f}")
+    if filled <= 0.0:
+        raise RuntimeError("the ReGIR grid holds no light")
+
+    g = di_gconst(scene, view)
+    di = g.restir_di
+    g = g.replace(restir_di=dataclasses.replace(
+        di, initial_sampling_params=dataclasses.replace(
+            di.initial_sampling_params, local_light_sampling_mode=2)))
+    state = fr.init_frame_state(WIDTH, HEIGHT, device=scene.device)
+    _reset_counts(renderer.tracers)
+    seconds = []
+    for f in range(REGIR_FRAMES):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, img = fr.render_frame(
+            renderer, g.replace(frame=f, blend_factor=1.0 / (f + 1)), state)
+        torch.cuda.synchronize()
+        seconds.append(time.perf_counter() - t0)
+        _check_image("regir display", img, display=True)
+    launches = _launches()
+    log("regir-frames", seconds=json.dumps([round(x, 3) for x in seconds]),
+        launches=json.dumps(launches, separators=(",", ":")))
+    for kernel in ("walk_closest", "walk_occluded", "bundle_union"):
+        if launches[kernel] <= 0:
+            raise RuntimeError(f"the ReGIR frames never launched {kernel}")
+    return launches
+
+
+def _plain_cull(inner, *args, **kwargs):
+    """A _Patch hook that runs a cull kernel's plain version instead."""
+    return getattr(cull, f"{inner.__name__}_reference")(*args, **kwargs)
+
+
+def phase_k_cand(scene, renderer, view, g_flag, flag_img) -> tuple[dict,
+                                                                   dict]:
+    """suggest_k_cand(renderer, view) on the ladder, every count reset just
+    before it: its two probe maxima, the budgets it suggests and its
+    seconds; B3 and B4 must have launched, and union_max_bundle through
+    the plain cull versions must give each maximum again. Then tracers
+    with those budgets render flagship frame 0: the pixels that differ
+    from the default frame 0, whose hits must differ by key ties only
+    (each kept trace through both tracers, as pairs-ties). Returns the
+    launches of the probe and of the frame."""
+    tracers = renderer.tracers
+    probes = []
+
+    def record(inner, *args, **kwargs):
+        out = inner(*args, **kwargs)
+        probes.append((args, kwargs, out))
+        return out
+
+    patch = _Patch(tracers, "union_max", record)
+    _reset_counts(tracers)
+    try:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        suggestion = app_bridge.suggest_k_cand(renderer, view)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+    finally:
+        patch.restore()
+    probe_launches = _launches()
+    maxima = [int(out) for _, _, out in probes]
+    plain = []
+    patches = [_Patch(cull, name, _plain_cull) for name in CULLS]
+    try:
+        for args, kwargs, _ in probes:
+            plain.append(int(tracers.union_max(*args, **kwargs)))
+    finally:
+        for w in reversed(patches):
+            w.restore()
+    log("k-cand", probe_rays=json.dumps([a[0].shape[0] for a, _, _ in probes]),
+        maxima=json.dumps(maxima), plain_maxima=json.dumps(plain),
+        suggested=json.dumps({str(k): v for k, v in (suggestion or {}).items()}),
+        current=json.dumps({str(k): v for k, v in
+                            tracers.k_cand_by_class.items()}),
+        seconds=f"{seconds:.3f}",
+        launches=json.dumps(probe_launches, separators=(",", ":")))
+    if len(maxima) != 2 or plain != maxima:
+        raise RuntimeError(f"the probe's maxima {maxima} through the "
+                           f"kernels differ from {plain} through the plain "
+                           "versions")
+    for kernel in CULLS:
+        if probe_launches[kernel] <= 0:
+            raise RuntimeError(f"the probe never launched {kernel}")
+    if suggestion is None:
+        raise RuntimeError("suggest_k_cand made no suggestion")
+
+    k_renderer = dataclasses.replace(renderer, tracers=app_bridge.make_tracers(
+        scene, k_cand_per_class=suggestion))
+    trace_log = TraceLog(k_renderer.tracers, keep_traces=True)
+    _reset_counts(k_renderer.tracers)
+    try:
+        trace_log.start("kc_", tuple(f"kc_{b}" for b in FLAGSHIP_BOUNCES))
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        _, img = fr.render_frame(
+            k_renderer, g_flag.replace(frame=0),
+            fr.init_frame_state(WIDTH, HEIGHT, device=scene.device))
+        torch.cuda.synchronize()
+        sec = time.perf_counter() - t0
+        trace_log.stop()
+    finally:
+        trace_log.restore()
+    frame_launches = _launches()
+    _check_image("k-cand flagship display", img, display=True)
+    log("k-cand-frame", seconds=f"{sec:.3f}",
+        k_cand_by_class=json.dumps({str(k): v for k, v in
+                                    k_renderer.tracers.k_cand_by_class
+                                    .items()}),
+        fallback_by_class=json.dumps(
+            {str(k): v for k, v in
+             k_renderer.tracers.fallback_by_class.items()},
+            separators=(",", ":")),
+        launches=json.dumps(frame_launches, separators=(",", ":")),
+        **{k.replace("from_bundle", "from_default"): v
+           for k, v in _pixels_differing(img, flag_img).items()})
+    for name, trace in sorted(trace_log.traces.items()):
+        o, d, tn, tx, presorted = trace
+        got = k_renderer.tracers.closest_hit(o, d, tn, tx,
+                                             presorted=presorted)
+        ref = tracers.closest_hit(o, d, tn, tx, presorted=presorted)
+        log("k-cand-ties", trace=name, rays=o.shape[0],
+            **_backends_agree("k-cand-ties", scene, renderer, name,
+                              _per_ray(trace), got, ref))
+    return probe_launches, frame_launches
 
 
 # ---------------------------------------------------------------------------
@@ -2115,6 +2431,13 @@ def run(dev: torch.device, smi: str, pool, sky_job,
         scene, renderer, g_flag)
     phase_flagship_breakdown(scene, renderer, g_flag)
     phase_gi_resampling(scene, renderer, view)
+    paths["di_resampling_frames"], rs_classes = phase_di_resampling(
+        scene, renderer)
+    for kernel, by_cls in rs_classes.items():
+        classes[kernel].update(by_cls)
+    paths["regir_frames"] = phase_regir(scene, view)
+    paths["k_cand_probe"], paths["k_cand_frame"] = phase_k_cand(
+        scene, renderer, view, g_flag, flag_imgs[0])
 
     sky_scene, sky_renderer = phase_skybox(model, sky, dev)
     del model, sky

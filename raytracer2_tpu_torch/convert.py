@@ -24,6 +24,7 @@ from raytracer2_tpu_torch.render.gbuffer import GBuffer
 from raytracer2_tpu_torch.render.gi_passes import SecondaryGBuffer
 from raytracer2_tpu_torch.restir.di_reservoir import DIReservoir
 from raytracer2_tpu_torch.restir.gi_reservoir import GIReservoir
+from raytracer2_tpu_torch.restir.regir import OnionLayout, ReGIRGridParameters
 from raytracer2_tpu_torch.scene.scene import Scene, scene_from_arrays
 
 
@@ -97,6 +98,22 @@ def gbuffer_from_numpy(arrays: Mapping, *, device) -> GBuffer:
 def di_reservoir_from_numpy(arrays: Mapping, *, device) -> DIReservoir:
     """DIReservoir from the JAX DIReservoir's fields."""
     return _tuple_from(DIReservoir, arrays, device)
+
+
+def di_slots_from_numpy(slots, *, device) -> tuple[DIReservoir, ...]:
+    """A FrameState's DI reservoir slots from the JAX FrameState's
+    di_reservoirs, each slot a mapping of DIReservoir fields."""
+    return tuple(di_reservoir_from_numpy(s, device=device) for s in slots)
+
+
+def regir_params_from_numpy(values: Mapping) -> ReGIRGridParameters:
+    """ReGIRGridParameters from the JAX ReGIRGridParameters' fields, the
+    onion layout (when set) a mapping of OnionLayout fields."""
+    kw = {f.name: values[f.name]
+          for f in dataclasses.fields(ReGIRGridParameters)}
+    if kw["onion"] is not None:
+        kw["onion"] = OnionLayout(**kw["onion"])
+    return ReGIRGridParameters(**kw)
 
 
 def gi_reservoir_from_numpy(arrays: Mapping, *, device) -> GIReservoir:

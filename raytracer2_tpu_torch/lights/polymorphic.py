@@ -57,9 +57,13 @@ def empty_light_info(n: int, *, device) -> LightInfo:
 
 
 def gather_light(lights: LightInfo, index: torch.Tensor) -> LightInfo:
-    """RAB_LoadLightInfo (bridge:556-559): the records at `index` (negative
-    indices read record 0)."""
-    i = torch.clamp_min(index, 0).long()
+    """RAB_LoadLightInfo (bridge:556-559): the records at `index`, read as
+    the JAX package reads them: the index wrapped to int32 (a uint32 word
+    of 2**31 or more is negative), negative indices read record 0 and
+    indices past the table read its last record (XLA's gather clamps), so
+    RTXDI_INVALID_LIGHT_INDEX reads the last light."""
+    i = (index.long() + (1 << 31)) % (1 << 32) - (1 << 31)
+    i = torch.clamp(i, 0, lights.center.shape[0] - 1)
     return LightInfo(*(leaf[i] for leaf in lights))
 
 

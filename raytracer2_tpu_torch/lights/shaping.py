@@ -73,3 +73,26 @@ def get_shaping_flux_factor(shaping: LightShaping) -> torch.Tensor:
     """Approximate cone flux fraction: unshaped lights keep full flux."""
     frac = (1.0 - shaping.cos_cone_angle) * 0.5
     return torch.where(shaping.is_spot, frac, 1.0)
+
+
+def sphere_intersects_shaped_light(light_pos: torch.Tensor, light_radius,
+                                   shaping: LightShaping,
+                                   volume_center: torch.Tensor,
+                                   volume_radius) -> torch.Tensor:
+    """Sphere-vs-cone culling (ref: LightShaping.glsl:~130; the JAX
+    package's test_sphere_intersection_for_shaped_light): a conservative
+    accept for unshaped lights, the cone widened by the volume's angular
+    radius for spots."""
+    to_volume = volume_center - light_pos
+    dist = torch.linalg.vector_norm(to_volume, dim=-1)
+    cos_to_volume = brdf.dot3(
+        shaping.primary_axis,
+        to_volume / torch.clamp_min(dist, 1e-20)[..., None])
+    sin_ang = torch.clamp(volume_radius / torch.clamp_min(dist, 1e-20),
+                          0.0, 1.0)
+    cos_expanded = (shaping.cos_cone_angle * torch.sqrt(1.0 - sin_ang ** 2)
+                    - torch.sqrt(torch.clamp_min(
+                        1.0 - shaping.cos_cone_angle ** 2, 0.0)) * sin_ang)
+    inside = cos_to_volume >= cos_expanded
+    return torch.where(shaping.is_spot, inside | (dist <= volume_radius),
+                       torch.ones_like(inside))

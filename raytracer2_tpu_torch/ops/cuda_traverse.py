@@ -42,7 +42,7 @@ from typing import NamedTuple
 
 import torch
 
-from raytracer2_tpu_torch.ops import cull
+from raytracer2_tpu_torch.ops import cull as cull_mod
 from raytracer2_tpu_torch.ops.cluster import Clusters, bundle_cluster_overlap
 from raytracer2_tpu_torch.ops.intersect import INVALID_INDEX, HitRecord
 from raytracer2_tpu_torch.ops.traverse_bundle import (
@@ -465,7 +465,7 @@ def cand0_sort_key(rays8, amin, amax, scene_min, scene_max):
     exactly-overlapped box id | t_max bucket | octant | origin Morton]. Rays
     that touch nothing key to C and compact into empty bundles."""
     c = amin.shape[0]
-    cand0 = cull.nearest_box(rays8, amin, amax).long()
+    cand0 = cull_mod.nearest_box(rays8, amin, amax).long()
     o, d, tx = rays8[:, 0:3], rays8[:, 3:6], rays8[:, 7]
 
     # tiebreak (t_max bucket | octant | origin morton): short rays bundle
@@ -555,11 +555,11 @@ def prepare_bundles_exact(clusters: Clusters, origins, directions, t_min,
                                          t_min, t_max, scene_min, scene_max)
     o, d, tn, tx, _ = _pad_rays(o, d, tn, tx, p)
     k = min(k_cand, c)
-    union = cull.bundle_union(_pack8(o, d, tn, tx), clusters.aabb_min,
-                              clusters.aabb_max, p)
+    union = cull_mod.bundle_union(_pack8(o, d, tn, tx), clusters.aabb_min,
+                                  clusters.aabb_max, p)
     # rank in chunks of bundles: the stable argsort's [bundles, C] i64
     # temporaries stay under the cull's chunk bound
-    cb = max(1, cull.chunk_bytes(o.device) // (8 * c))
+    cb = max(1, cull_mod.chunk_bytes(o.device) // (8 * c))
     parts = [_rank(union[b0:b0 + cb], k)
              for b0 in range(0, union.shape[0], cb)]
     return _finish(perm, o, d, tn, tx, parts)
@@ -577,7 +577,7 @@ def prepare_bundles_interval(clusters: Clusters, origins, directions, t_min,
     b = o.shape[0] // p
     o_min, o_max, inv_lo, inv_hi, bundle_tmax = _bundle_bounds(o, d, tx, p)
     # ~12 live [bundles, C, 3] f32 temporaries per chunk
-    cb = max(1, cull.chunk_bytes(o.device) // (4 * 3 * 12 * max(c, 1)))
+    cb = max(1, cull_mod.chunk_bytes(o.device) // (4 * 3 * 12 * max(c, 1)))
     parts = []
     for b0 in range(0, b, cb):
         sl = slice(b0, b0 + cb)
@@ -780,3 +780,51 @@ def occluded_bundle(clusters: Clusters, tables: WalkTables,
         scene_min, scene_max, bundle_size=p, presorted=True, group=group,
         k_cand=full_k, overflow_fallback=False)
     return blocked.index_put((oi,), sub), n_ovf
+
+
+# ---------------------------------------------------------------------------
+# Candidate-union probe
+# ---------------------------------------------------------------------------
+
+def union_max_bundle(clusters: Clusters, origins, directions, t_min, t_max,
+                     scene_min, scene_max, bundle_size: int = 128,
+                     cull: str = "exact", presorted: bool = False
+                     ) -> torch.Tensor:
+    """The largest per-bundle candidate union of this batch, the k_cand a
+    traversal of these rays needs to truncate nothing (the JAX package's
+    union_max_bundle), as a 0-d int32 tensor on the rays' device. The
+    bundles are composed as the trace's prep composes them: cand0-sorted
+    (unless presorted) exact-cull unions (B3 inside the sort key, B4 for
+    the unions on a CUDA batch), or interval-cull unions of presorted
+    pixel tiles."""
+    n = origins.shape[0]
+    p = bundle_size
+    tn = _per_ray(t_min, n, origins)
+    tx = _per_ray(t_max, n, origins)
+    if cull == "interval":
+        if not presorted:
+            raise NotImplementedError(
+                "the interval cull is ported for presorted rays only")
+        o, d, tn, tx, _ = _pad_rays(origins, directions, tn, tx, p)
+        o_min, o_max, inv_lo, inv_hi, bundle_tmax = _bundle_bounds(o, d, tx,
+                                                                   p)
+        c = clusters.num_clusters
+        cb = max(1, cull_mod.chunk_bytes(o.device)
+                 // (4 * 3 * 12 * max(c, 1)))
+        counts = [bundle_cluster_overlap(
+            o_min[b0:b0 + cb], o_max[b0:b0 + cb], inv_lo[b0:b0 + cb],
+            inv_hi[b0:b0 + cb], bundle_tmax[b0:b0 + cb], clusters.aabb_min,
+            clusters.aabb_max)[0].sum(dim=-1)
+            for b0 in range(0, o_min.shape[0], cb)]
+        return torch.cat(counts).max().to(torch.int32)
+    if cull != "exact":
+        raise ValueError(f"cull must be 'exact' or 'interval', not {cull!r}")
+    if presorted:
+        o, d = origins, directions
+    else:
+        _, o, d, tn, tx = _cand0_sort(clusters, origins, directions, tn, tx,
+                                      scene_min, scene_max)
+    o, d, tn, tx, _ = _pad_rays(o, d, tn, tx, p)
+    union = cull_mod.bundle_union(_pack8(o, d, tn, tx), clusters.aabb_min,
+                                  clusters.aabb_max, p)
+    return torch.isfinite(union).sum(dim=-1).max().to(torch.int32)

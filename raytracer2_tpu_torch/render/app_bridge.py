@@ -1,8 +1,9 @@
 """Traversal backends and the RAB_* bridge, port of
 raytracer2_tpu/render/app_bridge.py: Tracers and make_tracers (closest hit
-and any hit per ray class), and make_bridge, which wires scene, tracers,
+and any hit per ray class), make_bridge, which wires scene, tracers,
 G-buffers and light tables into the closure bundle the ReSTIR library
-reads.
+reads, and suggest_k_cand, the per-class candidate budgets a camera's rays
+need.
 """
 
 from __future__ import annotations
@@ -10,6 +11,7 @@ from __future__ import annotations
 import dataclasses
 from typing import Callable
 
+import numpy as np
 import torch
 
 from raytracer2_tpu_torch.lights.pdf_texture import evaluate_pdf_texture
@@ -31,6 +33,7 @@ from raytracer2_tpu_torch.restir.bridge import Bridge
 from raytracer2_tpu_torch.scene.scene import Scene
 from raytracer2_tpu_torch.utils import brdf as brdfm
 from raytracer2_tpu_torch.utils.packing import linear_to_zcurve
+from raytracer2_tpu_torch.utils.readback import guarded_scalar
 
 
 @dataclasses.dataclass
@@ -48,10 +51,14 @@ class Tracers:
     bundles whose candidate union overflowed k_cand and re-traced at full
     length, for the pair sweep the rays of the traces in which some ray
     overlapped more than k_cand superclusters and that re-traced whole
-    through the bundle walk."""
+    through the bundle walk. union_max(o, d, t_min, t_max, presorted=False)
+    (the bundle walk only) gives a batch's largest per-bundle candidate
+    union as a 0-d device tensor: the k_cand its class needs to truncate
+    nothing."""
 
     closest_hit: Callable
     occluded: Callable | None = None
+    union_max: Callable | None = None
     shapes_by_class: dict | None = None
     clusters: Clusters | None = None
     tables: ct.WalkTables | None = None
@@ -59,6 +66,14 @@ class Tracers:
     scene_min: torch.Tensor | None = None
     scene_max: torch.Tensor | None = None
     fallback_by_class: dict = dataclasses.field(default_factory=dict)
+
+    @property
+    def k_cand_by_class(self) -> dict | None:
+        """The candidate budget of each ray class (None without classes)."""
+        if self.shapes_by_class is None:
+            return None
+        return {cls: cfg["k_cand"]
+                for cls, cfg in self.shapes_by_class.items()}
 
     @property
     def fallback_bundles(self) -> int:
@@ -79,7 +94,8 @@ PAIR_K_CAND = 24
 PAIR_GROUP = 16
 
 
-def make_tracers(scene: Scene, backend: str = "auto") -> Tracers:
+def make_tracers(scene: Scene, backend: str = "auto",
+                 k_cand_per_class: dict | None = None) -> Tracers:
     """Traversal backends:
     - "auto" (default): the bundle walk; on a CUDA scene it launches the
       CUDA kernel, on a CPU scene the wrapper runs its plain version
@@ -89,7 +105,10 @@ def make_tracers(scene: Scene, backend: str = "auto") -> Tracers:
       ray class takes the same path (presorted is ignored), and a trace in
       which some ray overlaps more than PAIR_K_CAND superclusters re-traces
       whole through the bundle walk
-    - "brute": the all-pairs oracle"""
+    - "brute": the all-pairs oracle
+    k_cand_per_class sets the bundle walk's candidate budget per ray
+    class, keyed as suggest_k_cand returns it: True (pixel tiles), False
+    (bounces), "shadow" (visibility rays); None values keep K_CAND."""
     if scene.num_triangles < 2:
         backend = "brute"
     if backend == "brute":
@@ -138,6 +157,9 @@ def make_tracers(scene: Scene, backend: str = "auto") -> Tracers:
         "shadow": dict(bundle_size=128, group=8 if big else 4,
                        k_cand=K_CAND, cull="exact"),
     }
+    for cls, val in (k_cand_per_class or {}).items():
+        if cls in by_sort and val is not None:
+            by_sort[cls]["k_cand"] = int(val)
 
     tracers = Tracers(
         closest_hit=None, shapes_by_class=by_sort, clusters=clusters,
@@ -163,8 +185,16 @@ def make_tracers(scene: Scene, backend: str = "auto") -> Tracers:
         tracers._count(cls, n_fallback)
         return blocked
 
+    def umax(o, d, tmin, tmax, presorted=False):
+        cfg = by_sort[presorted if presorted == "shadow" else bool(presorted)]
+        return ct.union_max_bundle(
+            clusters, o, d, tmin, tmax, scene_min, scene_max,
+            bundle_size=cfg["bundle_size"], cull=cfg["cull"],
+            presorted=bool(presorted))
+
     tracers.closest_hit = closest
     tracers.occluded = occl
+    tracers.union_max = umax
     return tracers
 
 
@@ -284,7 +314,7 @@ def make_bridge(scene: Scene, tracers: Tracers, gbuffer: GBuffer,
                            else None)
 
     def load_light_info(index, previous_frame):
-        return gather_light(lights, torch.clamp_min(index, 0))
+        return gather_light(lights, index)
 
     def trace_ray_for_local_light(origins, directions, t_min, t_max):
         """(bridge:639-669): closest hit, then geometry -> light index."""
@@ -350,3 +380,69 @@ def make_bridge(scene: Scene, tracers: Tracers, gbuffer: GBuffer,
             evaluate_environment_map_sampling_pdf),
         neighbor_offsets=neighbor_offsets,
         viewport=(width, height))
+
+
+def suggest_k_cand(renderer, view=None, margin: float = 1.25,
+                   quantum: int = 64, k_floor: int = 96,
+                   n_incoherent: int = 65536,
+                   timeout: float = 60.0) -> dict | None:
+    """The per-class candidate budgets (make_tracers' k_cand_per_class)
+    that trace with no truncation, from the largest per-bundle candidate
+    union of (a) a seeded incoherent batch (origins in the scene's box,
+    random directions: the proxy for bounce and visibility rays) and, given
+    a view, (b) this camera's primary rays in tile order (the pixel-tile
+    class), each times `margin`, rounded up to `quantum`, at least
+    `k_floor`. None when the tracers have no probe (brute force, the pair
+    sweep), when the budgets already match, or when the read-back stalls
+    past `timeout` seconds (utils/readback.py; an error in it raises). The
+    overflow fallback stays the safety net for rays beyond the margin.
+
+    Rebuild the tracers with make_tracers(scene, backend=...,
+    k_cand_per_class=suggestion)."""
+    tr = renderer.tracers
+    if tr.union_max is None or tr.k_cand_by_class is None:
+        return None
+    scene = renderer.scene
+    if scene.host_tri_v0 is None or scene.num_triangles < 2:
+        return None
+    dev = scene.device
+    lo = scene.host_tri_v0.min(axis=0)
+    hi = scene.host_tri_v0.max(axis=0)
+
+    rng = np.random.default_rng(0)
+    o_inc = rng.uniform(lo, hi, (n_incoherent, 3)).astype(np.float32)
+    v = rng.normal(size=(n_incoherent, 3)).astype(np.float32)
+    d_inc = v / np.linalg.norm(v, axis=1, keepdims=True)
+    maxes = [tr.union_max(
+        torch.from_numpy(o_inc).to(dev), torch.from_numpy(d_inc).to(dev),
+        torch.full((n_incoherent,), 1e-3, device=dev),
+        torch.full((n_incoherent,), 1e5, device=dev), presorted=False)]
+
+    if view is not None:
+        w, h = renderer.width, renderer.height
+        px, py = raysmod.pixel_grid(w, h, device=dev)
+        pr = raysmod.setup_primary_ray(px.reshape(-1), py.reshape(-1), view)
+        tiles = raysmod.tile_shape(w, h)
+        if tiles is not None:
+            zidx = raysmod.tile_permutation(w, h, tiles[1], tiles[0])
+        else:
+            zidx, _ = raysmod.zorder_permutation(w, h)
+        zidx = torch.from_numpy(zidx).long().to(dev)
+        maxes.append(tr.union_max(pr.origin[zidx], pr.direction[zidx],
+                                  pr.t_min, pr.t_max, presorted=True))
+
+    host = guarded_scalar(torch.stack(maxes), timeout=timeout)
+    if host is None:
+        return None
+
+    def size(mx):
+        return max(int(np.ceil(mx * margin / quantum)) * quantum, k_floor)
+
+    k_inc = size(int(host[0]))
+    sug = {False: k_inc, "shadow": k_inc}
+    if view is not None:
+        sug[True] = size(int(host[1]))
+    cur = tr.k_cand_by_class
+    if all(sug[c] == cur.get(c) for c in sug):
+        return None
+    return sug

@@ -1,14 +1,15 @@
 """ReSTIR DI fused sampling + shading pass, port of
 raytracer2_tpu/render/di_passes.py (lighting_passes/di_fused_resampling.rgen:
 16-93): initial candidate sampling through RTXDI_SampleLightsForSurface,
-the optional initial-visibility kill, then shading with the final
-visibility ray.
+the optional initial-visibility kill, the library's temporal and spatial
+resampling and the DI boiling filter where GConst asks for them, then
+shading with the final visibility ray.
 
-Mode 0 only (GConst.enable_di_resampling = 0): the reference's
+GConst.enable_di_resampling 0 keeps the reference's behaviour: its
 spatio-temporal call is commented out (di_fused_resampling.rgen:69-70), so
-the reservoir shipped to shading is the initial-candidate one. The
-library's temporal/spatial stages (modes 1-3) and the boiling filter are
-off this path (ROADMAP queue A) and raise.
+the reservoir shipped to shading is the initial-candidate one. 1, 2 and 3
+run the temporal stage, the spatial stage or both
+(restir/di_resampling.py, DIResamplingFunctions.hlsli:170/504).
 """
 
 from __future__ import annotations
@@ -23,6 +24,9 @@ from raytracer2_tpu_torch.render.shading import (
 from raytracer2_tpu_torch.render.surface import Surface
 from raytracer2_tpu_torch.restir import di_reservoir as dires
 from raytracer2_tpu_torch.restir.bridge import Bridge
+from raytracer2_tpu_torch.restir.di_resampling import (
+    DISpatialSpec, DITemporalSpec, di_boiling_filter, di_spatial_resampling,
+    di_temporal_resampling)
 from raytracer2_tpu_torch.restir.initial_sampling import (
     LightSamplingContext, init_sample_parameters, sample_lights_for_surface)
 from raytracer2_tpu_torch.utils import brdf as brdfm
@@ -30,8 +34,9 @@ from raytracer2_tpu_torch.utils import rng as rtrng
 
 # launches above this lane count run the pass body in row bands, which
 # bounds its temporaries (every RNG stream is seeded by pixel coordinates
-# and mode 0 reads no neighbour, so banding changes no value; tests shrink
-# it to cover the banded path at CPU sizes)
+# and mode 0 reads no neighbour, so banding changes no value; the
+# resampling modes and the boiling filter read neighbours and never band;
+# tests shrink it to cover the banded path at CPU sizes)
 _BAND_THRESHOLD = 1 << 22
 
 
@@ -45,6 +50,8 @@ def di_fused_resampling_pass(
     height: int,
     field: int = 0,
     primary_surface: Surface | None = None,
+    motion: torch.Tensor | None = None,
+    prev_di_reservoirs: dires.DIReservoir | None = None,
 ) -> tuple[dires.DIReservoir, torch.Tensor, torch.Tensor]:
     """Returns (reservoirs for the shading-input slot, diffuse, specular),
     [H, W] planes, or [H, W//2] under a checkerboard field (1 or 2), where
@@ -52,29 +59,34 @@ def di_fused_resampling_pass(
     (di_fused_resampling.rgen:19); diffuse_img and specular_img are then
     that half too. primary_surface: the launch grid's surface
     (surface_from_gbuffer_grid), computed once per frame by render_frame;
-    None reads it through the bridge."""
-    if g_const.enable_di_resampling:
-        raise NotImplementedError(
-            "DI spatio-temporal resampling (enable_di_resampling != 0) is "
-            "not ported (ROADMAP queue A)")
-    if g_const.restir_di.temporal_resampling_params.enable_boiling_filter:
-        raise NotImplementedError("the DI boiling filter is not ported")
+    None reads it through the bridge. The temporal stage (modes 1 and 3)
+    runs when `motion` (the launch grid's [..., 3] screen-space motion)
+    and `prev_di_reservoirs` (last frame's temporal-input slot) are
+    given."""
     dev = diffuse_img.device
     px, py = raysmod.active_pixel_grid(width, height, field, device=dev)
     surface = (primary_surface if primary_surface is not None
                else bridge.get_gbuffer_surface(px, py, False))
+    mode = int(g_const.enable_di_resampling)
+    boiling = bool(g_const.restir_di.temporal_resampling_params
+                   .enable_boiling_filter)
 
     def body(px, py, surface, dif, spec):
         return _di_fused_body(g_const, bridge, light_ctx, px, py, surface,
-                              dif, spec)
+                              dif, spec, mode=mode, field=field,
+                              motion=motion,
+                              prev_di_reservoirs=prev_di_reservoirs)
 
-    return banded(body, height, px.shape[1], _BAND_THRESHOLD, px, py,
-                  surface, diffuse_img, specular_img)
+    threshold = (_BAND_THRESHOLD if mode == 0 and not boiling
+                 else height * px.shape[1])
+    return banded(body, height, px.shape[1], threshold, px, py, surface,
+                  diffuse_img, specular_img)
 
 
 def _di_fused_body(g_const: GConst, bridge: Bridge,
                    light_ctx: LightSamplingContext, px, py, surface: Surface,
-                   diffuse_img, specular_img):
+                   diffuse_img, specular_img, mode: int = 0, field: int = 0,
+                   motion=None, prev_di_reservoirs=None):
     seed = (g_const.frame + 13) & 0xFFFFFFFF
     rng = rtrng.init_random_sampler(px, py, seed)
     tile_rng = rtrng.init_random_sampler(px // 16, py // 16, seed)
@@ -91,14 +103,62 @@ def _di_fused_body(g_const: GConst, bridge: Bridge,
 
     vis_known = None
     if isp.enable_initial_visibility:
-        # initial visibility kill (di_fused_resampling.rgen:40-46); nothing
-        # resamples before shading, so its rays are the shading rays too
+        # initial visibility kill (di_fused_resampling.rgen:40-46); where
+        # nothing resamples before shading, its rays are the shading rays
         visible = bridge.get_conservative_visibility(surface,
                                                      light_sample.position)
         reservoir = dires.store_visibility(
             reservoir, torch.zeros_like(light_sample.position), True,
             active=dires.is_valid(reservoir) & ~visible)
         vis_known = visible
+
+    trp = g_const.restir_di.temporal_resampling_params
+    if mode in (1, 3) and prev_di_reservoirs is not None \
+            and motion is not None:
+        t_spec = DITemporalSpec(
+            max_history_length=trp.max_history_length,
+            bias_correction_mode=trp.temporal_bias_correction,
+            depth_threshold=trp.temporal_depth_threshold,
+            normal_threshold=trp.temporal_normal_threshold,
+            enable_visibility_shortcut=bool(trp.discard_invisible_samples),
+            enable_permutation_sampling=bool(trp.enable_permutation_sampling),
+            active_checkerboard_field=field)
+        reservoir, rng = di_temporal_resampling(
+            px, py, surface, reservoir, rng, t_spec, motion,
+            trp.uniform_random_number, prev_di_reservoirs, bridge)
+        vis_known = None  # the selected sample may no longer be ours
+
+    # the DI boiling filter (DIResamplingFunctions.hlsli:101-116) on the
+    # temporal stage's reservoir image
+    if trp.enable_boiling_filter:
+        reservoir = di_boiling_filter(reservoir, trp.boiling_filter_strength)
+
+    if mode in (2, 3):
+        srp = g_const.restir_di.spatial_resampling_params
+        s_spec = DISpatialSpec(
+            num_samples=srp.num_spatial_samples,
+            num_disocclusion_boost_samples=srp.num_disocclusion_boost_samples,
+            target_history_length=trp.max_history_length,
+            bias_correction_mode=srp.spatial_bias_correction,
+            sampling_radius=srp.spatial_sampling_radius,
+            depth_threshold=srp.spatial_depth_threshold,
+            normal_threshold=srp.spatial_normal_threshold,
+            discount_naive_samples=bool(srp.discount_naive_samples),
+            active_checkerboard_field=field,
+            neighbor_offset_mask=srp.neighbor_offset_mask)
+        # the neighbours' source is this frame's reservoir image itself
+        reservoir, rng = di_spatial_resampling(px, py, surface, reservoir,
+                                               rng, s_spec, reservoir,
+                                               bridge)
+        vis_known = None
+
+    if mode != 0:
+        # the winner may carry a reused sample: shade the final
+        # reservoir's own light sample, as the reference's resampling
+        # functions return it (DIResamplingFunctions.hlsli:345-352)
+        info = bridge.load_light_info(dires.light_index(reservoir), False)
+        light_sample = bridge.sample_polymorphic_light(
+            info, surface, dires.sample_uv(reservoir))
 
     valid = dires.is_valid(reservoir)
     reservoir_shaded, diffuse, specular, _ = shade_surface_with_light_sample(

@@ -1,15 +1,17 @@
 """The frame entry point, port of raytracer2_tpu/render/frame.py:
-Renderer, create_renderer, FrameState, init_frame_state, FRAME_PASSES and
-render_frame.
+Renderer, create_renderer, make_regir_params, FrameState,
+init_frame_state, FRAME_PASSES and render_frame.
 
 Two branches are ported: the reference mode (GConst.refrence_mode=1,
 frame.py:242-267 of the JAX package) and the ReSTIR frame graph
-(frame.py:269-414): G-buffer, the DI fused pass in mode 0, the GI chain
-(BRDF rays, secondary shading, GI temporal and spatial resampling, GI
-final shading) with its reservoir slots, and post-processing, on the full
-grid or on one checkerboard field, whole or stopped after one pass. DI
-spatio-temporal resampling and ReGIR (ROADMAP queue A) raise rather than
-render anything in their place.
+(frame.py:269-414): G-buffer, the DI fused pass (with DI temporal and
+spatial resampling and the boiling filter where GConst asks for them, and
+the DI reservoir slots' ping-pong), the GI chain (BRDF rays, secondary
+shading, GI temporal and spatial resampling, GI final shading) with its
+reservoir slots, and post-processing, on the full grid or on one
+checkerboard field, whole or stopped after one pass. Local lights are
+drawn uniformly, from the RIS tiles or from the ReGIR grid
+(create_renderer(regir=True)).
 """
 
 from __future__ import annotations
@@ -17,13 +19,15 @@ from __future__ import annotations
 import dataclasses
 from typing import NamedTuple
 
+import numpy as np
 import torch
 
 from raytracer2_tpu_torch.lights.pdf_texture import fill_neighbor_offsets
 from raytracer2_tpu_torch.lights.prepare import (
     SceneLights, prepare_lights, presample_environment_map,
     presample_local_lights)
-from raytracer2_tpu_torch.params import BACKGROUND_DEPTH, GConst
+from raytracer2_tpu_torch.params import (
+    BACKGROUND_DEPTH, GConst, LightBufferRegion)
 from raytracer2_tpu_torch.render import rays as raysmod
 from raytracer2_tpu_torch.render.app_bridge import (
     Tracers, make_bridge, make_tracers)
@@ -43,6 +47,8 @@ from raytracer2_tpu_torch.restir.di_reservoir import (
 from raytracer2_tpu_torch.restir.gi_reservoir import (
     GIReservoir, empty_gi_reservoir)
 from raytracer2_tpu_torch.restir.initial_sampling import LightSamplingContext
+from raytracer2_tpu_torch.restir.regir import (
+    ReGIRGridParameters, presample_regir_grid)
 from raytracer2_tpu_torch.scene.scene import Scene
 from raytracer2_tpu_torch.utils import packing as pk
 
@@ -89,9 +95,10 @@ def init_frame_state(width: int, height: int, checkerboard: bool = False,
 class Renderer:
     """Per-scene resources, built once at load (the reference's frame-1
     prepare/presample block, main.rs:663-697): the scene tensors, the
-    traversal closures, the light table, the neighbour offsets and the
+    traversal closures, the light table, the neighbour offsets, the
     presampled RIS tiles (local tiles at segment offset 0, environment
-    tiles after them; None when presampling is off)."""
+    tiles after them; None when presampling is off) and the ReGIR grid
+    (None unless create_renderer(regir=True))."""
 
     scene: Scene
     tracers: Tracers
@@ -100,26 +107,52 @@ class Renderer:
     width: int
     height: int
     ris_buffer: torch.Tensor | None = None
+    regir_ris_buffer: torch.Tensor | None = None
+    regir_params: ReGIRGridParameters | None = None
 
     def light_ctx(self, g_const: GConst) -> LightSamplingContext:
+        mode = (g_const.restir_di.initial_sampling_params
+                .local_light_sampling_mode)
+        # mode 2 without a grid samples uniformly, as in the JAX package
+        has_buffers = (self.ris_buffer is not None
+                       or (mode == 2 and self.regir_ris_buffer is not None))
         return LightSamplingContext(
             lights=self.scene_lights.lights,
             light_buffer_params=g_const.light_buffer_params,
-            local_light_sampling_mode=(
-                g_const.restir_di.initial_sampling_params
-                .local_light_sampling_mode),
-            enable_presampling=self.ris_buffer is not None,
+            local_light_sampling_mode=mode,
+            enable_presampling=has_buffers,
             ris_buffer=self.ris_buffer,
             local_ris_params=g_const.local_lights_risbuffer_segment_params,
-            env_ris_params=g_const.environment_light_risbuffer_segment_params)
+            env_ris_params=g_const.environment_light_risbuffer_segment_params,
+            regir_ris_buffer=self.regir_ris_buffer,
+            regir_params=self.regir_params)
+
+
+def make_regir_params(scene: Scene, cells: tuple[int, int, int] = (16, 16, 16),
+                      lights_per_cell: int = 128) -> ReGIRGridParameters:
+    """Grid parameters sized to the scene's bounding box, from the host
+    copy of the triangles (the reference's host never enables ReGIR,
+    SURVEY.md section 2.3)."""
+    if scene.num_triangles and scene.host_tri_v0 is not None:
+        lo = scene.host_tri_v0.min(axis=0)
+        hi = scene.host_tri_v0.max(axis=0)
+    else:
+        lo, hi = np.zeros(3), np.ones(3)
+    center = 0.5 * (lo + hi)
+    cell = float(np.max((hi - lo) / np.asarray(cells))) or 1.0
+    return ReGIRGridParameters(
+        center=(float(center[0]), float(center[1]), float(center[2])),
+        cell_size=cell, cells=cells, lights_per_cell=lights_per_cell)
 
 
 def create_renderer(scene: Scene, width: int, height: int,
                     backend: str = "auto", presample: bool = True,
-                    presample_seed: int = 0) -> Renderer:
+                    regir: bool = False, presample_seed: int = 0
+                    ) -> Renderer:
     """presample=True fills the RIS tile buffer once at creation, the
     static-scene equivalent of the reference's frame-1 presample dispatch
-    (light_passes.rs:538-547)."""
+    (light_passes.rs:538-547). regir=True also builds the ReGIR grid
+    (make_regir_params), which local_light_sampling_mode 2 samples."""
     scene_lights = prepare_lights(scene)
     ris_buffer = None
     if presample and scene_lights.num_local_lights > 0:
@@ -130,11 +163,21 @@ def create_renderer(scene: Scene, width: int, height: int,
                if scene_lights.env_pdf_mips is not None
                else torch.zeros_like(local))
         ris_buffer = torch.cat([local, env])
+    regir_buf = regir_p = None
+    if regir and scene_lights.num_local_lights > 0:
+        regir_p = make_regir_params(scene)
+        regir_buf = presample_regir_grid(
+            presample_seed, scene_lights.lights,
+            LightBufferRegion(first_light_index=0,
+                              num_lights=scene_lights.num_local_lights),
+            regir_p)
     return Renderer(
-        scene=scene, tracers=make_tracers(scene, backend=backend),
+        scene=scene,
+        tracers=make_tracers(scene, backend=backend),
         scene_lights=scene_lights,
         neighbor_offsets=fill_neighbor_offsets(device=scene.device),
-        width=width, height=height, ris_buffer=ris_buffer)
+        width=width, height=height, ris_buffer=ris_buffer,
+        regir_ris_buffer=regir_buf, regir_params=regir_p)
 
 
 # the passes in execution order: render_frame(stop_after=name) ends the
@@ -185,10 +228,6 @@ def render_frame(renderer: Renderer, g_const: GConst, state: FrameState,
         output, _ = post_process(scene, g_const, inputs)
         return new_state, output
 
-    if (g_const.restir_di.initial_sampling_params.local_light_sampling_mode
-            == 2):
-        raise NotImplementedError("ReGIR local-light sampling (mode 2) is "
-                                  "not ported (ROADMAP queue A)")
     # checkerboard rendering (RtxdiHelpers.hlsli:16-61): field 1 or 2
     # launches every lighting pass on that half of the pixels; the
     # G-buffer and post stay full resolution
@@ -226,13 +265,19 @@ def render_frame(renderer: Renderer, g_const: GConst, state: FrameState,
         # reconstructed once, from whole planes
         primary = surface_from_gbuffer_grid(gbuffer, g_const.view, field)
 
-    # 2. DI fused resampling (light_passes.rs:608-619)
+    # 2. DI fused resampling (light_passes.rs:608-619); with
+    # enable_di_resampling != 0 the shaded reservoir also goes to the
+    # temporal input slot for the next frame (main.rs:649-651)
     if g_const.enable_restir_di:
+        di_idx = g_const.restir_di.buffer_indices
         di_res, diffuse, specular = di_fused_resampling_pass(
             g_const, bridge, light_ctx, diffuse, specular, width, height,
-            field=field, primary_surface=primary)
-        di_slots[g_const.restir_di.buffer_indices
-                 .shading_input_buffer_index] = di_res
+            field=field, primary_surface=primary, motion=motion_act,
+            prev_di_reservoirs=state.di_reservoirs[
+                di_idx.temporal_resampling_input_buffer_index])
+        di_slots[di_idx.shading_input_buffer_index] = di_res
+        if g_const.enable_di_resampling:
+            di_slots[di_idx.temporal_resampling_input_buffer_index] = di_res
     if stop_after == "di":
         return state, (diffuse, specular)
 

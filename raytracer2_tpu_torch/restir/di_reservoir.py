@@ -18,6 +18,7 @@ VISIBILITY_CHANNEL_MAX = 0x3F
 VISIBILITY_CHANNEL_SHIFT = 6
 LIGHT_VALID_BIT = 0x80000000
 LIGHT_INDEX_MASK = 0x7FFFFFFF
+FLT_MIN_NORMAL = float(torch.finfo(torch.float32).tiny)
 
 
 class DIReservoir(NamedTuple):
@@ -101,21 +102,36 @@ def stream_sample(res: DIReservoir, new_light_index: torch.Tensor,
     return out, select
 
 
-def combine_reservoirs(res: DIReservoir, new_res: DIReservoir,
-                       random: torch.Tensor, target_pdf: torch.Tensor
-                       ) -> tuple[DIReservoir, torch.Tensor]:
-    """Algorithm 4, combining streams (DIReservoir.hlsli:315-329) through
-    RTXDI_InternalSimpleResample (:277-310) with every lane active."""
-    ris_weight = target_pdf * (new_res.weight_sum * new_res.m)
-    weight_sum = res.weight_sum + ris_weight
-    select = random * weight_sum < ris_weight
+def _where_res(mask: torch.Tensor, a: DIReservoir, b: DIReservoir
+               ) -> DIReservoir:
+    """Select reservoir fields lane-wise: mask ? a : b."""
+    return DIReservoir(*(torch.where(mask[..., None] if x.dim() > mask.dim()
+                                     else mask, x, y) for x, y in zip(a, b)))
+
+
+def internal_simple_resample(res: DIReservoir, new_res: DIReservoir,
+                             random: torch.Tensor, target_pdf,
+                             sample_normalization, sample_m,
+                             active: torch.Tensor | None = None
+                             ) -> tuple[DIReservoir, torch.Tensor]:
+    """RTXDI_InternalSimpleResample (DIReservoir.hlsli:277-310); inactive
+    lanes pass through unchanged. Returns (reservoir, selected)."""
+    ris_weight = target_pdf * sample_normalization
+    if active is None:
+        m = res.m + sample_m
+        weight_sum = res.weight_sum + ris_weight
+        select = random * weight_sum < ris_weight
+    else:
+        m = res.m + torch.where(active, sample_m, 0.0)
+        weight_sum = res.weight_sum + torch.where(active, ris_weight, 0.0)
+        select = active & (random * weight_sum < ris_weight)
     s2 = select[..., None]
     out = res._replace(
         light_data=torch.where(select, new_res.light_data, res.light_data),
         uv_data=torch.where(select, new_res.uv_data, res.uv_data),
         weight_sum=weight_sum,
         target_pdf=torch.where(select, target_pdf, res.target_pdf),
-        m=res.m + new_res.m,
+        m=m,
         packed_visibility=torch.where(select, new_res.packed_visibility,
                                       res.packed_visibility),
         spatial_distance=torch.where(s2, new_res.spatial_distance,
@@ -124,13 +140,32 @@ def combine_reservoirs(res: DIReservoir, new_res: DIReservoir,
     return out, select
 
 
+def combine_reservoirs(res: DIReservoir, new_res: DIReservoir,
+                       random: torch.Tensor, target_pdf: torch.Tensor,
+                       active: torch.Tensor | None = None
+                       ) -> tuple[DIReservoir, torch.Tensor]:
+    """Algorithm 4, combining streams (DIReservoir.hlsli:315-329)."""
+    return internal_simple_resample(res, new_res, random, target_pdf,
+                                    new_res.weight_sum * new_res.m,
+                                    new_res.m, active)
+
+
+def _flush(x: torch.Tensor) -> torch.Tensor:
+    """x with subnormal values flushed to zero, as on the devices that
+    flush float32 subnormals (XLA's CPU and TPU backends)."""
+    return torch.where(torch.abs(x) < FLT_MIN_NORMAL, 0.0, x)
+
+
 def finalize_resampling(res: DIReservoir, normalization_numerator,
                         normalization_denominator) -> DIReservoir:
-    """Equation 6 normalization (DIReservoir.hlsli:332-340)."""
-    denominator = res.target_pdf * normalization_denominator
+    """Equation 6 normalization (DIReservoir.hlsli:332-340). Its two
+    products flush subnormals to zero, as XLA's CPU and TPU backends do:
+    the products of two target pdfs near 1e-19 must give weight 0, not a
+    weight that a subnormal numerator or denominator puts anywhere."""
+    denominator = _flush(res.target_pdf * normalization_denominator)
     zero = denominator == 0.0
     new_w = torch.where(
-        zero, 0.0, res.weight_sum * normalization_numerator
+        zero, 0.0, _flush(res.weight_sum * normalization_numerator)
         / torch.where(zero, 1.0, denominator))
     return res._replace(weight_sum=new_w)
 

@@ -5,9 +5,9 @@ over pixel lanes. The BRDF candidate's ray (RAB_TraceRayForLocalLight in
 RTXDI_SampleBrdf, InitialSamplingFunctions.hlsli:507-591) is one batched
 closest-hit trace per candidate through the bridge.
 
-Local lights are drawn uniformly (local_light_sampling_mode 0) or from
-the presampled RIS tiles (mode 1); the ReGIR grid (mode 2) is off this
-path and raises.
+Local lights are drawn uniformly (local_light_sampling_mode 0), from the
+presampled RIS tiles (mode 1) or from the surface's cell of the ReGIR
+grid (mode 2, restir/regir.py).
 """
 
 from __future__ import annotations
@@ -23,6 +23,7 @@ from raytracer2_tpu_torch.params import (
     LightBufferParameters, RISBufferSegmentParameters,
     RTXDI_INVALID_LIGHT_INDEX)
 from raytracer2_tpu_torch.render.surface import Surface
+from raytracer2_tpu_torch.restir import regir as regir_mod
 from raytracer2_tpu_torch.restir.bridge import Bridge
 from raytracer2_tpu_torch.restir.di_reservoir import (
     DIReservoir, combine_reservoirs, empty_di_reservoir, finalize_resampling,
@@ -180,6 +181,10 @@ class LightSamplingContext:
     ris_buffer: torch.Tensor | None = None  # [S, 2] uint32 words
     local_ris_params: RISBufferSegmentParameters | None = None
     env_ris_params: RISBufferSegmentParameters | None = None
+    # the ReGIR grid (local_light_sampling_mode 2): [cells * per_cell, 2]
+    # uint32 words and its regir.ReGIRGridParameters
+    regir_ris_buffer: torch.Tensor | None = None
+    regir_params: regir_mod.ReGIRGridParameters | None = None
 
 
 def sample_local_lights(rng, coherent_rng, surface: Surface,
@@ -194,17 +199,36 @@ def sample_local_lights(rng, coherent_rng, surface: Surface,
     region = ctx.light_buffer_params.local_light_buffer_region
     if region.num_lights == 0 or sample_params.num_local_light_samples == 0:
         return state, selected, rng, coherent_rng
-    if ctx.enable_presampling and ctx.local_light_sampling_mode == 2:
-        raise NotImplementedError(
-            "ReGIR local-light sampling (mode 2) is not ported")
     use_ris = (ctx.enable_presampling and ctx.local_light_sampling_mode == 1
                and ctx.ris_buffer is not None)
+    use_regir = (ctx.enable_presampling and ctx.local_light_sampling_mode == 2
+                 and ctx.regir_ris_buffer is not None
+                 and ctx.regir_params is not None)
     if use_ris:
         tile, coherent_rng = randomly_select_ris_tile(coherent_rng,
                                                       ctx.local_ris_params)
+    if use_regir:
+        # RTXDI_CalculateReGIRCellIndex (InitialSamplingFunctions.hlsli:
+        # 165-183): the grid cell of a jittered sampling position
+        jit3, coherent_rng = rtrng.sample_uniform_n(coherent_rng, 3)
+        pos = surface.world_pos + (jit3 - 0.5) * regir_mod.get_jitter_scale(
+            ctx.regir_params, surface.world_pos)
+        regir_cell = regir_mod.world_pos_to_cell_index(ctx.regir_params, pos)
 
     for _ in range(sample_params.num_local_light_samples):
-        if use_ris:
+        if use_regir:
+            # lanes inside the grid draw from their cell, the others
+            # uniformly; every lane draws both uniforms, as in the JAX
+            # package (the shader picks one path per pixel, :211-219)
+            li_r, inv_r, valid_r, rng = (
+                regir_mod.select_light_from_regir_cell(
+                    rng, ctx.regir_ris_buffer, regir_cell, ctx.regir_params))
+            rnd, rng = rtrng.sample_uniform(rng)
+            light_index = torch.where(valid_r, li_r,
+                                      _uniform_index(rnd, region))
+            inv_source_pdf = torch.where(valid_r, inv_r,
+                                         float(region.num_lights))
+        elif use_ris:
             tile_data, rng = randomly_select_light_data_from_ris_tile(
                 rng, tile, ctx.ris_buffer)
             light_index = tile_data[..., 0] & 0x7FFFFFFF

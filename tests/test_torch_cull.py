@@ -463,3 +463,37 @@ def test_bundle_union_kernel_adversarial_on_card(dev, c, p):
         got.cpu().numpy().view(np.uint32),
         cull.bundle_union_reference(rays8, lo, hi, p).cpu().numpy()
         .view(np.uint32))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("presorted", [False, True])
+def test_union_max_bundle_through_kernels_matches_plain_on_card(dev,
+                                                                presorted):
+    """cuda_traverse.union_max_bundle (the k_cand probe's count) through
+    B3 (the cand0 sort key, unless presorted) and B4 on the card equals its
+    value through the plain versions on the same rays and boxes (the CPU
+    copies run them)."""
+    import types
+
+    from raytracer2_tpu_torch.ops import cuda_traverse as ct
+
+    rays8, lo, hi = _case(170 + int(presorted), 3072)
+    rays8 = rays8[np.isfinite(rays8).all(axis=1)]
+
+    def probe(device):
+        r, amin, amax = (x.to(device) for x in _t(rays8, lo, hi))
+        clusters = types.SimpleNamespace(aabb_min=amin, aabb_max=amax,
+                                         num_clusters=amin.shape[0])
+        return ct.union_max_bundle(
+            clusters, r[:, 0:3], r[:, 3:6], r[:, 6], r[:, 7],
+            amin.amin(dim=0), amax.amax(dim=0), bundle_size=128,
+            cull="exact", presorted=presorted)
+
+    launches = cull.nearest_box.launches, cull.bundle_union.launches
+    got = probe(dev)
+    torch.cuda.synchronize()
+    assert (cull.nearest_box.launches - launches[0],
+            cull.bundle_union.launches - launches[1]) == (int(not presorted),
+                                                          1)
+    want = probe(CPU)
+    assert got.device.type == "cuda" and int(got) == int(want) > 1

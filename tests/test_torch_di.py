@@ -251,40 +251,6 @@ def test_di_frame_counts_walks_and_fallbacks(cornell, monkeypatch):
                                atol=1e-6)
 
 
-@pytest.mark.parametrize("field,value", [
-    ("enable_boiling_filter", 1),
-    ("enable_di_resampling", 1),
-    ("local_light_sampling_mode", 2),
-    ("active_checkerboard_field", 1),
-])
-def test_render_frame_raises_off_path(cornell, field, value):
-    """The DI boiling filter, DI resampling (also on a checkerboard field,
-    which the frame renders) and ReGIR raise rather than render a DI image
-    without them."""
-    t_g = _t_g(cornell["j_g"])
-    if field == "enable_boiling_filter":
-        di = t_g.restir_di
-        t_g = t_g.replace(restir_di=dataclasses.replace(
-            di, temporal_resampling_params=dataclasses.replace(
-                di.temporal_resampling_params, enable_boiling_filter=value)))
-    elif field == "local_light_sampling_mode":
-        di = t_g.restir_di
-        t_g = t_g.replace(restir_di=dataclasses.replace(
-            di, initial_sampling_params=dataclasses.replace(
-                di.initial_sampling_params, local_light_sampling_mode=value)))
-    elif field == "active_checkerboard_field":
-        t_g = t_g.replace(enable_di_resampling=1,
-                          runtime_params=dataclasses.replace(
-                              t_g.runtime_params,
-                              active_checkerboard_field=value))
-    else:
-        t_g = t_g.replace(**{field: value})
-    state = tframe.init_frame_state(
-        W, H, t_g.runtime_params.active_checkerboard_field != 0, device=CPU)
-    with pytest.raises(NotImplementedError):
-        tframe.render_frame(cornell["t_renderer"], t_g, state)
-
-
 # ---------------------------------------------------------------------------
 # The reservoir library and the resampling helpers, on seeded random inputs
 # ---------------------------------------------------------------------------

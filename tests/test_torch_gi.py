@@ -14,7 +14,6 @@ specular agree within rtol=atol=2e-3, the GI reservoirs within 1e-5 and
 the secondary G-buffer's integer planes bit for bit.
 """
 
-import dataclasses
 
 import jax.numpy as jnp
 import numpy as np
@@ -481,18 +480,3 @@ def test_gi_boiling_filter_and_jacobian_match_jax():
                                    nb, device=CPU)).numpy(),
         np.asarray(jgr.calculate_jacobian(jnp.asarray(a), jnp.asarray(b),
                                           _j_gi(nb))), rtol=1e-5, atol=1e-6)
-
-
-def test_render_frame_off_path_options_still_raise(cornell):
-    """ReGIR and DI spatio-temporal resampling stay unported and raise
-    rather than render a DI+GI frame in their place."""
-    t_g = _t_g(cornell["gconsts"]["flagship"])
-    state = tframe.init_frame_state(W, H, device=CPU)
-    di = t_g.restir_di
-    regir = t_g.replace(restir_di=dataclasses.replace(
-        di, initial_sampling_params=dataclasses.replace(
-            di.initial_sampling_params, local_light_sampling_mode=2)))
-    di_temporal = t_g.replace(enable_di_resampling=1)
-    for g in (regir, di_temporal):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            tframe.render_frame(cornell["t_renderer"], g, state)

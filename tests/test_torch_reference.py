@@ -11,7 +11,6 @@ where the last bit of each package's float arithmetic decides hit or miss;
 that compares two rounding orders, not the two renderers.
 """
 
-import dataclasses
 import functools
 
 import jax.numpy as jnp
@@ -154,17 +153,3 @@ def test_store_shading_output_matches_jax(accumulate, correct, first):
                                    write_mask=torch.from_numpy(mask), **kw)
     for g, w in zip(got, want):
         np.testing.assert_allclose(g.numpy(), np.asarray(w), rtol=1e-6)
-
-
-def test_render_frame_restir_mode_raises(cornell):
-    """The ReSTIR mode raises for what it does not port (here ReGIR
-    local-light sampling) rather than render without it."""
-    _, _, t_scene, t_g = cornell
-    renderer = tframe.create_renderer(t_scene, W, H, backend="brute")
-    state = tframe.init_frame_state(W, H, device=CPU)
-    di = t_g.restir_di
-    t_g = t_g.replace(refrence_mode=0, restir_di=dataclasses.replace(
-        di, initial_sampling_params=dataclasses.replace(
-            di.initial_sampling_params, local_light_sampling_mode=2)))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tframe.render_frame(renderer, t_g, state)
