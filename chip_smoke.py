@@ -13,7 +13,9 @@ visibility, accumulation; GI off) and the reference-mode frame, through the
 default bundle-walk backend; then the flagship and DI frames again through
 the pair-sweep backend (create_renderer(..., backend="pairs")); and the
 flagship frame under a 2048x1024 EXR skybox, on checkerboard fields and
-stopped after each pass (the per-pass split). Six
+stopped after each pass (the per-pass split); the lbvh backend
+(create_renderer(..., backend="lbvh"), torch ops), the app CLI
+(app.main) and the terminal viewer (viewer.run_interactive). Six
 hand-written CUDA kernels carry them: the closest-hit and any-hit walks
 (B1, B2), the exact cull's nearest box and bundle union (B3, B4), and the
 pair engine's sweep (B5) and stable counting sort (B6). The phases, each of
@@ -91,6 +93,35 @@ which raises on failure:
                         budgets: its fallback bundles, the pixels that
                         differ from the default frame 0, each trace's hits
                         against the default tracers' up to key ties.
+    lbvh-build        - build_lbvh on the card from the ladder's triangles,
+                        timed; its depth (at most 31, JAX's build on a CPU),
+                        validate_bvh, and its five arrays bit-equal to the
+                        port's build of the host triangles on the CPU; then
+                        create_renderer(backend="lbvh").
+    oracle-lbvh       - lbvh's closest hit on 4,096 rays of each class of
+                        phase 4's batches against the brute-force tracer,
+                        its any hit on phase 8's visibility rays against the
+                        any-hit oracle (ties counted apart), and each whole
+                        262,144-ray batch against the bundle walk, timed: a
+                        hit that differs is a key tie or equals the
+                        brute-force oracle; the walk's steps and host
+                        checks per call.
+    lbvh-frames       - two flagship frames and one DI frame through the
+                        lbvh backend, timed, each trace timed, the walk's
+                        steps per trace; no kernel may launch; the pixels
+                        that differ from the bundle frames of the same index.
+    app               - app.main (python -m raytracer2_tpu_torch.app) on the
+                        ladder GLB at 1920x1080 for 4 frames (the same
+                        camera, an --animate file turning GI off at frame 2,
+                        --checkpoint), then --resume for 2: every PNG read
+                        back by utils/png.read_png, metrics.json's keys, the
+                        k_cand budgets logged, B1, B3 and B4 launched inside
+                        the app's frames; its p50_ms beside the flagship
+                        frames' median.
+    viewer            - viewer.run_interactive for 3 flagship frames at
+                        256x144 on a pseudo-terminal, "w1" typed before each
+                        frame: every half-block frame written, the camera
+                        moved.
 14. skybox            - a 2048x1024 procedural sky written as a float16 PIZ
                         EXR and read back, exact to float16 (skybox-exr,
                         taken before the DI frames: a worker process
@@ -179,8 +210,11 @@ from __future__ import annotations
 
 import argparse
 import dataclasses
+import io
 import json
+import logging
 import multiprocessing
+import os
 import statistics
 import subprocess
 import sys
@@ -194,10 +228,13 @@ import torch
 
 sys.path.insert(0, str(Path(__file__).resolve().parent))
 
+from raytracer2_tpu_torch import app, viewer  # noqa: E402
 from raytracer2_tpu_torch.models import procedural as proc  # noqa: E402
 from raytracer2_tpu_torch.ops import _build, binning, cull, native  # noqa: E402
 from raytracer2_tpu_torch.ops import cuda_pairs as cp  # noqa: E402
 from raytracer2_tpu_torch.ops import cuda_traverse as ct  # noqa: E402
+from raytracer2_tpu_torch.ops.bvh import (  # noqa: E402
+    build_lbvh, max_depth, validate_bvh)
 from raytracer2_tpu_torch.ops.intersect import (  # noqa: E402
     intersect_brute_force, moller_trumbore, occluded_brute_force)
 from raytracer2_tpu_torch.params import (  # noqa: E402
@@ -205,6 +242,7 @@ from raytracer2_tpu_torch.params import (  # noqa: E402
 from raytracer2_tpu_torch.render import frame as fr  # noqa: E402
 from raytracer2_tpu_torch.render import app_bridge  # noqa: E402
 from raytracer2_tpu_torch.render import rays as raysmod  # noqa: E402
+from raytracer2_tpu_torch.render.postprocess import to_srgb_u8  # noqa: E402
 from raytracer2_tpu_torch.render.reference import (  # noqa: E402
     render_reference)
 from raytracer2_tpu_torch.render.surface import (  # noqa: E402
@@ -215,11 +253,15 @@ from raytracer2_tpu_torch.scene import exr, gltf  # noqa: E402
 from raytracer2_tpu_torch.scene.camera import default_camera  # noqa: E402
 from raytracer2_tpu_torch.scene.scene import build_scene  # noqa: E402
 from raytracer2_tpu_torch.utils import rng as rtrng  # noqa: E402
+from raytracer2_tpu_torch.utils.png import read_png  # noqa: E402
 from raytracer2_tpu_torch.utils.profiler import (  # noqa: E402
     PassTimer, count_frame_rays)
 from tools import bin_scatter_ab  # noqa: E402
 
 WIDTH, HEIGHT = 1920, 1080
+# bench.py's ladder corridor (bench.py:130-135) and the camera that sees it
+LADDER = dict(segments=24, pillars_per_side=12, lat=34, lon=53)
+CAMERA_POS, CAMERA_DIR = (0, 4, 90), (0, 0, 1)
 BATCH = 1 << 18  # render_reference's chunk_pixels: one trace batch
 ORACLE_RAYS = 4096
 T_MIN, T_MAX = 0.001, 100000.0  # refrence.rgen:27, BACKGROUND_DEPTH
@@ -259,6 +301,14 @@ NO_OVERFLOW_REPEATS = 3  # synchronised traces per backend in pairs-no-overflow
 RESAMPLING_FRAMES = 4  # DI resampling frames of the moving camera
 RESAMPLING_STEP = 0.1  # the camera's x step per resampling frame
 REGIR_FRAMES = 3
+# JAX's build_lbvh of the ladder's triangles on a CPU gives this depth
+LBVH_MAX_DEPTH = 31
+LBVH_FIELDS = ("left", "right", "aabb_min", "aabb_max", "tri_order")
+LBVH_FLAGSHIP_FRAMES = 2
+APP_FRAMES, APP_RESUME_FRAMES = 4, 2
+APP_METRICS = {"traversal_overflow", "frames", "p50_ms", "mean_ms", "fps",
+               "telemetry"}
+VIEWER_SIZE, VIEWER_FRAMES = (256, 144), 3
 # the flagship frame's bounce-class traces, in the order the frame casts
 # them (the G-buffer's pixel tiles take the interval cull, not B3/B4)
 FLAGSHIP_BOUNCES = ("di_brdf_candidate", "gi_brdf_rays",
@@ -336,14 +386,13 @@ def phase_scene(dev: torch.device):
     t0 = time.perf_counter()
     with tempfile.TemporaryDirectory() as d:
         path = Path(d) / "ladder.glb"
-        proc.write_glb(path, proc.corridor_glb(
-            segments=24, pillars_per_side=12, lat=34, lon=53))
+        proc.write_glb(path, proc.corridor_glb(**LADDER))
         model = gltf.load_file(path)
     scene = build_scene(model, device=dev)
     renderer = fr.create_renderer(scene, WIDTH, HEIGHT, backend="auto")
     torch.cuda.synchronize()
-    cam = default_camera(window_size=(WIDTH, HEIGHT), position=(0, 4, 90),
-                         direction=(0, 0, 1))
+    cam = default_camera(window_size=(WIDTH, HEIGHT), position=CAMERA_POS,
+                         direction=CAMERA_DIR)
     view = cam.planar_view_constants()
     tr = renderer.tracers
     log("scene", triangles=scene.num_triangles,
@@ -974,16 +1023,20 @@ def _rounding_ties(scene, tracers, rays, got) -> dict:
 
 
 def phase_oracle_occlude(scene, renderer, batch,
-                         phase: str = "oracle-occlude") -> None:
+                         phase: str = "oracle-occlude",
+                         tie_tracers=None) -> None:
     """The tracers' any-hit query against the brute-force any-hit oracle;
-    a ray on which they differ must be a rounding tie (_rounding_ties)."""
+    a ray on which they differ must be a rounding tie (_rounding_ties,
+    through the walk tables of `tie_tracers`, by default the renderer's
+    own)."""
     o, d, tn, tx = batch
     got = renderer.tracers.occluded(o, d, tn, tx, presorted="shadow")
     ref = occluded_brute_force(o, d, scene.tri_v0, scene.tri_edge1,
                                scene.tri_edge2, tn, tx)
     differ = torch.nonzero(got != ref).reshape(-1)
     r = tuple(x[differ] for x in (o, d, tn, tx))
-    ties = _rounding_ties(scene, renderer.tracers, r, got[differ])
+    ties = _rounding_ties(scene, tie_tracers or renderer.tracers, r,
+                          got[differ])
     tied = ties.pop("tied")
     bad = int((~tied).sum())
     live = int((tx > tn).sum())
@@ -1179,11 +1232,11 @@ def phase_flagship_frames(scene, renderer, g_flag):
     """FLAGSHIP_FRAMES flagship frames from a fresh state; every count is
     reset just before them. The frame casts no visibility ray, so the
     any-hit walk does not launch; the other three kernels must. Returns
-    the launches and the displays."""
+    the launches, the displays and each frame's seconds."""
     tracers = renderer.tracers
     state = fr.init_frame_state(WIDTH, HEIGHT, device=scene.device)
     _reset_counts(tracers)
-    imgs = []
+    imgs, seconds = [], []
     for f in range(FLAGSHIP_FRAMES):
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
@@ -1192,6 +1245,7 @@ def phase_flagship_frames(scene, renderer, g_flag):
                                      state)
         torch.cuda.synchronize()
         sec = time.perf_counter() - t0
+        seconds.append(sec)
         log("flagship-frame", frame=f, seconds=f"{sec:.3f}",
             launches=json.dumps(_launches(), separators=(",", ":")),
             fallback_bundles=json.dumps(
@@ -1209,7 +1263,7 @@ def phase_flagship_frames(scene, renderer, g_flag):
     for name in ("walk_closest", "nearest_box", "bundle_union"):
         if launches[name] <= 0:
             raise RuntimeError(f"the flagship frames never launched {name}")
-    return launches, imgs
+    return launches, imgs, seconds
 
 
 def phase_flagship_breakdown(scene, renderer, g_flag) -> None:
@@ -1586,6 +1640,334 @@ def phase_k_cand(scene, renderer, view, g_flag, flag_img) -> tuple[dict,
             **_backends_agree("k-cand-ties", scene, renderer, name,
                               _per_ray(trace), got, ref))
     return probe_launches, frame_launches
+
+
+# ---------------------------------------------------------------------------
+# The lbvh backend, the app and the viewer
+# ---------------------------------------------------------------------------
+
+def _bits(x: torch.Tensor) -> torch.Tensor:
+    return x.view(torch.int32) if x.dtype == torch.float32 else x
+
+
+def phase_lbvh_build(scene):
+    """build_lbvh on the card, timed: its depth (at most LBVH_MAX_DEPTH),
+    validate_bvh, and its five arrays bit-equal to the port's build of the
+    same host triangles on the CPU. Then create_renderer(backend="lbvh"),
+    whose BVH must be the same. Returns that renderer."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    bvh = build_lbvh(scene.tri_v0, scene.tri_edge1, scene.tri_edge2)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    depth = max_depth(bvh)
+    valid = validate_bvh(bvh)
+    t0 = time.perf_counter()
+    host = build_lbvh(*(torch.from_numpy(np.ascontiguousarray(a)) for a in (
+        scene.host_tri_v0, scene.host_tri_edge1, scene.host_tri_edge2)))
+    cpu_seconds = time.perf_counter() - t0
+    differ = {f: int((_bits(getattr(bvh, f)).cpu()
+                      != _bits(getattr(host, f))).sum()) for f in LBVH_FIELDS}
+    t0 = time.perf_counter()
+    renderer_l = fr.create_renderer(scene, WIDTH, HEIGHT, backend="lbvh")
+    torch.cuda.synchronize()
+    renderer_seconds = time.perf_counter() - t0
+    same = all(torch.equal(_bits(getattr(renderer_l.tracers.bvh, f)),
+                           _bits(getattr(bvh, f))) for f in LBVH_FIELDS)
+    log("lbvh-build", leaves=bvh.num_leaves, seconds=f"{seconds:.4f}",
+        cpu_seconds=f"{cpu_seconds:.3f}", max_depth=depth,
+        validate_max_stack=valid["max_depth"],
+        differ_from_cpu=json.dumps(differ, separators=(",", ":")),
+        create_renderer_seconds=f"{renderer_seconds:.3f}",
+        renderer_bvh_same=same)
+    if depth > LBVH_MAX_DEPTH:
+        raise RuntimeError(f"the LBVH is {depth} deep, JAX's build "
+                           f"{LBVH_MAX_DEPTH}")
+    if any(differ.values()) or not same:
+        raise RuntimeError(f"the card's LBVH differs from the CPU build "
+                           f"({differ}) or from create_renderer's ({same})")
+    return renderer_l
+
+
+def _lbvh_agrees(scene, name, rays, got, ref) -> dict:
+    """lbvh's closest hits `got` for a batch against the bundle walk's
+    `ref`: a hit that differs is a key tie (as _backends_agree), or else
+    the brute-force oracle, which shares the lbvh walk's Möller-Trumbore
+    arithmetic, decides: lbvh must equal it up to a t-tie (the bundle
+    walk's Wald test rounds those rays differently). Returns the counts to
+    log; raises on any other difference."""
+    o, d, tn, tx = rays
+    differ = got.triangle_index != ref.triangle_index
+    rel = (got.t - ref.t).abs() / ref.t.abs()
+    tie = differ & (got.missed == ref.missed) & (rel <= KEY_TIE_REL)
+    rest = torch.nonzero(differ & ~tie).reshape(-1)
+    fields = dict(hits=int((~got.missed).sum()), differ=int(differ.sum()),
+                  key_ties=int(tie.sum()), oracle_decides=rest.numel())
+    if rest.numel() == 0:
+        return dict(fields, lbvh_is_oracle=0, disagree=0)
+    if rest.numel() > ORACLE_RAYS:
+        raise RuntimeError(f"oracle-lbvh {name}: {rest.numel()} hits differ "
+                           "from the bundle walk beyond key ties")
+    oracle = intersect_brute_force(
+        o[rest], d[rest], scene.tri_v0, scene.tri_edge1, scene.tri_edge2,
+        scene.tri_geometry, scene.tri_primitive, tn[rest], tx[rest])
+    g = type(got)(*(f[rest] for f in got))
+    ok = (g.triangle_index == oracle.triangle_index) | (
+        (g.missed == oracle.missed)
+        & ((g.t - oracle.t).abs() <= TIE_REL * oracle.t.abs()))
+    bad = torch.nonzero(~ok).reshape(-1)
+    fields.update(lbvh_is_oracle=int(ok.sum()), disagree=bad.numel(),
+                  first_disagreeing=json.dumps([
+                      [int(rest[i]), float(g.t[i]), float(oracle.t[i]),
+                       int(g.triangle_index[i]),
+                       int(oracle.triangle_index[i])]
+                      for i in bad[:4].tolist()]))
+    if bad.numel():
+        log("oracle-lbvh", cls=name, **fields)
+        raise RuntimeError(f"oracle-lbvh {name}: {bad.numel()} lbvh hits "
+                           "differ from the brute-force oracle")
+    return fields
+
+
+def _walk_delta(stats, before) -> dict:
+    """The lbvh walk's calls, steps and host checks since `before`."""
+    calls = stats.calls - before.calls
+    steps = stats.steps - before.steps
+    return {"calls": calls, "steps": steps,
+            "host_checks": stats.host_checks - before.host_checks,
+            "steps_per_call": f"{steps / max(calls, 1):.1f}"}
+
+
+def phase_oracle_lbvh(scene, renderer, renderer_l, batches,
+                      oracle_rays) -> None:
+    """lbvh's closest hit against the brute-force tracer on ORACLE_RAYS
+    rays of each main_path_batches class and its any hit against the
+    any-hit oracle on the kept visibility rays (phase_oracle,
+    phase_oracle_occlude); then each whole 262,144-ray batch through lbvh
+    against the bundle walk (_lbvh_agrees), timed, with the walk's steps
+    and host checks."""
+    stats = renderer_l.tracers.walk_stats
+    start = dataclasses.replace(stats)
+    phase_oracle(scene, renderer_l, batches, phase="oracle-lbvh")
+    # the lbvh walk has no Wald tables: ties take the bundle walk's bound,
+    # which is wider than the Möller-Trumbore rounding the two share
+    phase_oracle_occlude(scene, renderer_l, oracle_rays, phase="oracle-lbvh",
+                         tie_tracers=renderer.tracers)
+    for cls, (presorted, o, d, tn, tx) in batches.items():
+        before = dataclasses.replace(stats)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        got = renderer_l.tracers.closest_hit(o, d, tn, tx,
+                                             presorted=presorted)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        ref = renderer.tracers.closest_hit(o, d, tn, tx, presorted=presorted)
+        log("oracle-lbvh", cls=cls, rays=o.shape[0], ms=f"{ms:.2f}",
+            **_walk_delta(stats, before),
+            **_lbvh_agrees(scene, cls, (o, d, tn, tx), got, ref))
+    log("oracle-lbvh", total=json.dumps(_walk_delta(stats, start)))
+
+
+def phase_lbvh_frames(scene, renderer_l, g_flag, g_di, flag_imgs,
+                      di_imgs) -> dict:
+    """LBVH_FLAGSHIP_FRAMES flagship frames (from a fresh state, as the
+    bundle frames they are compared with) and one DI frame (fresh)
+    through create_renderer(backend="lbvh"), each timed, with every trace
+    call timed between synchronisations and the walk's steps per trace;
+    every count is reset just before them and no kernel may launch (the
+    lbvh walk is torch ops). Each display is compared with the bundle
+    backend's frame of the same index."""
+    tracers = renderer_l.tracers
+    stats = tracers.walk_stats
+    trace_ms = []
+
+    def timed(inner, *args, **kwargs):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = inner(*args, **kwargs)
+        torch.cuda.synchronize()
+        trace_ms.append((time.perf_counter() - t0) * 1e3)
+        return out
+
+    patches = [_Patch(tracers, "closest_hit", timed),
+               _Patch(tracers, "occluded", timed)]
+    _reset_counts(tracers)
+    runs = [("flagship", g_flag.replace(frame=f), flag_imgs[f])
+            for f in range(LBVH_FLAGSHIP_FRAMES)]
+    runs.append(("di", g_di.replace(frame=0, blend_factor=1.0), di_imgs[0]))
+    state = None
+    try:
+        for config, g, ref in runs:
+            if state is None or config == "di":
+                state = fr.init_frame_state(WIDTH, HEIGHT, device=scene.device)
+            trace_ms.clear()
+            before = dataclasses.replace(stats)
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            state, img = fr.render_frame(renderer_l, g, state)
+            torch.cuda.synchronize()
+            sec = time.perf_counter() - t0
+            walk = _walk_delta(stats, before)
+            log("lbvh-frame", config=config, frame=int(g.frame),
+                seconds=f"{sec:.3f}", traces=len(trace_ms),
+                trace_ms=json.dumps([round(t, 2) for t in trace_ms]),
+                traces_ms=f"{sum(trace_ms):.2f}", **walk,
+                launches=json.dumps(_launches(), separators=(",", ":")),
+                **_pixels_differing(img, ref),
+                peak_gib=f"{torch.cuda.max_memory_allocated() / 2**30:.2f}")
+            _check_image(f"lbvh {config} display", img, display=True)
+    finally:
+        for patch in reversed(patches):
+            patch.restore()
+    launches = _launches()
+    if any(launches.values()):
+        raise RuntimeError(f"the lbvh frames launched kernels: {launches}")
+    return launches
+
+
+class _Records(logging.Handler):
+    """Keeps the message of every record it is given."""
+
+    def __init__(self):
+        super().__init__()
+        self.messages = []
+
+    def emit(self, record) -> None:
+        self.messages.append(record.getMessage())
+
+
+def phase_app(dev: torch.device, flag_seconds) -> dict:
+    """app.main on `dev` with the ladder GLB at WIDTH x HEIGHT for
+    APP_FRAMES frames (the camera of the other phases; an --animate file
+    turning GI off at frame 2; --checkpoint), then --resume from that
+    checkpoint for APP_RESUME_FRAMES frames. Every PNG must decode (utils/png.read_png)
+    to a lit WIDTH x HEIGHT image, metrics.json must hold the JAX app's
+    keys with a traversal_overflow, the k_cand probe's budgets must be
+    logged, and B1, B3 and B4 must have launched inside the app's frames
+    (counted around each render_frame call). Returns those launches."""
+    in_frames = {name: 0 for name in KERNELS}
+    per_frame = []
+
+    def count(inner, *args, **kwargs):
+        before = _launches()
+        out = inner(*args, **kwargs)
+        delta = {k: v - before[k] for k, v in _launches().items()}
+        per_frame.append(delta)
+        for k, v in delta.items():
+            in_frames[k] += v
+        return out
+
+    records = _Records()
+    app_log = logging.getLogger("raytracer2_tpu_torch")
+    with tempfile.TemporaryDirectory() as tmp:
+        d = Path(tmp)
+        glb = d / "ladder.glb"
+        proc.write_glb(glb, proc.corridor_glb(**LADDER))
+        (d / "animate.json").write_text(
+            json.dumps({"2": {"enable_restir_gi": 0}}))
+        common = [str(glb), "--device", str(dev), "--width", str(WIDTH),
+                  "--height", str(HEIGHT),
+                  "--camera-pos", *map(str, CAMERA_POS),
+                  "--camera-dir", *map(str, CAMERA_DIR)]
+        runs = {"run": (APP_FRAMES, 0, ["--animate", str(d / "animate.json"),
+                                        "--checkpoint", str(d / "s.npz")]),
+                "resume": (APP_RESUME_FRAMES, APP_FRAMES,
+                           ["--resume", str(d / "s.npz")])}
+        patch = _Patch(fr, "render_frame", count)
+        app_log.addHandler(records)
+        metrics = {}
+        try:
+            for name, (frames, first, extra) in runs.items():
+                t0 = time.perf_counter()
+                rc = app.main(common + ["--frames", str(frames),
+                                        "--out", str(d / name)] + extra)
+                torch.cuda.synchronize()
+                sec = time.perf_counter() - t0
+                if rc != 0:
+                    raise RuntimeError(f"app {name}: exit code {rc}")
+                metrics[name] = json.loads(
+                    (d / name / "metrics.json").read_text())
+                lit = []
+                for f in range(first, first + frames):
+                    png = read_png(d / name / f"frame_{f:04d}.png")
+                    if png.shape != (HEIGHT, WIDTH, 3) or png.max() == 0:
+                        raise RuntimeError(f"app {name}: frame {f} is "
+                                           f"{png.shape}, max {png.max()}")
+                    lit.append(round(float(png.mean()), 2))
+                m = metrics[name]
+                log("app", run=name, seconds=f"{sec:.1f}",
+                    frames=m["frames"], p50_ms=m["p50_ms"],
+                    mean_ms=m["mean_ms"],
+                    traversal_overflow=m["traversal_overflow"],
+                    png_means=json.dumps(lit))
+        finally:
+            app_log.removeHandler(records)
+            patch.restore()
+    suggested = [m for m in records.messages
+                 if m.startswith("zero-truncation k_cand per class")]
+    flag_ms = statistics.median(flag_seconds) * 1e3
+    log("app", flagship_frame_ms=f"{flag_ms:.1f}",
+        p50_ms=metrics["run"]["p50_ms"],
+        resume_p50_ms=metrics["resume"]["p50_ms"],
+        suggested=repr(suggested[0][:80] if suggested else None),
+        launches=json.dumps(in_frames, separators=(",", ":")),
+        launches_per_frame=json.dumps(
+            [[v[k] for k in ("walk_closest", "nearest_box", "bundle_union")]
+             for v in per_frame], separators=(",", ":")))
+    for name, m in metrics.items():
+        if set(m) != APP_METRICS or m["traversal_overflow"] is None:
+            raise RuntimeError(f"app {name}: metrics.json {sorted(m)} with "
+                               f"traversal_overflow "
+                               f"{m['traversal_overflow']}")
+    if not suggested:
+        raise RuntimeError("the app logged no suggested k_cand budgets")
+    for kernel in ("walk_closest", "nearest_box", "bundle_union"):
+        if in_frames[kernel] <= 0:
+            raise RuntimeError(f"the app's frames never launched {kernel}")
+    return in_frames
+
+
+def phase_viewer(scene, renderer) -> None:
+    """viewer.run_interactive for VIEWER_FRAMES flagship frames at
+    VIEWER_SIZE through the bundle backend, on a pseudo-terminal: the keys
+    "w" and "1" are written into it before each frame, and the output
+    goes to a string. It must hold every half-block frame, and the camera
+    must have moved."""
+    w, h = VIEWER_SIZE
+    renderer_v = dataclasses.replace(renderer, width=w, height=h)
+    cam = default_camera(window_size=(w, h), position=CAMERA_POS,
+                         direction=CAMERA_DIR)
+    g = flagship_gconst(renderer_v, cam.planar_view_constants())
+    positions = []
+    master, slave = os.openpty()
+    stdin = os.fdopen(slave, "r")
+
+    def render(g, state):
+        os.write(master, b"w1")
+        positions.append(g.view.camera_direction_or_position[:3].tolist())
+        return fr.render_frame(renderer_v, g, state)
+
+    out = io.StringIO()
+    saved, sys.stdin = sys.stdin, stdin
+    t0 = time.perf_counter()
+    try:
+        viewer.run_interactive(
+            render, cam, g, fr.init_frame_state(w, h, device=scene.device),
+            lambda img: to_srgb_u8(img).cpu().numpy(),
+            max_frames=VIEWER_FRAMES, out=out)
+    finally:
+        sys.stdin = saved
+        stdin.close()
+        os.close(master)
+    sec = time.perf_counter() - t0
+    text = out.getvalue()
+    frames, cells = text.count("\x1b[H"), text.count("▀")
+    log("viewer", frames=frames, cells=cells, chars=len(text),
+        seconds=f"{sec:.3f}", positions=json.dumps(positions))
+    if frames != VIEWER_FRAMES or cells == 0 or positions[-1] == positions[0]:
+        raise RuntimeError(f"viewer: {frames} frames, {cells} cells, camera "
+                           f"{positions[0]} -> {positions[-1]}")
 
 
 # ---------------------------------------------------------------------------
@@ -2413,7 +2795,7 @@ def run(dev: torch.device, smi: str, pool, sky_job,
     phase_oracle_occlude(scene, renderer_p, trace_log.oracle_rays,
                          phase="oracle-pairs")
     trace_log.walks.clear()
-    trace_log.oracle_rays = None
+    oracle_rays, trace_log.oracle_rays = trace_log.oracle_rays, None
     sky = phase_skybox_exr(pool, sky_job)
     paths = {}
     paths["di_frames"], di_imgs = phase_di_frames(scene, renderer, g_di,
@@ -2427,8 +2809,8 @@ def run(dev: torch.device, smi: str, pool, sky_job,
     trace_log.walks.clear()
     classes.update(phase_kernel_cull(trace_log))
     trace_log.culls.clear()
-    paths["flagship_frames"], flag_imgs = phase_flagship_frames(
-        scene, renderer, g_flag)
+    paths["flagship_frames"], flag_imgs, flag_seconds = \
+        phase_flagship_frames(scene, renderer, g_flag)
     phase_flagship_breakdown(scene, renderer, g_flag)
     phase_gi_resampling(scene, renderer, view)
     paths["di_resampling_frames"], rs_classes = phase_di_resampling(
@@ -2438,6 +2820,14 @@ def run(dev: torch.device, smi: str, pool, sky_job,
     paths["regir_frames"] = phase_regir(scene, view)
     paths["k_cand_probe"], paths["k_cand_frame"] = phase_k_cand(
         scene, renderer, view, g_flag, flag_imgs[0])
+    renderer_l = phase_lbvh_build(scene)
+    phase_oracle_lbvh(scene, renderer, renderer_l,
+                      main_path_batches(scene, renderer, g_ref), oracle_rays)
+    paths["lbvh_frames"] = phase_lbvh_frames(scene, renderer_l, g_flag, g_di,
+                                             flag_imgs, di_imgs)
+    del renderer_l, oracle_rays
+    paths["app_frames"] = phase_app(dev, flag_seconds)
+    phase_viewer(scene, renderer)
 
     sky_scene, sky_renderer = phase_skybox(model, sky, dev)
     del model, sky

@@ -16,6 +16,7 @@ import torch
 
 from raytracer2_tpu_torch.lights.polymorphic import LightInfo
 from raytracer2_tpu_torch.lights.prepare import SceneLights
+from raytracer2_tpu_torch.ops.bvh import BVH
 from raytracer2_tpu_torch.ops.cluster import Clusters, clusters_from_arrays
 from raytracer2_tpu_torch.ops.cuda_pairs import PairScene
 from raytracer2_tpu_torch.ops.intersect import HitRecord
@@ -52,6 +53,15 @@ def clusters_from_numpy(arrays: Mapping, *, device) -> Clusters:
     """Clusters from the JAX Clusters' fields (aabb_min, aabb_max, wald,
     tri_index)."""
     return clusters_from_arrays(arrays, device=device)
+
+
+def bvh_from_numpy(arrays: Mapping, *, device) -> BVH:
+    """BVH from the JAX BVH's fields (left, right, aabb_min, aabb_max,
+    tri_order; num_leaves as a number)."""
+    return BVH(
+        *(torch.from_numpy(np.array(arrays[f])).to(device)
+          for f in ("left", "right", "aabb_min", "aabb_max", "tri_order")),
+        num_leaves=int(arrays["num_leaves"]))
 
 
 def pair_scene_from_numpy(arrays: Mapping, *, device) -> PairScene:

@@ -1,5 +1,5 @@
-"""Hit records and the brute-force closest-hit and any-hit oracles, port
-of raytracer2_tpu/ops/intersect.py.
+"""Hit records, the slab-safe reciprocal direction and the brute-force
+closest-hit and any-hit oracles, port of raytracer2_tpu/ops/intersect.py.
 
 The traversal result is the reference's payload (common.glsl:23-28):
 {t, barycentric uv, geometryIndex, primitiveId} with geometryIndex ==
@@ -51,6 +51,14 @@ def moller_trumbore(origin, direction, v0, edge1, edge2, t_min, t_max,
     hit = (ok & (u >= 0.0) & (v >= 0.0) & (u + v <= 1.0)
            & (t > t_min) & (t < t_max))
     return hit, t, u, v
+
+
+def safe_inv_dir(direction: torch.Tensor, eps: float = 1e-12
+                 ) -> torch.Tensor:
+    """1/d with tiny-component clamping so slab tests stay finite-robust."""
+    d = torch.where(torch.abs(direction) < eps,
+                    torch.where(direction >= 0.0, eps, -eps), direction)
+    return 1.0 / d
 
 
 def _per_ray(x, n, ref: torch.Tensor) -> torch.Tensor:

@@ -19,6 +19,8 @@ from raytracer2_tpu_torch.lights.polymorphic import (
     LightInfo, calc_sample, gather_light)
 from raytracer2_tpu_torch.ops import cuda_pairs as cp
 from raytracer2_tpu_torch.ops import cuda_traverse as ct
+from raytracer2_tpu_torch.ops import traverse as lbvh
+from raytracer2_tpu_torch.ops.bvh import BVH, build_lbvh, max_depth
 from raytracer2_tpu_torch.ops.cluster import Clusters, build_clusters
 from raytracer2_tpu_torch.ops.intersect import (
     intersect_brute_force, occluded_brute_force)
@@ -54,7 +56,8 @@ class Tracers:
     through the bundle walk. union_max(o, d, t_min, t_max, presorted=False)
     (the bundle walk only) gives a batch's largest per-bundle candidate
     union as a 0-d device tensor: the k_cand its class needs to truncate
-    nothing."""
+    nothing. The lbvh walk keeps its BVH and sums its steps and host
+    checks over calls in walk_stats."""
 
     closest_hit: Callable
     occluded: Callable | None = None
@@ -63,6 +66,8 @@ class Tracers:
     clusters: Clusters | None = None
     tables: ct.WalkTables | None = None
     pair_scene: cp.PairScene | None = None
+    bvh: BVH | None = None
+    walk_stats: lbvh.WalkStats | None = None
     scene_min: torch.Tensor | None = None
     scene_max: torch.Tensor | None = None
     fallback_by_class: dict = dataclasses.field(default_factory=dict)
@@ -95,7 +100,8 @@ PAIR_GROUP = 16
 
 
 def make_tracers(scene: Scene, backend: str = "auto",
-                 k_cand_per_class: dict | None = None) -> Tracers:
+                 k_cand_per_class: dict | None = None,
+                 bvh: BVH | None = None) -> Tracers:
     """Traversal backends:
     - "auto" (default): the bundle walk; on a CUDA scene it launches the
       CUDA kernel, on a CPU scene the wrapper runs its plain version
@@ -105,6 +111,9 @@ def make_tracers(scene: Scene, backend: str = "auto",
       ray class takes the same path (presorted is ignored), and a trace in
       which some ray overlaps more than PAIR_K_CAND superclusters re-traces
       whole through the bundle walk
+    - "lbvh": the per-ray stack walk over an LBVH (ops/bvh.py,
+      ops/traverse.py; torch ops, no kernel), built from the scene's
+      triangles on its device unless `bvh` is given; presorted is ignored
     - "brute": the all-pairs oracle
     k_cand_per_class sets the bundle walk's candidate budget per ray
     class, keyed as suggest_k_cand returns it: True (pixel tiles), False
@@ -123,6 +132,8 @@ def make_tracers(scene: Scene, backend: str = "auto",
                 tmax)
 
         return Tracers(closest_hit=brute, occluded=brute_occl)
+    if backend == "lbvh":
+        return _lbvh_tracers(scene, bvh)
     if backend == "bundle_cuda" and scene.device.type != "cuda":
         raise ValueError(f"backend 'bundle_cuda' needs a CUDA scene, "
                          f"this one is on {scene.device}")
@@ -226,6 +237,32 @@ def _pair_tracers(scene: Scene, clusters: Clusters, tables: ct.WalkTables,
     tracers.closest_hit = closest
     tracers.occluded = occl
     return tracers
+
+
+def _lbvh_tracers(scene: Scene, bvh: BVH | None) -> Tracers:
+    """The LBVH walk's tracers (JAX's make_tracers, backend="lbvh")."""
+    if bvh is None:
+        bvh = build_lbvh(scene.tri_v0, scene.tri_edge1, scene.tri_edge2)
+    depth = max_depth(bvh)
+    if depth > lbvh.STACK_SIZE:
+        raise ValueError(
+            f"LBVH depth {depth} exceeds the traversal stack "
+            f"({lbvh.STACK_SIZE}); overflow would silently drop subtrees "
+            "(ADVICE r1) — deepen STACK_SIZE or rebalance the tree")
+    stats = lbvh.WalkStats()
+
+    def closest(o, d, tmin, tmax, presorted=False):
+        return lbvh.closest_hit(
+            bvh, scene.tri_v0, scene.tri_edge1, scene.tri_edge2,
+            scene.tri_geometry, scene.tri_primitive, o, d, tmin, tmax,
+            stats=stats)
+
+    def occl(o, d, tmin, tmax, presorted=False):
+        return lbvh.occluded(bvh, scene.tri_v0, scene.tri_edge1,
+                             scene.tri_edge2, o, d, tmin, tmax, stats=stats)
+
+    return Tracers(closest_hit=closest, occluded=occl, bvh=bvh,
+                   walk_stats=stats)
 
 
 def get_light_sample_target_pdf(light_sample, surface: Surface

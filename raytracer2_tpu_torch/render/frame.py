@@ -147,12 +147,13 @@ def make_regir_params(scene: Scene, cells: tuple[int, int, int] = (16, 16, 16),
 
 def create_renderer(scene: Scene, width: int, height: int,
                     backend: str = "auto", presample: bool = True,
-                    regir: bool = False, presample_seed: int = 0
-                    ) -> Renderer:
+                    regir: bool = False, presample_seed: int = 0,
+                    k_cand_per_class: dict | None = None) -> Renderer:
     """presample=True fills the RIS tile buffer once at creation, the
     static-scene equivalent of the reference's frame-1 presample dispatch
     (light_passes.rs:538-547). regir=True also builds the ReGIR grid
-    (make_regir_params), which local_light_sampling_mode 2 samples."""
+    (make_regir_params), which local_light_sampling_mode 2 samples.
+    backend and k_cand_per_class go to make_tracers."""
     scene_lights = prepare_lights(scene)
     ris_buffer = None
     if presample and scene_lights.num_local_lights > 0:
@@ -173,7 +174,8 @@ def create_renderer(scene: Scene, width: int, height: int,
             regir_p)
     return Renderer(
         scene=scene,
-        tracers=make_tracers(scene, backend=backend),
+        tracers=make_tracers(scene, backend=backend,
+                             k_cand_per_class=k_cand_per_class),
         scene_lights=scene_lights,
         neighbor_offsets=fill_neighbor_offsets(device=scene.device),
         width=width, height=height, ris_buffer=ris_buffer,

@@ -1,7 +1,6 @@
-"""Pinhole camera producing PlanarViewConstants (port of the part of
-raytracer2_tpu/scene/camera.py a fixed camera needs: plain numpy, ported
-only because the original imports JAX through params.py). The FPS
-controls (Controls, Camera.update) come with the app slice.
+"""Functional FPS camera producing PlanarViewConstants, port of
+raytracer2_tpu/scene/camera.py (plain numpy, ported only because the
+original imports JAX through params.py).
 
 Port of the reference camera (src/camera.rs): right-handed look-at view with
 UP = (0, -1, 0) (camera.rs:14), a custom perspective projection
@@ -20,6 +19,8 @@ import numpy as np
 
 from raytracer2_tpu_torch.params import PlanarViewConstants
 
+MOVE_SPEED = 30.0  # (ref: camera.rs:11)
+ANGLE_PER_POINT = 1.0  # (ref: camera.rs:12)
 UP = np.array([0.0, -1.0, 0.0], dtype=np.float32)  # (ref: camera.rs:14)
 
 
@@ -65,6 +66,29 @@ def perspective(fovy: float, aspect: float, near: float, far: float) -> np.ndarr
 
 
 @dataclasses.dataclass(frozen=True)
+class Controls:
+    """Per-frame input snapshot (ref: camera.rs:160-183)."""
+
+    go_forward: bool = False
+    go_backward: bool = False
+    strafe_right: bool = False
+    strafe_left: bool = False
+    go_up: bool = False
+    go_down: bool = False
+    look_around: bool = False
+    cursor_delta: tuple[float, float] = (0.0, 0.0)
+
+
+def _axis_angle_matrix(axis: np.ndarray, angle: float) -> np.ndarray:
+    """Rotation matrix around a unit axis (Rodrigues)."""
+    axis = _normalize(axis)
+    c, s = np.cos(angle), np.sin(angle)
+    x, y, z = axis
+    k = np.array([[0, -z, y], [z, 0, -x], [-y, x, 0]], dtype=np.float64)
+    return (np.eye(3) + s * k + (1 - c) * (k @ k)).astype(np.float32)
+
+
+@dataclasses.dataclass(frozen=True)
 class Camera:
     """Pinhole FPS camera (ref: camera.rs:16-43)."""
 
@@ -79,6 +103,44 @@ class Camera:
     def __post_init__(self):
         d = _normalize(np.asarray(self.direction, dtype=np.float32))
         object.__setattr__(self, "direction", tuple(float(x) for x in d))
+
+    def update(self, controls: Controls, delta_time: float) -> "Camera":
+        """Functional port of camera.rs:45-97."""
+        pos = np.asarray(self.position, dtype=np.float32)
+        direction = np.asarray(self.direction, dtype=np.float32)
+        side = np.cross(direction, UP)
+
+        if controls.look_around:
+            side_rot = _axis_angle_matrix(
+                side, -controls.cursor_delta[1] * ANGLE_PER_POINT * delta_time)
+            y_rot = _axis_angle_matrix(
+                np.array([0.0, 1.0, 0.0], dtype=np.float32),
+                -controls.cursor_delta[0] * ANGLE_PER_POINT * delta_time)
+            new_direction = _normalize(side_rot @ y_rot @ direction)
+        else:
+            new_direction = direction
+
+        move = np.zeros(3, dtype=np.float32)
+        if controls.go_forward:
+            move -= new_direction
+        if controls.go_backward:
+            move += new_direction
+        if controls.strafe_right:
+            move += side
+        if controls.strafe_left:
+            move -= side
+        if controls.go_up:
+            move -= UP
+        if controls.go_down:
+            move += UP
+        if np.dot(move, move) > 0.0:
+            move = _normalize(move)
+
+        return dataclasses.replace(
+            self,
+            position=tuple(float(x) for x in pos + move * MOVE_SPEED * delta_time),
+            direction=tuple(float(x) for x in new_direction),
+        )
 
     def view_matrix(self) -> np.ndarray:
         pos = np.asarray(self.position, dtype=np.float32)

@@ -24,9 +24,9 @@ old = sorted(m for m in sys.modules
 print(len(names), jax_free, ",".join(names), ",".join(old))
 """
 
-# the modules of the GI slice, the dense cull, the pair engine and the
-# environment slice, named so that a missing one fails here rather than go
-# unprobed
+# the modules of the GI slice, the dense cull, the pair engine, the
+# environment slice and the app slice (app, viewer, lbvh, PNG), named so
+# that a missing one fails here rather than go unprobed
 SLICE_MODULES = {
     "raytracer2_tpu_torch.ops.cull",
     "raytracer2_tpu_torch.ops.cuda_pairs",
@@ -38,6 +38,11 @@ SLICE_MODULES = {
     "raytracer2_tpu_torch.scene.exr",
     "raytracer2_tpu_torch.scene.piz",
     "raytracer2_tpu_torch.utils.profiler",
+    "raytracer2_tpu_torch.app",
+    "raytracer2_tpu_torch.viewer",
+    "raytracer2_tpu_torch.ops.bvh",
+    "raytracer2_tpu_torch.ops.traverse",
+    "raytracer2_tpu_torch.utils.png",
 }
 
 # the JAX package's modules the port may load: none (the port keeps its own
@@ -54,7 +59,7 @@ def test_every_submodule_imports_without_jax():
                          check=True).stdout.split()
     n_modules, jax_free = int(out[0]), out[1]
     old = set(out[3].split(",")) if len(out) > 3 else set()
-    assert n_modules >= 49
+    assert n_modules >= 57
     assert SLICE_MODULES <= set(out[2].split(","))
     assert jax_free == "True"
     assert old <= SHARED, old - SHARED
