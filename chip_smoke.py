@@ -15,7 +15,8 @@ the pair-sweep backend (create_renderer(..., backend="pairs")); and the
 flagship frame under a 2048x1024 EXR skybox, on checkerboard fields and
 stopped after each pass (the per-pass split); the lbvh backend
 (create_renderer(..., backend="lbvh"), torch ops), the app CLI
-(app.main) and the terminal viewer (viewer.run_interactive). Six
+(app.main) and the terminal viewer (viewer.run_interactive); and the
+frame row-sharded over torch.distributed ranks (parallel/mesh.py). Six
 hand-written CUDA kernels carry them: the closest-hit and any-hit walks
 (B1, B2), the exact cull's nearest box and bundle union (B3, B4), and the
 pair engine's sweep (B5) and stable counting sort (B6). The phases, each of
@@ -191,6 +192,19 @@ which raises on failure:
                         more flagship frame with each trace split into the
                         slab test, the binning (B6 inside it), the sweep
                         (B5) and the decode, and one under torch.profiler.
+23. sharded           - the frame row-sharded over torch.distributed ranks
+                        (parallel/dryrun.py), with the dry run's flagship
+                        configuration (GI temporal and spatial on): (a) one
+                        NCCL rank, two frames; (b) two gloo ranks sharing
+                        the card, 540 rows each, two frames and one
+                        checkerboard frame with DI temporal resampling.
+                        Every gathered frame against render_frame's
+                        unsharded one of the same index: more than 95% of
+                        the pixels bit-exact, a mean |diff| below 1e-3 (the
+                        JAX dry run's bar), the pixels beyond 2e-3 logged;
+                        each rank's frame seconds, halo telemetry and
+                        launches (B1, B3, B4 must launch in every rank);
+                        each run joined against a deadline.
 
 Each kernel check prints its time, its plain version's and its bound (the
 least time the card could take: the larger of the bytes the kernel must
@@ -237,6 +251,7 @@ from raytracer2_tpu_torch.ops.bvh import (  # noqa: E402
     build_lbvh, max_depth, validate_bvh)
 from raytracer2_tpu_torch.ops.intersect import (  # noqa: E402
     intersect_brute_force, moller_trumbore, occluded_brute_force)
+from raytracer2_tpu_torch.parallel import dryrun  # noqa: E402
 from raytracer2_tpu_torch.params import (  # noqa: E402
     BACKGROUND_DEPTH, LightBufferRegion, default_gconst)
 from raytracer2_tpu_torch.render import frame as fr  # noqa: E402
@@ -266,6 +281,7 @@ BATCH = 1 << 18  # render_reference's chunk_pixels: one trace batch
 ORACLE_RAYS = 4096
 T_MIN, T_MAX = 0.001, 100000.0  # refrence.rgen:27, BACKGROUND_DEPTH
 TIE_REL = 1e-5  # a closest hit within this relative t of another ties
+IMAGE_TOL = 2e-3  # the goldens' rtol=atol
 # two engines' closest hits tie when their t agree above the bits a packed
 # key drops (the pair key 11 low mantissa bits, the walk's 10): the key
 # orders such hits by lane slot, which the engines lay out differently
@@ -278,9 +294,9 @@ WALD_ROUNDING = 8 * 2.0 ** -24
 # cores, at the full 700 W power limit
 HBM_BYTES_PER_S = 3.35e12
 FP32_OPS_PER_S = 67e12
-# FP32 operations of one (ray, triangle) Wald test: 20 multiplies, 18
-# adds, 1 divide and 6 compares (the closest-hit walk has one compare fewer
-# and a packed-key update instead)
+# FP32 operations of one (ray, triangle) Wald test: 6 multiplies, 14 FMAs
+# (two operations each), 4 adds, 1 divide and 6 compares (the closest-hit
+# walk has one compare fewer and a packed-key update instead)
 WALD_TEST_OPS = 45
 # FP32 operations of one (live ray, box) slab test of the cull kernels: 6
 # subtracts, 6 multiplies, 6 mins/maxes per axis pair, 4 across the axes,
@@ -305,6 +321,11 @@ REGIR_FRAMES = 3
 LBVH_MAX_DEPTH = 31
 LBVH_FIELDS = ("left", "right", "aabb_min", "aabb_max", "tri_order")
 LBVH_FLAGSHIP_FRAMES = 2
+# the sharded phase: (a) one NCCL rank, (b) gloo ranks sharing the card
+# (NCCL refuses two ranks on one device), each rank joined by this deadline
+SHARDED_RUNS = {"nccl": (1, 2, 0), "gloo": (2, 2, 1)}  # ranks, frames, cb
+SHARDED_TIMEOUT_S = 300.0
+SHARDED_COUNTED = ("walk_closest", "nearest_box", "bundle_union")
 APP_FRAMES, APP_RESUME_FRAMES = 4, 2
 APP_METRICS = {"traversal_overflow", "frames", "p50_ms", "mean_ms", "fps",
                "telemetry"}
@@ -354,9 +375,12 @@ def launch_count(name: str) -> int:
     return getattr(KERNEL_MODULES[name], name).launches
 
 
+T_START = time.perf_counter()  # the run's clock, which each log line reads
+
+
 def log(phase: str, **fields) -> None:
-    print(f"[{phase}] " + " ".join(f"{k}={v}" for k, v in fields.items()),
-          flush=True)
+    print(f"[{phase} +{time.perf_counter() - T_START:.1f}s] "
+          + " ".join(f"{k}={v}" for k, v in fields.items()), flush=True)
 
 
 def phase_device() -> tuple[torch.device, str]:
@@ -471,6 +495,22 @@ def _prep(tracers, cls, o, d, tn, tx):
             tracers.tables.wald_rows), cfg["group"], prep
 
 
+def _plain_ms(fn) -> float:
+    """A plain version's time in ms: one call of fn between CUDA events.
+    The caller has made one call on the same inputs just before (the one
+    whose outputs it compares), which is the warm-up; the plain walks and
+    culls take up to 10 s a call, so one timed call is all the run
+    affords."""
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    stop = torch.cuda.Event(enable_timing=True)
+    start.record()
+    fn()
+    stop.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(stop)
+
+
 def _median_ms(fn, reps: int = 5) -> float:
     """Median CUDA-event time of fn in ms, after one warm-up call."""
     fn()  # warm-up
@@ -537,20 +577,19 @@ def walk_bound(args, group: int, work: ct.WalkWork, real, kw) -> dict:
 
 
 def check_walk(kernel: str, cls: str, args, group: int, real,
-               plain_reps: int = 5, **kw) -> dict:
+               **kw) -> dict:
     """One walk kernel against its plain version on one batch: outputs
-    bit for bit, both times (CUDA events, median of 5 for the kernel, of
-    plain_reps for the plain version) and the bound. kw: the kernel's own
-    table argument (lanes). Raises on any mismatch or on a batch that
-    tests nothing."""
+    bit for bit, both times (CUDA events: the kernel's median of 5; the
+    plain version's one call without the work count, after the call that
+    gives the outputs and counts the work the bound reads) and the bound.
+    kw: the kernel's own table argument (lanes). Raises on any mismatch or
+    on a batch that tests nothing."""
     walk = getattr(ct, kernel)
     reference = getattr(ct, f"{kernel}_reference")
     got = walk(*args, group=group, **kw)
     want, work = reference(*args, group=group, lane_real=real)
-    torch.cuda.synchronize()
+    plain_ms = _plain_ms(lambda: reference(*args, group=group))
     ms = _median_ms(lambda: walk(*args, group=group, **kw))
-    plain_ms = _median_ms(lambda: reference(*args, group=group),
-                          reps=plain_reps)
     bound = walk_bound(args, group, work, real, kw)
     rays8, _, _, cand_count, _ = args
     mismatches = int((got != want).sum())
@@ -625,15 +664,16 @@ def check_cull(kernel: str, cls: str, args) -> dict:
     """One cull kernel against its plain version on one batch: outputs bit
     for bit (the union table compared as int32 bits, its +0 and -0 counted
     and any sign-of-zero difference reported apart), both times (CUDA
-    events) and the bound. Raises on any mismatch, a -0 in the kernel's
-    union table, or a batch that tests nothing."""
+    events: the kernel's median of 5, the plain version's one call after
+    the call that gives the outputs) and the bound. Raises on any
+    mismatch, a -0 in the kernel's union table, or a batch that tests
+    nothing."""
     fn = getattr(cull, kernel)
     reference = getattr(cull, f"{kernel}_reference")
     got = fn(*args)
     want = reference(*args)
-    torch.cuda.synchronize()
+    plain_ms = _plain_ms(lambda: reference(*args))
     ms = _median_ms(lambda: fn(*args))
-    plain_ms = _median_ms(lambda: reference(*args), reps=3)
     bound = cull_bound(args, got)
     rays8, c = args[0], args[1].shape[0]
     if kernel == "nearest_box":
@@ -1464,7 +1504,7 @@ def phase_di_resampling(scene, renderer) -> tuple[dict, dict]:
     for cls in shadows[:2]:
         kernel, args, group, kw = trace_log.walks[cls]
         out[kernel][cls] = check_walk(kernel, cls, args, group, real,
-                                      plain_reps=1, **kw)
+                                      **kw)
         out["bundle_union"][cls] = check_cull(
             "bundle_union", cls, trace_log.culls[cls, "bundle_union"])
     del trace_log
@@ -1629,8 +1669,7 @@ def phase_k_cand(scene, renderer, view, g_flag, flag_img) -> tuple[dict,
              k_renderer.tracers.fallback_by_class.items()},
             separators=(",", ":")),
         launches=json.dumps(frame_launches, separators=(",", ":")),
-        **{k.replace("from_bundle", "from_default"): v
-           for k, v in _pixels_differing(img, flag_img).items()})
+        **_pixels_differing(img, flag_img, against="default"))
     for name, trace in sorted(trace_log.traces.items()):
         o, d, tn, tx, presorted = trace
         got = k_renderer.tracers.closest_hit(o, d, tn, tx,
@@ -2000,7 +2039,8 @@ def phase_skybox_exr(pool, sky_job) -> np.ndarray:
     """The EXR round trip's result, which must equal the sky rounded to
     float16 bit for bit. Taken before the first frame timed on the host's
     clock, so the worker's host work overlaps only the kernel checks,
-    which CUDA events time; the worker process is then stopped."""
+    which CUDA events time, and the flagship capture frame, whose time
+    nothing reads; the worker process is then stopped."""
     t0 = time.perf_counter()
     sky, rt = sky_job.result()
     pool.shutdown()
@@ -2117,7 +2157,7 @@ def phase_kernel_checkerboard(renderer, trace_log: TraceLog) -> dict:
     for cls in [f"cb_{b}" for b in FLAGSHIP_BOUNCES] + ["cbdi_visibility"]:
         kernel, args, group, kw = trace_log.walks[cls]
         out[kernel][cls] = check_walk(kernel, cls, args, group, real,
-                                      plain_reps=1, **kw)
+                                      **kw)
     for cls, k in checks:
         out[k][cls] = check_cull(k, cls, trace_log.culls[cls, k])
     return out
@@ -2396,9 +2436,8 @@ def check_pair_sweep(cls: str, args, kwargs, real_sc, tally) -> dict:
     its batches."""
     got = cp.pair_sweep(*args, **kwargs)
     want = cp.pair_sweep_reference(*args)
-    torch.cuda.synchronize()
+    plain_ms = _plain_ms(lambda: cp.pair_sweep_reference(*args))
     ms = _median_ms(lambda: cp.pair_sweep(*args, **kwargs))
-    plain_ms = _median_ms(lambda: cp.pair_sweep_reference(*args), reps=1)
     bound = pair_sweep_bound(args, real_sc)
     batches, mismatches, hits = tally
     mismatches += int((got != want).sum())
@@ -2675,9 +2714,15 @@ def phase_pairs_no_overflow(scene, renderer, renderer_p,
             **_parts_ms(bundle, [(ct, walk, f"bundle_{walk}")]))
 
 
-def _pixels_differing(img, ref) -> dict:
+def _pixels_differing(img, ref, against: str = "bundle") -> dict:
+    """The pixels of `img` that differ from `ref` (the `against` frame)
+    in any bit, those with a channel beyond the goldens' rtol=atol=2e-3,
+    and the largest difference."""
     differ = (img != ref).any(dim=-1)
-    return {"pixels_differing_from_bundle": int(differ.sum()),
+    beyond = ~torch.isclose(img, ref, rtol=IMAGE_TOL,
+                            atol=IMAGE_TOL).all(dim=-1)
+    return {f"pixels_differing_from_{against}": int(differ.sum()),
+            f"pixels_beyond_tol_from_{against}": int(beyond.sum()),
             "max_abs_diff": f"{float((img - ref).abs().max()):.6g}"}
 
 
@@ -2731,6 +2776,65 @@ def phase_pairs_breakdown(scene, renderer, g_flag) -> None:
         (binning, "bin_scatter", "b6_bin_scatter"),
         (cp, "pair_sweep", "b5_pair_sweep"),
         (ct, "_decode", "decode")], nested=("slab", "b6_bin_scatter"))
+
+
+def phase_sharded(renderer) -> None:
+    """The frame row-sharded over torch.distributed ranks
+    (parallel/mesh.py, parallel/dryrun.py), on the ladder at 1920x1080
+    with the dry run's flagship configuration (GI temporal and spatial
+    resampling on): (a) one NCCL rank on the card, two frames; (b) two
+    gloo ranks sharing the card, 540 rows each, two frames and one
+    checkerboard frame (field 1) with DI temporal resampling. Every frame
+    is gathered and held to render_frame's unsharded frame of the same
+    index rendered here (the JAX dry run's bar: more than 95% of the
+    pixels bit-exact, a mean |diff| below 1e-3); each rank's frame times,
+    halo telemetry and B1/B2/B3/B4 launches are logged, and B1, B3 and B4
+    must have launched inside every rank. A rank that fails or misses the
+    deadline fails the phase; all render on the card."""
+    with tempfile.TemporaryDirectory() as d:
+        glb = Path(d) / "ladder.glb"
+        proc.write_glb(glb, proc.corridor_glb(**LADDER))
+        jobs = {backend: (n, dryrun.Job(
+            glb=str(glb), width=WIDTH, height=HEIGHT, position=CAMERA_POS,
+            direction=CAMERA_DIR, device="cuda", backend=backend,
+            flagship_frames=frames, checkerboard_frames=cb))
+            for backend, (n, frames, cb) in SHARDED_RUNS.items()}
+        # (b)'s frames include (a)'s
+        ref = dryrun.render_unsharded(jobs["gloo"][1], renderer)
+        for backend, (n, job) in jobs.items():
+            t0 = time.perf_counter()
+            ranks = dryrun.run_ranks(job, n, timeout=SHARDED_TIMEOUT_S)
+            log("sharded", run=backend, ranks=n,
+                seconds=f"{time.perf_counter() - t0:.1f}")
+            for name, frames in ranks[0]["configs"].items():
+                for f, img in enumerate(frames["images"]):
+                    stats = dryrun.parity(img, ref[name][f])
+                    log("sharded", run=backend, config=name, frame=f,
+                        bit_exact=f"{stats['bit_exact']:.6f}",
+                        mean_abs_diff=f"{stats['mean_abs_diff']:.3e}",
+                        **_pixels_differing(torch.from_numpy(img),
+                                            torch.from_numpy(ref[name][f]),
+                                            against="unsharded"))
+                    if not np.isfinite(img).all() or img.max() <= 0.05:
+                        raise RuntimeError(f"sharded {backend} {name} frame "
+                                           f"{f}: not finite or not lit")
+                    dryrun.check(stats, f"sharded {backend} {name} frame {f}")
+            for r, out in enumerate(ranks):
+                for name, frames in out["configs"].items():
+                    log("sharded-rank", run=backend, rank=r, config=name,
+                        row0=out["row0"], rows=out["rows"],
+                        device=out["device"],
+                        seconds=json.dumps([round(s, 4)
+                                            for s in frames["seconds"]]),
+                        telemetry=json.dumps(frames["telemetry"],
+                                             separators=(",", ":")),
+                        launches=json.dumps(frames["launches"],
+                                            separators=(",", ":")))
+                    idle = [k for k in SHARDED_COUNTED
+                            if frames["launches"][k] == 0]
+                    if idle:
+                        raise RuntimeError(f"sharded {backend} rank {r} "
+                                           f"{name}: {idle} never launched")
 
 
 def kernel_entry(name: str, classes: dict, launches: int,
@@ -2796,12 +2900,6 @@ def run(dev: torch.device, smi: str, pool, sky_job,
                          phase="oracle-pairs")
     trace_log.walks.clear()
     oracle_rays, trace_log.oracle_rays = trace_log.oracle_rays, None
-    sky = phase_skybox_exr(pool, sky_job)
-    paths = {}
-    paths["di_frames"], di_imgs = phase_di_frames(scene, renderer, g_di,
-                                                  trace_log)
-    phase_di_breakdown(scene, renderer, g_di)
-
     g_flag = flagship_gconst(renderer, view)
     phase_flagship_capture(scene, renderer, g_flag, trace_log)
     classes["walk_closest"].update(phase_kernel_flagship(renderer,
@@ -2809,6 +2907,11 @@ def run(dev: torch.device, smi: str, pool, sky_job,
     trace_log.walks.clear()
     classes.update(phase_kernel_cull(trace_log))
     trace_log.culls.clear()
+    sky = phase_skybox_exr(pool, sky_job)
+    paths = {}
+    paths["di_frames"], di_imgs = phase_di_frames(scene, renderer, g_di,
+                                                  trace_log)
+    phase_di_breakdown(scene, renderer, g_di)
     paths["flagship_frames"], flag_imgs, flag_seconds = \
         phase_flagship_frames(scene, renderer, g_flag)
     phase_flagship_breakdown(scene, renderer, g_flag)
@@ -2853,6 +2956,8 @@ def run(dev: torch.device, smi: str, pool, sky_job,
                                                g_di, flag_imgs, di_imgs)
     del flag_imgs, di_imgs
     phase_pairs_breakdown(scene, renderer_p, g_flag)
+    del renderer_p
+    phase_sharded(renderer)
 
     # each kernel's launches on its main path: the flagship frames, the DI
     # frames for the any-hit walk (the flagship frame casts no visibility

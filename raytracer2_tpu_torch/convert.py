@@ -23,7 +23,8 @@ from raytracer2_tpu_torch.ops.intersect import HitRecord
 from raytracer2_tpu_torch.params import GConst, PlanarViewConstants
 from raytracer2_tpu_torch.render.gbuffer import GBuffer
 from raytracer2_tpu_torch.render.gi_passes import SecondaryGBuffer
-from raytracer2_tpu_torch.restir.di_reservoir import DIReservoir
+from raytracer2_tpu_torch.restir.di_reservoir import (
+    DIReservoir, PackedDIReservoir)
 from raytracer2_tpu_torch.restir.gi_reservoir import GIReservoir
 from raytracer2_tpu_torch.restir.regir import OnionLayout, ReGIRGridParameters
 from raytracer2_tpu_torch.scene.scene import Scene, scene_from_arrays
@@ -108,6 +109,12 @@ def gbuffer_from_numpy(arrays: Mapping, *, device) -> GBuffer:
 def di_reservoir_from_numpy(arrays: Mapping, *, device) -> DIReservoir:
     """DIReservoir from the JAX DIReservoir's fields."""
     return _tuple_from(DIReservoir, arrays, device)
+
+
+def packed_di_reservoir_from_numpy(arrays: Mapping, *, device
+                                   ) -> PackedDIReservoir:
+    """PackedDIReservoir from the JAX PackedDIReservoir's fields."""
+    return _tuple_from(PackedDIReservoir, arrays, device)
 
 
 def di_slots_from_numpy(slots, *, device) -> tuple[DIReservoir, ...]:

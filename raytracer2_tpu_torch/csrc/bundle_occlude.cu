@@ -43,9 +43,10 @@
 //   on the order of its clusters and lanes (a ray is done if any of them
 //   hits it, and a done ray never tests again), so testing the step's
 //   clusters in turn, and a ray stopping inside a step, change no flag.
-// The affines are written in the order of the plain torch version
-// (ops/cuda_traverse.py::_wald_test), the divide is IEEE, and nothing is
-// fused, so a hit here is a hit in walk_occluded_reference bit for bit.
+// The affines fuse exactly the multiply-adds the plain torch version fuses
+// (ops/cuda_traverse.py::_wald_test: XLA's contraction, explicit __fmaf_rn
+// here, nothing else fused), the divide is IEEE, so a hit here is a hit in
+// walk_occluded_reference bit for bit.
 
 #include <climits>
 

@@ -20,11 +20,13 @@
 // distance exceeds it, a NaN in any ray ending the walk.
 //
 // What bounds it on this card: the issue rate of the FP32 lane work. One
-// (ray, triangle) test is 20 multiplies, 18 adds, an IEEE divide (a
-// reciprocal, four FFMAs and a range check), five compares and a key
-// update, ~55 instructions, all separately rounded (--fmad=false, so none
-// fuse): one warp instruction per clock per scheduler caps it at ~40% of the
-// FP32 bound, which counts an FMA as two operations; it runs at ~31% of it
+// (ray, triangle) test is 6 multiplies, 14 FMAs (the multiply-adds XLA
+// contracts in the reference, walk_common.cuh::wald_lane_test), 4 adds, an
+// IEEE divide (a reciprocal, four FFMAs and a range check), five compares
+// and a key update, ~41 instructions (nothing else fuses, --fmad=false):
+// one warp instruction per clock per scheduler caps it at ~55% of the FP32
+// bound, which counts an FMA as two operations (~40% before the Wald test
+// fused its multiply-adds); it runs at ~31% of it
 // on a 2,073,600-ray bounce batch (PERF.md). The table reads are
 // L2 traffic (19 MB of coefficients for the 3,072 clusters of a
 // 260k-triangle scene, inside the 50 MB L2).
@@ -61,9 +63,10 @@
 //   (redux.sync over the float order written as ints, NaN as INT_MAX)
 //   written before that cluster's barrier and read after it: no barrier of
 //   its own.
-// The affines are written in the order of the plain torch version
-// (ops/cuda_traverse.py::_wald_test), the divide is IEEE, and nothing is
-// fused, so the kernel agrees with walk_closest_reference bit for bit.
+// The affines fuse exactly the multiply-adds the plain torch version fuses
+// (ops/cuda_traverse.py::_wald_test: XLA's contraction, explicit __fmaf_rn
+// here, nothing else fused), the divide is IEEE, so the kernel agrees with
+// walk_closest_reference bit for bit.
 //
 // The any-hit walk (bundle_occlude.cu) shares this design and its helpers
 // (walk_common.cuh: the cluster ring, the group-start exit, the lane test,

@@ -16,10 +16,11 @@
 //
 // What bounds it on this card: the issue rate of the FP32 lane work, as in
 // the closest-hit walk (bundle_walk.cu): 45 FP32 operations per (live pair
-// ray, real-triangle lane), 20 multiplies, 18 adds, an IEEE divide and 6
-// compares, all separately rounded (--fmad=false), ~55 instructions with the
-// key update. The bytes (the [tp, 8] pair rows, the keys, the coefficients
-// of each swept supercluster) are two orders of magnitude below.
+// ray, real-triangle lane) counting an FMA as two: 6 multiplies, 14 FMAs,
+// 4 adds, an IEEE divide and 6 compares (nothing else fused,
+// --fmad=false), ~41 instructions with the key update. The bytes (the
+// [tp, 8] pair rows, the keys, the coefficients of each swept
+// supercluster) are two orders of magnitude below.
 //
 // The design: a pair block is a bundle whose candidates are exactly its
 // supercluster's `group` member clusters sc * group + m, walked in full (the
@@ -46,9 +47,10 @@
 // - each thread keeps a running min of its int key, exact in any lane
 //   order; a ray whose segment is empty (t_max <= t_min, or NaN) tests
 //   nothing, so the warps of a block's trailing dead pairs skip the loop.
-// The affines are written unfused in the order of the plain torch version
-// (ops/cuda_traverse.py::_wald_test) and the divide is IEEE, so the kernel
-// agrees with ops/cuda_pairs.py::pair_sweep_reference bit for bit.
+// The affines fuse exactly the multiply-adds the plain torch version fuses
+// (ops/cuda_traverse.py::_wald_test, explicit __fmaf_rn here) and the
+// divide is IEEE, so the kernel agrees with
+// ops/cuda_pairs.py::pair_sweep_reference bit for bit.
 
 #include "walk_common.cuh"
 

@@ -4,10 +4,12 @@
 // float order the early exit reduces over, the longest-first bundle order,
 // and the walks' launch and occupancy on the host.
 //
-// The test's affines are written in the order the plain torch versions
-// write them (ops/cuda_traverse.py::_wald_test). With --fmad=false every
-// multiply and add rounds on its own, so the walks agree with their plain
-// versions bit for bit.
+// The test's affines contract their multiply-adds as XLA's CPU backend does
+// in the JAX package's _intersect_block: explicit __fmaf_rn where XLA fuses,
+// every other multiply and add rounded on its own (--fmad=false keeps nvcc
+// from contracting more), in the order of the plain torch version
+// (ops/cuda_traverse.py::_wald_test), so the walks agree with their plain
+// versions, and those with JAX's walks, bit for bit.
 
 #pragma once
 
@@ -145,23 +147,31 @@ __device__ __forceinline__ bool walk_goes_on(const int* warp_worst,
   return worst != INT_MAX && *ct <= order_float(worst);
 }
 
+// x wx + y wy + z wz as fma(z, wz, fma(x, wx, y * wy)), the pattern XLA
+// contracts the affine into.
+__device__ __forceinline__ float wald_affine(float x, float y, float z,
+                                             float wx, float wy, float wz) {
+  return __fmaf_rn(z, wz, __fmaf_rn(x, wx, __fmul_rn(y, wy)));
+}
+
 // The Wald unit-triangle test of ray r against one lane of lane-major
 // coefficients (u: w0 w3 w6 w9, v: w1 w4 w7 w10, z: w2 w5 w8 w11; input
 // x, y, z, bias of outputs u, v, z): sets t and returns |d'_z| > 1e-12 &&
-// u >= 0 && v >= 0 && u + v <= 1 && t > t_min. A padding lane (all zero)
-// has d'_z == 0 and never hits.
+// u >= 0 && v >= 0 && u + v <= 1 && t > t_min. The bias adds and the
+// divide round on their own; u and v are one fma each. A padding lane (all
+// zero) has d'_z == 0 and never hits.
 __device__ __forceinline__ bool wald_lane_test(const Ray& r, const float4& u,
                                                const float4& v,
                                                const float4& z, float& t) {
-  const float op_u = ((r.ox * u.x + r.oy * u.y) + r.oz * u.z) + u.w;
-  const float op_v = ((r.ox * v.x + r.oy * v.y) + r.oz * v.z) + v.w;
-  const float op_z = ((r.ox * z.x + r.oy * z.y) + r.oz * z.z) + z.w;
-  const float dp_u = (r.dx * u.x + r.dy * u.y) + r.dz * u.z;
-  const float dp_v = (r.dx * v.x + r.dy * v.y) + r.dz * v.z;
-  const float dp_z = (r.dx * z.x + r.dy * z.y) + r.dz * z.z;
+  const float op_u = wald_affine(r.ox, r.oy, r.oz, u.x, u.y, u.z) + u.w;
+  const float op_v = wald_affine(r.ox, r.oy, r.oz, v.x, v.y, v.z) + v.w;
+  const float op_z = wald_affine(r.ox, r.oy, r.oz, z.x, z.y, z.z) + z.w;
+  const float dp_u = wald_affine(r.dx, r.dy, r.dz, u.x, u.y, u.z);
+  const float dp_v = wald_affine(r.dx, r.dy, r.dz, v.x, v.y, v.z);
+  const float dp_z = wald_affine(r.dx, r.dy, r.dz, z.x, z.y, z.z);
   t = -op_z / dp_z;
-  const float uu = op_u + t * dp_u;
-  const float vv = op_v + t * dp_v;
+  const float uu = __fmaf_rn(t, dp_u, op_u);
+  const float vv = __fmaf_rn(t, dp_v, op_v);
   return fabsf(dp_z) > 1e-12f && uu >= 0.0f && vv >= 0.0f &&
          uu + vv <= 1.0f && t > r.tn;
 }

@@ -198,6 +198,54 @@ def triangle_light_power(info: LightInfo) -> torch.Tensor:
 # the environment record; calcSample evaluates every type)
 # ---------------------------------------------------------------------------
 
+def store_point_lights(position: torch.Tensor, flux: torch.Tensor,
+                       cone_axis: torch.Tensor | None = None,
+                       cos_cone_angle: torch.Tensor | None = None,
+                       cone_softness: torch.Tensor | None = None
+                       ) -> LightInfo:
+    """Point-light records (CreatePointLight inverse, PolymorphicLight.glsl:
+    186-195: center + packed flux). A cone packs spot shaping into the
+    shaping words and sets the enable bit (LightShaping.glsl:16-25); the
+    reference never creates shaped lights, and without a cone the words
+    stay zero."""
+    color_bits, log_radiance = pack_light_color(flux)
+    n = position.shape[0]
+    zero = _full((n,), 0, position.device)
+    type_bits = K_POINT << K_TYPE_SHIFT
+    axis = cone = zero
+    if cone_axis is not None:
+        type_bits |= shaping.K_SHAPING_ENABLE_BIT
+        soft = (cone_softness if cone_softness is not None
+                else torch.zeros(n, device=position.device))
+        axis = pk.ndir_to_oct_unorm32(cone_axis)
+        cone = (pk.f32_to_f16_bits(cos_cone_angle)
+                | (pk.f32_to_f16_bits(soft) << 16))
+    return LightInfo(
+        center=position, color_type_and_flags=color_bits | type_bits,
+        direction1=zero, direction2=zero, scalars=zero,
+        log_radiance=log_radiance, shaping_axis=axis, shaping_cone=cone,
+        shaping_ies=zero)
+
+
+def store_directional_lights(direction: torch.Tensor, radiance: torch.Tensor,
+                             half_angle: torch.Tensor) -> LightInfo:
+    """Directional records (CreateDirectionalLight inverse,
+    PolymorphicLight.glsl:240-252): the oct direction, f16 half angle and
+    solid angle."""
+    color_bits, log_radiance = pack_light_color(radiance)
+    solid_angle = 2.0 * brdf.PI * (1.0 - torch.cos(half_angle))
+    n = direction.shape[0]
+    zero = _full((n,), 0, direction.device)
+    return LightInfo(
+        center=torch.zeros((n, 3), device=direction.device),
+        color_type_and_flags=color_bits | (K_DIRECTIONAL << K_TYPE_SHIFT),
+        direction1=pk.ndir_to_oct_unorm32(direction), direction2=zero,
+        scalars=(pk.f32_to_f16_bits(half_angle)
+                 | (pk.f32_to_f16_bits(solid_angle) << 16)),
+        log_radiance=log_radiance, shaping_axis=zero, shaping_cone=zero,
+        shaping_ies=zero)
+
+
 def _calc_point_sample(info: LightInfo, viewer_pos) -> LightSample:
     """(PolymorphicLight.glsl:154-168)."""
     flux = unpack_light_color(info)

@@ -8,7 +8,8 @@ sources and flags, so an edited kernel never loads a stale library. The library 
 declared c_void_p (an undeclared pointer would be cut to 32 bits).
 
 --fmad=false keeps every multiply and add separately rounded, in the order
-the source writes them: the kernel then computes the same bits as the
+the source writes them, and fuses only the explicit __fmaf_rn of the Wald
+test (csrc/walk_common.cuh): the kernel then computes the same bits as the
 plain torch version of each kernel (ops/cuda_traverse.py, ops/cull.py,
 ops/cuda_pairs.py; ops/binning.py's kernel is integer work).
 """

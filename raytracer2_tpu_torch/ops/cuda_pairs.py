@@ -208,8 +208,9 @@ def pair_sweep_reference(rays8_pairs: torch.Tensor, block_sc: torch.Tensor,
                          block_live: torch.Tensor, wald_sc: torch.Tensor
                          ) -> torch.Tensor:
     """Plain torch version of pair_sweep over the live blocks, in chunks:
-    cuda_traverse._wald_test (the kernels' unfused affines) plus the open
-    t < t_max end, so the two agree bit for bit."""
+    cuda_traverse._wald_test (XLA's contracted affines, which the kernels
+    write with __fmaf_rn) plus the open t < t_max end, so the two agree
+    bit for bit."""
     nblk, c2, w = _check_sweep_args(rays8_pairs, block_sc, block_live,
                                     wald_sc)
     dev = rays8_pairs.device

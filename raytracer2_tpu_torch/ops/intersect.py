@@ -53,6 +53,23 @@ def moller_trumbore(origin, direction, v0, edge1, edge2, t_min, t_max,
     return hit, t, u, v
 
 
+def ray_aabb(origin: torch.Tensor, inv_direction: torch.Tensor,
+             box_min: torch.Tensor, box_max: torch.Tensor, t_min, t_max
+             ) -> tuple[torch.Tensor, torch.Tensor]:
+    """The slab test of rays ([..., 3] origins and precomputed 1/d, e.g.
+    safe_inv_dir) against boxes ([..., 3] corners): (hit mask, entry t
+    clamped up to t_min). The min/max order keeps axis-parallel rays
+    robust."""
+    t0 = (box_min - origin) * inv_direction
+    t1 = (box_max - origin) * inv_direction
+    t_near = torch.minimum(t0, t1).amax(dim=-1)
+    t_far = torch.maximum(t0, t1).amin(dim=-1)
+    hit = (t_near <= t_far) & (t_far >= t_min) & (t_near <= t_max)
+    return hit, torch.maximum(t_near, torch.as_tensor(t_min,
+                                                      dtype=t_near.dtype,
+                                                      device=t_near.device))
+
+
 def safe_inv_dir(direction: torch.Tensor, eps: float = 1e-12
                  ) -> torch.Tensor:
     """1/d with tiny-component clamping so slab tests stay finite-robust."""

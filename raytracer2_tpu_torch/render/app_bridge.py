@@ -297,8 +297,10 @@ def make_bridge(scene: Scene, tracers: Tracers, gbuffer: GBuffer,
                 prev_gbuffer: GBuffer, g_const: GConst, lights: LightInfo,
                 geometry_to_light: torch.Tensor, local_pdf_mips,
                 env_pdf_mips, neighbor_offsets: torch.Tensor, width: int,
-                height: int) -> Bridge:
-    """The RAB closure bundle for one frame (RtxdiApplicationBridge.glsl)."""
+                height: int, row_base: int = 0) -> Bridge:
+    """The RAB closure bundle for one frame (RtxdiApplicationBridge.glsl).
+    row_base maps global pixel rows into (halo-padded) G-buffer row tiles
+    under row sharding."""
     view = g_const.view
     prev_view = g_const.prev_view
     isp = g_const.restir_di.initial_sampling_params
@@ -307,8 +309,9 @@ def make_bridge(scene: Scene, tracers: Tracers, gbuffer: GBuffer,
     def get_gbuffer_surface(px, py, previous_frame):
         if previous_frame:
             return surface_from_gbuffer(prev_gbuffer, prev_view, px, py,
-                                        width, height)
-        return surface_from_gbuffer(gbuffer, view, px, py, width, height)
+                                        width, height, row_base=row_base)
+        return surface_from_gbuffer(gbuffer, view, px, py, width, height,
+                                    row_base=row_base)
 
     def get_conservative_visibility(surface: Surface, sample_position):
         o, d, tmin, tmax = setup_visibility_ray(surface, sample_position)

@@ -14,6 +14,8 @@ run the temporal stage, the spatial stage or both
 
 from __future__ import annotations
 
+import math
+
 import torch
 
 from raytracer2_tpu_torch.params import GConst
@@ -52,6 +54,9 @@ def di_fused_resampling_pass(
     primary_surface: Surface | None = None,
     motion: torch.Tensor | None = None,
     prev_di_reservoirs: dires.DIReservoir | None = None,
+    row0: int = 0,
+    halo_fn=None,
+    halo_rows: int = 8,
 ) -> tuple[dires.DIReservoir, torch.Tensor, torch.Tensor]:
     """Returns (reservoirs for the shading-input slot, diffuse, specular),
     [H, W] planes, or [H, W//2] under a checkerboard field (1 or 2), where
@@ -62,12 +67,34 @@ def di_fused_resampling_pass(
     None reads it through the bridge. The temporal stage (modes 1 and 3)
     runs when `motion` (the launch grid's [..., 3] screen-space motion)
     and `prev_di_reservoirs` (last frame's temporal-input slot) are
-    given."""
+    given.
+
+    Under row sharding (parallel/mesh.py) height is the tile's, row0 its
+    first global row (pixel RNG stays global) and halo_fn(tree, r) pads a
+    reservoir tile with r rows of each neighbour tile: the temporal stage
+    reads the previous reservoirs through halo_rows of them, the spatial
+    stage through min(ceil(radius) + 1, tile rows), and gathers beyond a
+    halo clamp to it, as the JAX package's do. The port's row0 is always
+    a Python int, where JAX's is traced under shard_map: a tile that is
+    not the whole image (row0 != 0, or fewer rows than the viewport)
+    stands for JAX's traced row0 in the guard below, while mode 0 bands a
+    tile as an image of its height would (banding is bit-exact; JAX
+    never bands a traced tile)."""
     dev = diffuse_img.device
     px, py = raysmod.active_pixel_grid(width, height, field, device=dev)
+    py = py + row0
     surface = (primary_surface if primary_surface is not None
                else bridge.get_gbuffer_surface(px, py, False))
     mode = int(g_const.enable_di_resampling)
+    if mode and halo_fn is None and (row0 != 0
+                                     or height != bridge.viewport[1]):
+        # a row tile's reservoir planes hold its own rows only: global
+        # rows gathered from them would clamp to the wrong rows
+        raise ValueError(
+            "enable_di_resampling != 0 on a row tile needs halo_fn "
+            "(parallel/mesh.py::make_sharded_render_fn(explicit_halo="
+            "True)); a tile's reservoir planes cannot be gathered with "
+            "global rows")
     boiling = bool(g_const.restir_di.temporal_resampling_params
                    .enable_boiling_filter)
 
@@ -75,7 +102,9 @@ def di_fused_resampling_pass(
         return _di_fused_body(g_const, bridge, light_ctx, px, py, surface,
                               dif, spec, mode=mode, field=field,
                               motion=motion,
-                              prev_di_reservoirs=prev_di_reservoirs)
+                              prev_di_reservoirs=prev_di_reservoirs,
+                              row0=row0, halo_fn=halo_fn,
+                              halo_rows=halo_rows)
 
     threshold = (_BAND_THRESHOLD if mode == 0 and not boiling
                  else height * px.shape[1])
@@ -86,7 +115,8 @@ def di_fused_resampling_pass(
 def _di_fused_body(g_const: GConst, bridge: Bridge,
                    light_ctx: LightSamplingContext, px, py, surface: Surface,
                    diffuse_img, specular_img, mode: int = 0, field: int = 0,
-                   motion=None, prev_di_reservoirs=None):
+                   motion=None, prev_di_reservoirs=None, row0: int = 0,
+                   halo_fn=None, halo_rows: int = 8):
     seed = (g_const.frame + 13) & 0xFFFFFFFF
     rng = rtrng.init_random_sampler(px, py, seed)
     tile_rng = rtrng.init_random_sampler(px // 16, py // 16, seed)
@@ -123,9 +153,14 @@ def _di_fused_body(g_const: GConst, bridge: Bridge,
             enable_visibility_shortcut=bool(trp.discard_invisible_samples),
             enable_permutation_sampling=bool(trp.enable_permutation_sampling),
             active_checkerboard_field=field)
+        # under sharding the previous reservoir tile, halo-padded
+        prev_src, prev_base = prev_di_reservoirs, 0
+        if halo_fn is not None:
+            prev_src = halo_fn(prev_di_reservoirs, halo_rows)
+            prev_base = row0 - halo_rows
         reservoir, rng = di_temporal_resampling(
             px, py, surface, reservoir, rng, t_spec, motion,
-            trp.uniform_random_number, prev_di_reservoirs, bridge)
+            trp.uniform_random_number, prev_src, bridge, row_base=prev_base)
         vis_known = None  # the selected sample may no longer be ours
 
     # the DI boiling filter (DIResamplingFunctions.hlsli:101-116) on the
@@ -146,10 +181,19 @@ def _di_fused_body(g_const: GConst, bridge: Bridge,
             discount_naive_samples=bool(srp.discount_naive_samples),
             active_checkerboard_field=field,
             neighbor_offset_mask=srp.neighbor_offset_mask)
-        # the neighbours' source is this frame's reservoir image itself
+        # the neighbours' source is this frame's reservoir image itself;
+        # under sharding padded with up to a tile of halo rows (the DI
+        # radius can exceed a small tile; gathers beyond the halo clamp,
+        # as at the screen's edges, RtxdiApplicationBridge.glsl:252-265)
+        src, src_base = reservoir, 0
+        if halo_fn is not None:
+            r = min(math.ceil(float(srp.spatial_sampling_radius)) + 1,
+                    reservoir.weight_sum.shape[0])
+            src = halo_fn(reservoir, r)
+            src_base = row0 - r
         reservoir, rng = di_spatial_resampling(px, py, surface, reservoir,
-                                               rng, s_spec, reservoir,
-                                               bridge)
+                                               rng, s_spec, src, bridge,
+                                               row_base=src_base)
         vis_known = None
 
     if mode != 0:

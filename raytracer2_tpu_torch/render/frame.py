@@ -190,7 +190,8 @@ FRAME_PASSES = ("gbuffer", "di", "brdf_rays", "shade_secondary",
 
 
 def render_frame(renderer: Renderer, g_const: GConst, state: FrameState,
-                 stop_after: str | None = None):
+                 stop_after: str | None = None, row0: int = 0,
+                 halo_fn=None, halo_rows: int = 8):
     """One frame (light_passes.rs:550-663 + post-process + frame-state
     rotation): (new state, display image [H, W, 3] in [0, 1]).
 
@@ -201,12 +202,21 @@ def render_frame(renderer: Renderer, g_const: GConst, state: FrameState,
     active_checkerboard_field 1 or 2) every lighting pass launches on the
     active half of the pixels and the inactive half keeps last frame's
     lighting; the state must come from init_frame_state(checkerboard=True).
-    The input state is never written to."""
+    The input state is never written to.
+
+    Row sharding (parallel/mesh.py::make_sharded_render_fn): `state` holds
+    one row tile of the frame state, row0 is its first global row and
+    halo_fn(tree, r) pads row tiles with r rows of each neighbour tile
+    (parallel/halo.py). The stencil passes (temporal reprojection, the
+    spatial neighbours) read through the halo; pixel RNG and the view
+    math stay global, so a tile's image equals those rows of the whole
+    frame wherever no read leaves its halo. The image is the tile's."""
     if stop_after is not None and stop_after not in FRAME_PASSES:
         raise ValueError(f"stop_after must be one of {FRAME_PASSES}, "
                          f"not {stop_after!r}")
     scene = renderer.scene
     width, height = renderer.width, renderer.height
+    height_local = state.gbuffer.depth.shape[0]
     prev_gbuffer = state.gbuffer
 
     if g_const.refrence_mode:
@@ -235,16 +245,16 @@ def render_frame(renderer: Renderer, g_const: GConst, state: FrameState,
     # G-buffer and post stay full resolution
     field = int(g_const.runtime_params.active_checkerboard_field)
     w_res = width // 2 if field else width
-    if state.secondary.pdf.shape != (height, w_res):
+    if state.secondary.pdf.shape != (height_local, w_res):
         raise ValueError(
-            f"field {field} needs a state of [{height}, {w_res}] reservoirs "
-            f"(init_frame_state(checkerboard={bool(field)})), not "
+            f"field {field} needs a state of [{height_local}, {w_res}] "
+            f"reservoirs (init_frame_state(checkerboard={bool(field)})), not "
             f"{list(state.secondary.pdf.shape)}")
 
     # 1. G-buffer pass (light_passes.rs:598-606)
     gbuffer, motion = gbuffer_pass(scene, g_const,
                                    renderer.tracers.closest_hit, width,
-                                   height)
+                                   height_local, row0=row0)
     if stop_after == "gbuffer":
         return state, (gbuffer, motion)
     # the passes read and write the active field of the persistent
@@ -258,14 +268,23 @@ def render_frame(renderer: Renderer, g_const: GConst, state: FrameState,
 
     if g_const.enable_restir_di or g_const.enable_restir_gi:
         lights = renderer.scene_lights
+        # under sharding the bridge reads halo-padded G-buffer tiles, so
+        # the neighbours' surface reads stay on the tile
+        bridge_gbuffer, bridge_prev, row_base = gbuffer, prev_gbuffer, 0
+        if halo_fn is not None:
+            bridge_gbuffer = halo_fn(gbuffer, halo_rows)
+            bridge_prev = halo_fn(prev_gbuffer, halo_rows)
+            row_base = row0 - halo_rows
         bridge = make_bridge(
-            scene, renderer.tracers, gbuffer, prev_gbuffer, g_const,
+            scene, renderer.tracers, bridge_gbuffer, bridge_prev, g_const,
             lights.lights, lights.geometry_to_light, lights.local_pdf_mips,
-            lights.env_pdf_mips, renderer.neighbor_offsets, width, height)
+            lights.env_pdf_mips, renderer.neighbor_offsets, width, height,
+            row_base=row_base)
         light_ctx = renderer.light_ctx(g_const)
         # every lighting pass reads the primary surface at the launch grid:
         # reconstructed once, from whole planes
-        primary = surface_from_gbuffer_grid(gbuffer, g_const.view, field)
+        primary = surface_from_gbuffer_grid(gbuffer, g_const.view, field,
+                                            row0=row0)
 
     # 2. DI fused resampling (light_passes.rs:608-619); with
     # enable_di_resampling != 0 the shaded reservoir also goes to the
@@ -273,10 +292,12 @@ def render_frame(renderer: Renderer, g_const: GConst, state: FrameState,
     if g_const.enable_restir_di:
         di_idx = g_const.restir_di.buffer_indices
         di_res, diffuse, specular = di_fused_resampling_pass(
-            g_const, bridge, light_ctx, diffuse, specular, width, height,
-            field=field, primary_surface=primary, motion=motion_act,
+            g_const, bridge, light_ctx, diffuse, specular, width,
+            height_local, field=field, primary_surface=primary,
+            motion=motion_act,
             prev_di_reservoirs=state.di_reservoirs[
-                di_idx.temporal_resampling_input_buffer_index])
+                di_idx.temporal_resampling_input_buffer_index],
+            row0=row0, halo_fn=halo_fn, halo_rows=halo_rows)
         di_slots[di_idx.shading_input_buffer_index] = di_res
         if g_const.enable_di_resampling:
             di_slots[di_idx.temporal_resampling_input_buffer_index] = di_res
@@ -288,13 +309,14 @@ def render_frame(renderer: Renderer, g_const: GConst, state: FrameState,
         gi_idx = g_const.restir_gi.buffer_indices
         secondary, diffuse, specular = brdf_rays_pass(
             scene, g_const, renderer.tracers, bridge, diffuse, specular,
-            width, height, field=field, primary_surface=primary)
+            width, height_local, field=field, primary_surface=primary,
+            row0=row0)
         if stop_after == "brdf_rays":
             return state, (secondary, diffuse, specular)
         current, secondary, diffuse, specular = shade_secondary_surfaces_pass(
             scene, g_const, renderer.tracers, bridge, light_ctx, secondary,
-            diffuse, specular, width, height, field=field,
-            primary_surface=primary)
+            diffuse, specular, width, height_local, field=field,
+            primary_surface=primary, row0=row0)
         gi_slots[gi_idx.secondary_surface_restir_di_output_buffer_index] = \
             current
         if stop_after == "shade_secondary":
@@ -303,20 +325,24 @@ def render_frame(renderer: Renderer, g_const: GConst, state: FrameState,
             prev_src = state.gi_reservoirs[
                 gi_idx.temporal_resampling_input_buffer_index]
             current = gi_temporal_pass(g_const, bridge, current, prev_src,
-                                       motion_act, width, height,
-                                       field=field, primary_surface=primary)
+                                       motion_act, width, height_local,
+                                       field=field, primary_surface=primary,
+                                       row0=row0, halo_fn=halo_fn,
+                                       halo_rows=halo_rows)
             gi_slots[gi_idx.temporal_resampling_output_buffer_index] = current
         if stop_after == "gi_temporal":
             return state, (current, diffuse, specular)
         if g_const.enable_spatial_resampling:
-            current = gi_spatial_pass(g_const, bridge, current, width, height,
-                                      field=field, primary_surface=primary)
+            current = gi_spatial_pass(g_const, bridge, current, width,
+                                      height_local, field=field,
+                                      primary_surface=primary, row0=row0,
+                                      halo_fn=halo_fn)
             gi_slots[gi_idx.spatial_resampling_output_buffer_index] = current
         if stop_after == "gi_spatial":
             return state, (current, diffuse, specular)
         diffuse, specular = gi_final_shading_pass(
             g_const, bridge, current, secondary, diffuse, specular, width,
-            height, field=field, primary_surface=primary)
+            height_local, field=field, primary_surface=primary, row0=row0)
     if stop_after == "gi_final":
         return state, (diffuse, specular)
     diffuse = raysmod.scatter_field(state.diffuse_lighting, diffuse, field)
@@ -330,7 +356,7 @@ def render_frame(renderer: Renderer, g_const: GConst, state: FrameState,
         specular_f0=pk.unpack_rgba8_gamma_ufloat(
             gbuffer.specular_rough)[..., :3],
         emissive=gbuffer.emissive, diffuse=diffuse, specular=specular)
-    output, env_motion = post_process(scene, g_const, inputs)
+    output, env_motion = post_process(scene, g_const, inputs, row0=row0)
     background = (gbuffer.depth == BACKGROUND_DEPTH)[..., None]
     motion = torch.cat([torch.where(background, env_motion, motion[..., :2]),
                         motion[..., 2:]], dim=-1)

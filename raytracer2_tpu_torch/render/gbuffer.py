@@ -91,9 +91,15 @@ def _fetch_pack(scene: Scene, g_const: GConst, hit, origin, direction
 
 
 def gbuffer_pass(scene: Scene, g_const: GConst, trace_fn, width: int,
-                 height: int) -> tuple[GBuffer, torch.Tensor]:
+                 height: int, row0: int = 0) -> tuple[GBuffer, torch.Tensor]:
     """Trace primary rays and fill the G-buffer + motion vectors
-    (g_buffer.rgen:14-47). Returns (GBuffer, motion [H, W, 3])."""
+    (g_buffer.rgen:14-47). Returns (GBuffer, motion [H, W, 3]).
+
+    row0: under row sharding (parallel/mesh.py) the global row of this
+    tile's first row, height the tile's rows. The port's row0 is a Python
+    int, so a tile takes the 8x16 layout when its own shape divides, where
+    JAX's traced row0 under shard_map always takes the Z-curve: only the
+    rays' order differs, which changes a hit only on a tie."""
     dev = scene.device
     tiles = raysmod.tile_shape(width, height)
     if tiles is not None:
@@ -103,7 +109,8 @@ def gbuffer_pass(scene: Scene, g_const: GConst, trace_fn, width: int,
         zidx, zinv = raysmod.zorder_permutation(width, height)
     lin = np.arange(width * height)
     px_z = torch.from_numpy((lin % width).astype(np.int32)[zidx]).to(dev)
-    py_z = torch.from_numpy((lin // width).astype(np.int32)[zidx]).to(dev)
+    py_z = torch.from_numpy(
+        (lin // width + row0).astype(np.int32)[zidx]).to(dev)
 
     rays_z = raysmod.setup_primary_ray(px_z, py_z, g_const.view)
     hit = trace_fn(rays_z.origin, rays_z.direction, rays_z.t_min,
@@ -159,28 +166,35 @@ def _surface(view: PlanarViewConstants, px, py, depth, normals_u32,
 
 
 def surface_from_gbuffer_grid(gbuffer: GBuffer, view: PlanarViewConstants,
-                              field: int = 0) -> Surface:
+                              field: int = 0, row0: int = 0) -> Surface:
     """Surface reconstruction over the whole (or checkerboard) launch
     grid from whole planes, no per-pixel gathers; equal to
-    surface_from_gbuffer at the same pixels."""
+    surface_from_gbuffer at the same pixels. row0: the global row of a
+    row-sharded G-buffer tile's first row."""
     h, w = gbuffer.depth.shape
     px, py = raysmod.active_pixel_grid(w, h, field,
                                        device=gbuffer.depth.device)
+    py = py + row0
     g = [raysmod.gather_field(x, field) for x in gbuffer]
     return _surface(view, px, py, *g[:5])
 
 
 def surface_from_gbuffer(gbuffer: GBuffer, view: PlanarViewConstants,
                          pixel_x: torch.Tensor, pixel_y: torch.Tensor,
-                         width: int, height: int) -> Surface:
+                         width: int, height: int, row_base: int = 0
+                         ) -> Surface:
     """Port of GetGBufferSurface (RtxdiApplicationBridge.glsl:295-321): a
     Surface from the packed planes at gathered pixel positions;
-    out-of-view positions yield invalid surfaces."""
+    out-of-view positions yield invalid surfaces. row_base: the global row
+    of the G-buffer's first row when it is a (halo-padded) row tile; rows
+    outside the tile clamp to its edge rows, and the view math stays
+    global."""
     in_view = ((pixel_x >= 0) & (pixel_x < width)
                & (pixel_y >= 0) & (pixel_y < height))
     x = torch.clamp(pixel_x, 0, width - 1).long()
-    y = torch.clamp(pixel_y, 0, height - 1).long()
+    y = torch.clamp(torch.clamp(pixel_y, 0, height - 1) - row_base, 0,
+                    gbuffer.depth.shape[0] - 1).long()
     depth = torch.where(in_view, gbuffer.depth[y, x], BACKGROUND_DEPTH)
-    return _surface(view, x, y, depth, gbuffer.normals[y, x],
+    return _surface(view, x, y + row_base, depth, gbuffer.normals[y, x],
                     gbuffer.geo_normals[y, x], gbuffer.diffuse_albedo[y, x],
                     gbuffer.specular_rough[y, x])

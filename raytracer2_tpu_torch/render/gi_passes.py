@@ -22,6 +22,7 @@ cull being exact).
 
 from __future__ import annotations
 
+import math
 from typing import NamedTuple
 
 import torch
@@ -95,11 +96,13 @@ def _flat(x, n: int):
 
 
 def _primary(bridge: Bridge, width: int, height: int, field: int,
-             primary_surface, device
+             primary_surface, device, row0: int = 0
              ) -> tuple[torch.Tensor, torch.Tensor, Surface]:
     """The launch grid's pixels and primary surface: [H, W], or the
-    active field's [H, W//2]."""
+    active field's [H, W//2]; row0 is the global row of a row tile's
+    first row (parallel/mesh.py), so the pixels are global."""
     px, py = raysmod.active_pixel_grid(width, height, field, device=device)
+    py = py + row0
     if primary_surface is None:
         primary_surface = bridge.get_gbuffer_surface(px, py, False)
     return px, py, primary_surface
@@ -120,15 +123,20 @@ def brdf_rays_pass(
     height: int,
     field: int = 0,
     primary_surface: Surface | None = None,
+    row0: int = 0,
 ) -> tuple[SecondaryGBuffer, torch.Tensor, torch.Tensor]:
     """brdf_rays.rgen:19-194. Returns (secondary G-buffer, diffuse,
     specular), planes of the launch grid: [H, W], or [H, W//2] under a
     checkerboard field (brdf_rays.rgen:21), whose half diffuse_img and
     specular_img then are too. primary_surface: the launch grid's surface
     (surface_from_gbuffer_grid), computed once per frame by render_frame;
-    None reads it through the bridge."""
+    None reads it through the bridge. Under row sharding height is the
+    tile's and row0 its first global row: pixel RNG stays global. The
+    port's row0 is a Python int, so a sharded tile bands as an image of
+    its height would (JAX's traced row0 never bands; banding is
+    bit-exact either way)."""
     px, py, surface = _primary(bridge, width, height, field,
-                               primary_surface, diffuse_img.device)
+                               primary_surface, diffuse_img.device, row0)
 
     def body(px, py, surface, dif, spec):
         return _brdf_rays_body(scene, g_const, tracers, px, py, surface, dif,
@@ -335,12 +343,13 @@ def shade_secondary_surfaces_pass(
     height: int,
     field: int = 0,
     primary_surface: Surface | None = None,
+    row0: int = 0,
 ) -> tuple[GIReservoir, SecondaryGBuffer, torch.Tensor, torch.Tensor]:
     """shade_secondary_surfaces.rgen:26-157. Returns (initial GI
     reservoirs, updated secondary G-buffer, diffuse, specular), planes of
-    the launch grid (brdf_rays_pass)."""
+    the launch grid (brdf_rays_pass; row0 as there)."""
     px, py, primary = _primary(bridge, width, height, field,
-                               primary_surface, diffuse_img.device)
+                               primary_surface, diffuse_img.device, row0)
 
     def body(px, py, primary, secondary, dif, spec):
         return _shade_secondary_body(scene, g_const, tracers, bridge,
@@ -453,13 +462,20 @@ def gi_temporal_pass(
     height: int,
     field: int = 0,
     primary_surface: Surface | None = None,
+    row0: int = 0,
+    row_base: int = 0,
+    halo_fn=None,
+    halo_rows: int = 8,
 ) -> GIReservoir:
     """temporal_resampling.rgen:13-48, on the launch grid (brdf_rays_pass);
     under a checkerboard field the neighbour math stays in full-resolution
     pixels and the library maps them to reservoir positions
-    (temporal_resampling.rgen:16)."""
+    (temporal_resampling.rgen:16). Under row sharding (row0 as in
+    brdf_rays_pass) halo_fn pads the previous frame's reservoir tile with
+    halo_rows rows of each neighbour (reprojections beyond them clamp to
+    the halo) and row_base maps global rows into the padded tile."""
     px, py, primary = _primary(bridge, width, height, field,
-                               primary_surface, motion.device)
+                               primary_surface, motion.device, row0)
     h, w = px.shape
     n = h * w
     rng = rtrng.init_random_sampler(px, py, g_const.frame + 7 * 13)
@@ -480,11 +496,15 @@ def gi_temporal_pass(
         enable_fallback_sampling=bool(tp.enable_fallback_sampling),
         active_checkerboard_field=(
             g_const.runtime_params.active_checkerboard_field))
+    prev_src, prev_base = prev_reservoirs, row_base
+    if halo_fn is not None:
+        prev_src = halo_fn(prev_reservoirs, halo_rows)
+        prev_base = row0 - halo_rows
     out, _ = gi_resampling.gi_temporal_resampling(
         px.reshape(-1), py.reshape(-1), _flat(primary, n),
         _flat(input_reservoirs, n), _flat(rng, n), spec,
         motion_px.reshape(-1, 3), int(tp.uniform_random_number),
-        max_age.reshape(-1), prev_reservoirs, bridge)
+        max_age.reshape(-1), prev_src, bridge, row_base=prev_base)
     out = GIReservoir(*(a.reshape((h, w) + a.shape[1:]) for a in out))
     if tp.enable_boiling_filter:
         # at the end of the temporal pass (GIResamplingFunctions.hlsli:
@@ -501,12 +521,17 @@ def gi_spatial_pass(
     height: int,
     field: int = 0,
     primary_surface: Surface | None = None,
+    row0: int = 0,
+    row_base: int = 0,
+    halo_fn=None,
 ) -> GIReservoir:
     """spatial_resampling.rgen:13-39, on the launch grid
-    (brdf_rays_pass)."""
+    (brdf_rays_pass). Under row sharding halo_fn pads the neighbours'
+    source tile with ceil(radius) + 1 rows of each neighbour and row_base
+    maps global rows into it."""
     dev = input_reservoirs.weight_sum.device
     px, py, primary = _primary(bridge, width, height, field,
-                               primary_surface, dev)
+                               primary_surface, dev, row0)
     h, w = px.shape
     n = h * w
     rng = rtrng.init_random_sampler(px, py, g_const.frame + 8 * 13)
@@ -520,10 +545,15 @@ def gi_spatial_pass(
         active_checkerboard_field=(
             g_const.runtime_params.active_checkerboard_field),
         neighbor_offset_mask=g_const.runtime_params.neighbor_offset_mask)
+    source, src_base = input_reservoirs, row_base
+    if halo_fn is not None:
+        r = math.ceil(float(sp.spatial_sampling_radius)) + 1
+        source = halo_fn(input_reservoirs, r)
+        src_base = row0 - r
     out, _ = gi_resampling.gi_spatial_resampling(
         px.reshape(-1), py.reshape(-1), _flat(primary, n),
-        _flat(input_reservoirs, n), _flat(rng, n), spec, input_reservoirs,
-        bridge)
+        _flat(input_reservoirs, n), _flat(rng, n), spec, source, bridge,
+        row_base=src_base)
     out = GIReservoir(*(a.reshape((h, w) + a.shape[1:]) for a in out))
     return where_gi(primary.valid, out, input_reservoirs)
 
@@ -558,12 +588,13 @@ def gi_final_shading_pass(
     height: int,
     field: int = 0,
     primary_surface: Surface | None = None,
+    row0: int = 0,
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """gi_final_shading.rgen:43-101: optional final visibility, the split
     BRDF and MIS against the initial sample, on the launch grid
-    (brdf_rays_pass)."""
+    (brdf_rays_pass; row0 as there)."""
     px, _, primary = _primary(bridge, width, height, field,
-                              primary_surface, diffuse_img.device)
+                              primary_surface, diffuse_img.device, row0)
 
     def body(primary, res, sec, dif, spec):
         return _gi_final_shading_body(g_const, bridge, res, sec, dif, spec,

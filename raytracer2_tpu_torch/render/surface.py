@@ -37,6 +37,20 @@ class Surface(NamedTuple):
         return self.view_depth != BACKGROUND_DEPTH
 
 
+def empty_surface(shape, *, device, dtype=torch.float32) -> Surface:
+    """RAB_EmptySurface (bridge:161-166): zeros, view_depth =
+    BACKGROUND_DEPTH."""
+    shape = tuple(shape)
+    v3 = torch.zeros(shape + (3,), dtype=dtype, device=device)
+    v1 = torch.zeros(shape, dtype=dtype, device=device)
+    return Surface(
+        world_pos=v3, view_dir=v3,
+        view_depth=torch.full(shape, BACKGROUND_DEPTH, dtype=dtype,
+                              device=device),
+        normal=v3, geo_normal=v3, diffuse_albedo=v3, specular_f0=v3,
+        roughness=v1, diffuse_probability=v1)
+
+
 def get_surface_diffuse_probability(surface_albedo, specular_f0, view_dir,
                                     normal) -> torch.Tensor:
     """Bridge getSurfaceDiffuseProbability is hardcoded to 1.0 — the

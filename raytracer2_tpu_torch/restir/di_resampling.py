@@ -22,13 +22,12 @@ from raytracer2_tpu_torch.render.surface import (
 from raytracer2_tpu_torch.restir import helpers
 from raytracer2_tpu_torch.restir.bridge import Bridge
 from raytracer2_tpu_torch.restir.di_reservoir import (
-    DIReservoir, _where_res, combine_reservoirs, empty_di_reservoir,
+    MAX_M, DIReservoir, _where_res, combine_reservoirs, empty_di_reservoir,
     finalize_resampling, internal_simple_resample, is_valid, light_index,
     sample_uv)
 from raytracer2_tpu_torch.utils import rng as rtrng
 
 NAIVE_SAMPLING_M_THRESHOLD = 2  # (DIResamplingFunctions.hlsli:27)
-MAX_M = 0x3FFF
 
 
 def _gather_di(buf: DIReservoir, x, y) -> DIReservoir:
@@ -111,13 +110,14 @@ def di_temporal_resampling(
         px: torch.Tensor, py: torch.Tensor, surface: Surface,
         cur_sample: DIReservoir, rng: rtrng.RngState, spec: DITemporalSpec,
         screen_space_motion: torch.Tensor, uniform_random_number: int,
-        prev_reservoirs: DIReservoir, bridge: Bridge
+        prev_reservoirs: DIReservoir, bridge: Bridge, row_base: int = 0
         ) -> tuple[DIReservoir, rtrng.RngState]:
     """RTXDI_DITemporalResampling (DIResamplingFunctions.hlsli:170-360):
     the 9-candidate reprojection search, the merge of the previous
     reservoir and its bias correction. px/py: the launch grid;
     screen_space_motion [..., 3] in pixels; prev_reservoirs [H, W] (or
-    [H, W//2] under a checkerboard field)."""
+    [H, W//2] under a checkerboard field), or under row sharding a
+    halo-padded row tile whose first row is global row row_base."""
     height = bridge.viewport[1]
     shape = tuple(px.shape)
     dev = px.device
@@ -191,7 +191,7 @@ def di_temporal_resampling(
     rx, ry = helpers.pixel_pos_to_reservoir_pos(
         torch.clamp(sel_x, 0, prev_reservoirs.weight_sum.shape[1] - 1),
         torch.clamp(sel_y, 0, height - 1), field)
-    prev = _gather_di(prev_reservoirs, rx, ry)
+    prev = _gather_di(prev_reservoirs, rx, ry - row_base)
     prev = prev._replace(
         m=torch.minimum(prev.m, history_limit),
         spatial_distance=prev.spatial_distance + sel_offset,
@@ -251,12 +251,15 @@ class DISpatialSpec:
 def di_spatial_resampling(
         px: torch.Tensor, py: torch.Tensor, surface: Surface,
         center_sample: DIReservoir, rng: rtrng.RngState, spec: DISpatialSpec,
-        cur_reservoirs: DIReservoir, bridge: Bridge
+        cur_reservoirs: DIReservoir, bridge: Bridge, row_base: int = 0
         ) -> tuple[DIReservoir, rtrng.RngState]:
     """RTXDI_DISpatialResampling (DIResamplingFunctions.hlsli:504-677),
     with the pairwise-MIS variant (:409-494). The disocclusion boost takes
     the static most samples and masks the extra ones per lane; the
-    ray-traced bias correction casts one visibility batch per sample."""
+    ray-traced bias correction casts one visibility batch per sample.
+    Under row sharding cur_reservoirs is a halo-padded row tile whose
+    first row is global row row_base; gathers past it clamp to its edge
+    rows."""
     width, height = bridge.viewport
     shape = tuple(px.shape)
     dev = px.device
@@ -284,7 +287,8 @@ def di_spatial_resampling(
 
     def neighbor_reservoir(ix, iy):
         rx, ry = helpers.pixel_pos_to_reservoir_pos(ix, iy, field)
-        return _gather_di(cur_reservoirs, rx, torch.clamp(ry, 0, height - 1))
+        return _gather_di(cur_reservoirs, rx,
+                          torch.clamp(ry, 0, height - 1) - row_base)
 
     for i in range(max_samples):
         in_count = i < lane_samples
@@ -371,16 +375,16 @@ def di_spatio_temporal_resampling(
         px, py, surface: Surface, cur_sample: DIReservoir,
         rng: rtrng.RngState, t_spec: DITemporalSpec, s_spec: DISpatialSpec,
         screen_space_motion, uniform_random_number: int,
-        prev_reservoirs: DIReservoir, bridge: Bridge
+        prev_reservoirs: DIReservoir, bridge: Bridge, row_base: int = 0
         ) -> tuple[DIReservoir, rtrng.RngState]:
     """RTXDI_DISpatioTemporalResampling (DIResamplingFunctions.hlsli:935+),
     as the JAX package composes it: the temporal merge, then a spatial walk
-    whose source is the previous frame's reservoirs."""
+    whose source is the previous frame's reservoirs (row_base as in both)."""
     merged, rng = di_temporal_resampling(
         px, py, surface, cur_sample, rng, t_spec, screen_space_motion,
-        uniform_random_number, prev_reservoirs, bridge)
+        uniform_random_number, prev_reservoirs, bridge, row_base=row_base)
     return di_spatial_resampling(px, py, surface, merged, rng, s_spec,
-                                 prev_reservoirs, bridge)
+                                 prev_reservoirs, bridge, row_base=row_base)
 
 
 def di_boiling_filter(reservoirs: DIReservoir, filter_strength

@@ -4,7 +4,9 @@ raytracer2_tpu/restir/di_reservoir.py (rtxdi/DIReservoir.hlsli).
 A reservoir is a NamedTuple of per-pixel tensors; RTXDI_StreamSample,
 RTXDI_InternalSimpleResample, RTXDI_CombineDIReservoirs and
 RTXDI_FinalizeResampling (DIReservoir.hlsli:241-340) are elementwise
-masked updates over the whole image. uint32 words are int64 tensors.
+masked updates over the whole image. The packed 24-byte form
+(RTXDI_PackedDIReservoir, RtxdiParameters.h:96-104) keeps the reference's
+bit layout. uint32 words are int64 tensors.
 """
 
 from __future__ import annotations
@@ -14,8 +16,18 @@ from typing import NamedTuple
 import torch
 
 # Packing constants (DIReservoir.hlsli:62-80)
+VISIBILITY_MASK = 0x3FFFF
 VISIBILITY_CHANNEL_MAX = 0x3F
 VISIBILITY_CHANNEL_SHIFT = 6
+M_SHIFT = 18
+MAX_M = 0x3FFF
+DISTANCE_CHANNEL_BITS = 8
+DISTANCE_X_SHIFT = 0
+DISTANCE_Y_SHIFT = 8
+AGE_SHIFT = 16
+MAX_AGE = 0xFF
+DISTANCE_MASK = (1 << DISTANCE_CHANNEL_BITS) - 1
+MAX_DISTANCE = (1 << (DISTANCE_CHANNEL_BITS - 1)) - 1
 LIGHT_VALID_BIT = 0x80000000
 LIGHT_INDEX_MASK = 0x7FFFFFFF
 FLT_MIN_NORMAL = float(torch.finfo(torch.float32).tiny)
@@ -203,3 +215,56 @@ def get_reservoir_visibility(res: DIReservoir, max_age, max_distance
          .to(torch.float32) / float(VISIBILITY_CHANNEL_MAX)
          for i in range(3)], dim=-1)
     return ok, torch.where(ok[..., None], vis, 0.0)
+
+
+# ---------------------------------------------------------------------------
+# Packed form (the bit layout of RTXDI_PackedDIReservoir)
+# ---------------------------------------------------------------------------
+
+class PackedDIReservoir(NamedTuple):
+    """(RtxdiParameters.h:96-104): 6 32-bit words."""
+
+    light_data: torch.Tensor  # u32
+    uv_data: torch.Tensor  # u32
+    m_visibility: torch.Tensor  # u32
+    distance_age: torch.Tensor  # u32
+    target_pdf: torch.Tensor  # f32
+    weight: torch.Tensor  # f32
+
+
+def pack_di_reservoir(res: DIReservoir) -> PackedDIReservoir:
+    """(DIReservoir.hlsli:82-103)."""
+    sd = torch.clamp(res.spatial_distance.to(torch.int64), -MAX_DISTANCE,
+                     MAX_DISTANCE)
+    m_vis = res.packed_visibility | (
+        torch.clamp_max(res.m.to(torch.int64), MAX_M) << M_SHIFT)
+    dist_age = (((sd[..., 0] & DISTANCE_MASK) << DISTANCE_X_SHIFT)
+                | ((sd[..., 1] & DISTANCE_MASK) << DISTANCE_Y_SHIFT)
+                | (torch.clamp_max(res.age, MAX_AGE) << AGE_SHIFT))
+    return PackedDIReservoir(
+        light_data=res.light_data, uv_data=res.uv_data,
+        m_visibility=m_vis, distance_age=dist_age,
+        target_pdf=res.target_pdf, weight=res.weight_sum)
+
+
+def unpack_di_reservoir(p: PackedDIReservoir) -> DIReservoir:
+    """(DIReservoir.hlsli:132-153), with the discard of a non-finite
+    weight."""
+    def sext(word, shift):  # the signed 8-bit channel at `shift`
+        v = (word >> shift) & DISTANCE_MASK
+        return torch.where(v > MAX_DISTANCE, v - (1 << DISTANCE_CHANNEL_BITS),
+                           v).to(torch.int32)
+
+    res = DIReservoir(
+        light_data=p.light_data, uv_data=p.uv_data, weight_sum=p.weight,
+        target_pdf=p.target_pdf,
+        m=((p.m_visibility >> M_SHIFT) & MAX_M).to(torch.float32),
+        packed_visibility=p.m_visibility & VISIBILITY_MASK,
+        spatial_distance=torch.stack(
+            [sext(p.distance_age, DISTANCE_X_SHIFT),
+             sext(p.distance_age, DISTANCE_Y_SHIFT)], dim=-1),
+        age=(p.distance_age >> AGE_SHIFT) & MAX_AGE,
+        canonical_weight=torch.zeros_like(p.weight))
+    bad = ~torch.isfinite(res.weight_sum)
+    return _where_res(bad, empty_di_reservoir(bad.shape, device=bad.device),
+                      res)

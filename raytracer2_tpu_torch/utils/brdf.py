@@ -151,6 +151,19 @@ def ggx_d(noh: torch.Tensor, alpha: torch.Tensor,
     return (alpha * alpha) / (PI * denom)
 
 
+def importance_sample_ggx(random: torch.Tensor, roughness: torch.Tensor
+                          ) -> torch.Tensor:
+    """Classic NDF sampling: the half vector in tangent space
+    (ref: Helpers.glsl:128-142)."""
+    alpha = roughness * roughness
+    phi = 2.0 * PI * random[..., 0]
+    cos_theta = torch.sqrt((1.0 - random[..., 1])
+                           / (1.0 + (alpha * alpha - 1.0) * random[..., 1]))
+    sin_theta = torch.sqrt(1.0 - cos_theta * cos_theta)
+    return torch.stack([sin_theta * torch.cos(phi),
+                        sin_theta * torch.sin(phi), cos_theta], dim=-1)
+
+
 def importance_sample_ggx_vndf(random: torch.Tensor, roughness: torch.Tensor,
                                ve: torch.Tensor,
                                ndf_trim: float = 1.0) -> torch.Tensor:
@@ -262,3 +275,32 @@ def equirect_uv_to_direction(uv: torch.Tensor
     d = torch.stack([torch.cos(azimuth) * cos_el, torch.sin(elevation),
                      torch.sin(azimuth) * cos_el], dim=-1)
     return d, cos_el
+
+
+def basic_tone_mapping(color: torch.Tensor, bias) -> torch.Tensor:
+    """Reinhard-style luminance mapping (ref: Helpers.glsl:99-110)."""
+    lum = luminance(color)
+    new_lum = lum / (bias + lum)
+    scale = torch.where(lum > 0.0, new_lum / torch.clamp_min(lum, 1e-20),
+                        1.0)
+    return color * scale[..., None]
+
+
+def cartesian_to_spherical(v: torch.Tensor
+                           ) -> tuple[torch.Tensor, torch.Tensor,
+                                      torch.Tensor]:
+    """(r, azimuth, elevation) (ref: RtxdiMath.hlsli:81-88)."""
+    r = torch.linalg.vector_norm(v, dim=-1)
+    n = v / torch.clamp_min(r, 1e-30)[..., None]
+    azimuth = torch.atan2(n[..., 2], n[..., 0])
+    elevation = torch.asin(torch.clamp(n[..., 1], -1.0, 1.0))
+    return r, azimuth, elevation
+
+
+def spherical_to_cartesian(r: torch.Tensor, azimuth: torch.Tensor,
+                           elevation: torch.Tensor) -> torch.Tensor:
+    """(ref: RtxdiMath.hlsli:90-101)."""
+    cos_el = torch.cos(elevation)
+    return torch.stack([r * torch.cos(azimuth) * cos_el,
+                        r * torch.sin(elevation),
+                        r * torch.sin(azimuth) * cos_el], dim=-1)

@@ -433,3 +433,39 @@ def test_spatial_offsets_and_reservoir_pointers_match_jax():
                                          torch.from_numpy(ry), 1).numpy(),
         np.asarray(jh.reservoir_position_to_pointer(
             jp, jnp.asarray(rx), jnp.asarray(ry), 1)))
+
+
+def test_packed_di_reservoir_bit_exact():
+    """pack_di_reservoir's six words bit for bit (spatial distances past
+    the 8-bit channel, M past MAX_M, ages past MAX_AGE and non-finite
+    weights included), and unpack_di_reservoir of JAX's words, its
+    discard of a non-finite weight included, bit for bit."""
+    from raytracer2_tpu.restir import di_reservoir as jres
+    from raytracer2_tpu_torch.restir import di_reservoir as tres
+
+    assert (tres.VISIBILITY_MASK, tres.M_SHIFT, tres.MAX_M,
+            tres.DISTANCE_CHANNEL_BITS, tres.DISTANCE_X_SHIFT,
+            tres.DISTANCE_Y_SHIFT, tres.AGE_SHIFT, tres.MAX_AGE,
+            tres.DISTANCE_MASK, tres.MAX_DISTANCE) == (
+        jres.VISIBILITY_MASK, jres.M_SHIFT, jres.MAX_M,
+        jres.DISTANCE_CHANNEL_BITS, jres.DISTANCE_X_SHIFT,
+        jres.DISTANCE_Y_SHIFT, jres.AGE_SHIFT, jres.MAX_AGE,
+        jres.DISTANCE_MASK, jres.MAX_DISTANCE)
+    rng = np.random.default_rng(51)
+    n = 512
+    fields = _random_reservoir(rng, n)
+    fields["spatial_distance"] = rng.integers(-200, 201, (n, 2)).astype(
+        np.int32)
+    fields["m"] = rng.integers(0, 0x5000, n).astype(np.float32)
+    fields["age"] = rng.integers(0, 400, n)
+    fields["weight_sum"][:8] = [np.nan, np.inf, -np.inf, 0, 1, 2, 3, 4]
+    _, _, j, t = _both_reservoirs(fields)
+    want = jres.pack_di_reservoir(j)
+    got = tres.pack_di_reservoir(t)
+    _assert_reservoirs_equal(got, want)
+    words = convert.to_numpy_tree(want)
+    back_j = jres.unpack_di_reservoir(want)
+    back_t = tres.unpack_di_reservoir(
+        convert.packed_di_reservoir_from_numpy(words, device=CPU))
+    _assert_reservoirs_equal(back_t, back_j)
+    assert not tres.is_valid(back_t)[:3].any()  # non-finite weights dropped

@@ -218,3 +218,79 @@ def test_default_gconst_field_by_field():
     _assert_tree_equal(convert.gconst_from_numpy(convert.to_numpy_tree(want)),
                        want)
     assert tparams.BACKGROUND_DEPTH == jparams.BACKGROUND_DEPTH
+
+
+def test_empty_surface_matches_jax():
+    want = jsurf.empty_surface((3, 5))
+    got = tsurf.empty_surface((3, 5), device=torch.device("cpu"))
+    for f in want._fields:
+        np.testing.assert_array_equal(getattr(got, f).numpy(),
+                                      np.asarray(getattr(want, f)),
+                                      err_msg=f)
+    assert not got.valid.any()
+
+
+def test_brdf_leftovers_match_jax():
+    """importance_sample_ggx, basic_tone_mapping and the spherical
+    coordinates (round trip included) within 1e-6 (XLA's and torch's
+    library sin, cos, atan2 and asin may differ by an ulp)."""
+    rng = np.random.default_rng(17)
+    n = 1024
+    rnd = rng.uniform(0, 1, (n, 2)).astype(np.float32)
+    rough = rng.uniform(0.05, 1.0, n).astype(np.float32)
+    np.testing.assert_allclose(
+        tbrdf.importance_sample_ggx(torch.from_numpy(rnd),
+                                    torch.from_numpy(rough)).numpy(),
+        np.asarray(jbrdf.importance_sample_ggx(jnp.asarray(rnd),
+                                               jnp.asarray(rough))),
+        rtol=1e-6, atol=1e-6)
+    color = rng.uniform(0, 5, (n, 3)).astype(np.float32)
+    color[::7] = 0.0  # zero luminance keeps its colour
+    bias = rng.uniform(0.1, 2, n).astype(np.float32)
+    np.testing.assert_allclose(
+        tbrdf.basic_tone_mapping(torch.from_numpy(color),
+                                 torch.from_numpy(bias)).numpy(),
+        np.asarray(jbrdf.basic_tone_mapping(jnp.asarray(color),
+                                            jnp.asarray(bias))),
+        rtol=1e-6, atol=1e-7)
+    v = (rng.normal(size=(n, 3)) * rng.uniform(0.1, 10, (n, 1))).astype(
+        np.float32)
+    got = tbrdf.cartesian_to_spherical(torch.from_numpy(v))
+    want = jbrdf.cartesian_to_spherical(jnp.asarray(v))
+    for g, w in zip(got, want):
+        np.testing.assert_allclose(g.numpy(), np.asarray(w), rtol=1e-6,
+                                   atol=1e-6)
+    back = tbrdf.spherical_to_cartesian(*got)
+    np.testing.assert_allclose(
+        back.numpy(), np.asarray(jbrdf.spherical_to_cartesian(*want)),
+        rtol=1e-5, atol=1e-5)
+    np.testing.assert_allclose(back.numpy(), v, rtol=1e-4, atol=1e-4)
+
+
+def test_ray_aabb_matches_jax():
+    """The slab test's hit mask bit for bit and its entry t within 1e-6,
+    on axis-parallel rays (safe_inv_dir) too."""
+    from raytracer2_tpu.ops import intersect as jint
+    from raytracer2_tpu_torch.ops import intersect as tint
+
+    rng = np.random.default_rng(23)
+    n = 2048
+    o = rng.uniform(-4, 4, (n, 3)).astype(np.float32)
+    d = rng.normal(size=(n, 3)).astype(np.float32)
+    d[::5, rng.integers(0, 3)] = 0.0  # parallel to a slab
+    lo = rng.uniform(-2, 1, (n, 3)).astype(np.float32)
+    hi = lo + rng.uniform(0.1, 2, (n, 3)).astype(np.float32)
+    t_min, t_max = 1e-3, rng.uniform(0.5, 10, n).astype(np.float32)
+    inv_t = tint.safe_inv_dir(torch.from_numpy(d))
+    inv_j = jint.safe_inv_dir(jnp.asarray(d))
+    np.testing.assert_array_equal(inv_t.numpy(), np.asarray(inv_j))
+    hit, entry = tint.ray_aabb(torch.from_numpy(o), inv_t,
+                               torch.from_numpy(lo), torch.from_numpy(hi),
+                               t_min, torch.from_numpy(t_max))
+    j_hit, j_entry = jint.ray_aabb(jnp.asarray(o), inv_j, jnp.asarray(lo),
+                                   jnp.asarray(hi), t_min,
+                                   jnp.asarray(t_max))
+    np.testing.assert_array_equal(hit.numpy(), np.asarray(j_hit))
+    assert 0 < hit.sum() < n
+    np.testing.assert_allclose(entry.numpy(), np.asarray(j_entry),
+                               rtol=1e-6, atol=1e-6)

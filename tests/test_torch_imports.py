@@ -25,8 +25,9 @@ print(len(names), jax_free, ",".join(names), ",".join(old))
 """
 
 # the modules of the GI slice, the dense cull, the pair engine, the
-# environment slice and the app slice (app, viewer, lbvh, PNG), named so
-# that a missing one fails here rather than go unprobed
+# environment slice, the app slice (app, viewer, lbvh, PNG) and the
+# multi-device slice, named so that a missing one fails here rather than go
+# unprobed
 SLICE_MODULES = {
     "raytracer2_tpu_torch.ops.cull",
     "raytracer2_tpu_torch.ops.cuda_pairs",
@@ -43,6 +44,10 @@ SLICE_MODULES = {
     "raytracer2_tpu_torch.ops.bvh",
     "raytracer2_tpu_torch.ops.traverse",
     "raytracer2_tpu_torch.utils.png",
+    "raytracer2_tpu_torch.parallel",
+    "raytracer2_tpu_torch.parallel.mesh",
+    "raytracer2_tpu_torch.parallel.halo",
+    "raytracer2_tpu_torch.parallel.dryrun",
 }
 
 # the JAX package's modules the port may load: none (the port keeps its own
@@ -59,7 +64,7 @@ def test_every_submodule_imports_without_jax():
                          check=True).stdout.split()
     n_modules, jax_free = int(out[0]), out[1]
     old = set(out[3].split(",")) if len(out) > 3 else set()
-    assert n_modules >= 57
+    assert n_modules >= 61
     assert SLICE_MODULES <= set(out[2].split(","))
     assert jax_free == "True"
     assert old <= SHARED, old - SHARED

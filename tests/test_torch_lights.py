@@ -204,3 +204,71 @@ def test_light_shaping_matches_jax():
     np.testing.assert_allclose(_np(tshape.get_shaping_flux_factor(t_s)),
                                _np(jshape.get_shaping_flux_factor(j_s)),
                                rtol=1e-6)
+
+
+def _records_same_bits(got, want):
+    for name, g, w in zip(want._fields, got, want):
+        _same_bits(g, w, name)
+
+
+@pytest.mark.parametrize("shaped", [False, True], ids=["plain", "spot"])
+def test_store_point_lights_bit_exact(shaped):
+    """Point-light records, with and without spot cones: every word bit for
+    bit, and their samples and powers within 1e-6."""
+    rng = np.random.default_rng(3)
+    n = 64
+    pos = rng.uniform(-5, 5, (n, 3)).astype(np.float32)
+    flux = rng.uniform(0, 200, (n, 3)).astype(np.float32)
+    flux[::9] = 0.0  # dark lights pack to zero words
+    kw_np = {}
+    if shaped:
+        axis = rng.normal(size=(n, 3)).astype(np.float32)
+        axis /= np.linalg.norm(axis, axis=-1, keepdims=True)
+        kw_np = dict(cone_axis=axis,
+                     cos_cone_angle=rng.uniform(0.2, 0.95, n).astype(
+                         np.float32),
+                     cone_softness=rng.uniform(0, 0.5, n).astype(np.float32))
+    want = jpoly.store_point_lights(
+        jnp.asarray(pos), jnp.asarray(flux),
+        **{k: jnp.asarray(v) for k, v in kw_np.items()})
+    got = tpoly.store_point_lights(
+        torch.from_numpy(pos), torch.from_numpy(flux),
+        **{k: torch.from_numpy(v) for k, v in kw_np.items()})
+    _records_same_bits(got, want)
+    viewer = rng.uniform(-5, 5, (n, 3)).astype(np.float32)
+    rnd = rng.uniform(0, 1, (n, 2)).astype(np.float32)
+    t_s = tpoly.calc_sample(got, torch.from_numpy(rnd),
+                            torch.from_numpy(viewer))
+    j_s = jpoly.calc_sample(want, jnp.asarray(rnd), jnp.asarray(viewer))
+    for f in ("position", "normal", "radiance", "solid_angle_pdf"):
+        np.testing.assert_allclose(_np(getattr(t_s, f)),
+                                   _np(getattr(j_s, f)), rtol=1e-6,
+                                   atol=1e-6, err_msg=f)
+    np.testing.assert_allclose(_np(tpoly.get_power(got)),
+                               _np(jpoly.get_power(want)), rtol=1e-6)
+
+
+def test_store_directional_lights_bit_exact():
+    """Directional records bit for bit (oct direction, f16 half angle and
+    solid angle, packed radiance), their samples within 1e-5."""
+    rng = np.random.default_rng(4)
+    n = 64
+    d = rng.normal(size=(n, 3)).astype(np.float32)
+    d /= np.linalg.norm(d, axis=-1, keepdims=True)
+    rad = rng.uniform(0, 20, (n, 3)).astype(np.float32)
+    half = rng.uniform(0.001, 0.3, n).astype(np.float32)
+    want = jpoly.store_directional_lights(jnp.asarray(d), jnp.asarray(rad),
+                                          jnp.asarray(half))
+    got = tpoly.store_directional_lights(torch.from_numpy(d),
+                                         torch.from_numpy(rad),
+                                         torch.from_numpy(half))
+    _records_same_bits(got, want)
+    viewer = rng.uniform(-5, 5, (n, 3)).astype(np.float32)
+    rnd = rng.uniform(0, 1, (n, 2)).astype(np.float32)
+    t_s = tpoly.calc_sample(got, torch.from_numpy(rnd),
+                            torch.from_numpy(viewer))
+    j_s = jpoly.calc_sample(want, jnp.asarray(rnd), jnp.asarray(viewer))
+    for f in ("position", "normal", "radiance", "solid_angle_pdf"):
+        np.testing.assert_allclose(_np(getattr(t_s, f)),
+                                   _np(getattr(j_s, f)), rtol=1e-5,
+                                   atol=1e-4, err_msg=f)

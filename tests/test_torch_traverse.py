@@ -585,3 +585,287 @@ def test_plain_walks_count_their_work(tiny, shadow_rays, walk):
             want, blocked = _replay_occluded(args, group, lane_real, steps)
             np.testing.assert_array_equal(blocked, out.numpy() != 0)
             assert 0 < int(work.ray_lanes) == want < P * covered
+
+
+# ---------------------------------------------------------------------------
+# The Wald test's rounding on the ladder (the fused multiply-adds of XLA)
+# ---------------------------------------------------------------------------
+
+LADDER_W, LADDER_H = 96, 54
+# the G-buffer ray (pixel-tile order) whose hit, triangle 247339 at t 6.751,
+# a Wald test rounding every product and sum on its own rejected at
+# u + v = 1.0000114, leaking through to triangle 247258 at t 7.973
+LEAK_RAY, LEAK_TRI = 4066, 247339
+
+
+@pytest.fixture(scope="module")
+def ladder(tmp_path_factory):
+    """bench.py's ladder corridor at 96x54 seen from (0, 4, 90), through
+    the port's tracers on the CPU: the G-buffer's primary rays (captured
+    from gbuffer_pass) and one bounce batch drawn from their hits as
+    render_reference draws it, with JAX's clusters made from the port's."""
+    from raytracer2_tpu_torch.models import procedural as tproc
+    from raytracer2_tpu_torch.params import default_gconst
+    from raytracer2_tpu_torch.render import gbuffer as tgb
+    from raytracer2_tpu_torch.render import surface as tsurf
+    from raytracer2_tpu_torch.scene import gltf as tgltf
+    from raytracer2_tpu_torch.scene.camera import default_camera
+    from raytracer2_tpu_torch.scene.scene import build_scene as t_build
+    from raytracer2_tpu_torch.utils import rng as trng
+
+    p = tmp_path_factory.mktemp("ladder") / "ladder.glb"
+    tproc.write_glb(p, tproc.corridor_glb(segments=24, pillars_per_side=12,
+                                          lat=34, lon=53))
+    scene = t_build(tgltf.load_file(p), device=CPU)
+    tracers = app_bridge.make_tracers(scene)
+    cam = default_camera(window_size=(LADDER_W, LADDER_H),
+                         position=(0, 4, 90), direction=(0, 0, 1))
+    g = default_gconst(cam.planar_view_constants(),
+                       scene.num_emissive_triangles, enable_restir_di=1)
+    calls = []
+
+    def capture(o, d, tn, tx, presorted=False):
+        hit = tracers.closest_hit(o, d, tn, tx, presorted=presorted)
+        calls.append(((o, d, tn, tx), hit))
+        return hit
+
+    tgb.gbuffer_pass(scene, g, capture, LADDER_W, LADDER_H)
+    ((o, d, tn, tx), hit), = calls
+    surface, _ = tsurf.surface_from_hit(scene, o, d, hit)
+    n = o.shape[0]
+    lin = torch.arange(n)
+    state = trng.init_random_sampler(lin % LADDER_W, lin // LADDER_W, 13)
+    d_b, _, _ = tsurf.get_surface_brdf_sample(surface, state)
+    tx_b = torch.where(hit.missed, -1.0, tx)
+    c = tracers.clusters
+    return dict(
+        scene=scene, tracers=tracers,
+        j_clusters=jcluster.Clusters(*(jnp.asarray(x.numpy()) for x in c)),
+        batches={"gbuffer": (True, o, d, tn, tx),
+                 "bounce": (False, surface.world_pos, d_b, tn, tx_b)},
+        port={"gbuffer": hit}, jax={})
+
+
+def _j(x):
+    return jnp.asarray(x.numpy())
+
+
+def _ladder_shapes(ladder, cls):
+    """The tracers' shapes of a ray class with every cluster a candidate
+    (k_cand = C): no bundle's union overflows, so JAX's walk needs no
+    overflow fallback, which it would compile anew in interpret mode. (The
+    port's G-buffer hits are its tracers', at k_cand 256 with the few
+    overflowed bundles re-traced at k_cand = C: exact all the same, and
+    cheaper than walking every bundle of a chunk to the largest union.)"""
+    tr = ladder["tracers"]
+    return dict(tr.shapes_by_class[cls], k_cand=tr.clusters.num_clusters)
+
+
+def _ladder_closest(ladder, name):
+    presorted, o, d, tn, tx = ladder["batches"][name]
+    tr, s = ladder["tracers"], ladder["scene"]
+    shapes = _ladder_shapes(ladder, presorted)
+    if name not in ladder["jax"]:
+        ladder["jax"][name] = ptm.closest_hit_bundle_pallas(
+            ladder["j_clusters"], _j(s.tri_geometry), _j(s.tri_primitive),
+            _j(o), _j(d), _j(tn), _j(tx), _j(tr.scene_min),
+            _j(tr.scene_max), interpret=True, mb=1, presorted=presorted,
+            overflow_fallback=False, **shapes)
+    if name not in ladder["port"]:
+        hit, n_fallback = ct.closest_hit_bundle(
+            tr.clusters, tr.tables, o, d, tn, tx, tr.scene_min,
+            tr.scene_max, presorted=presorted, **shapes)
+        assert n_fallback == 0
+        ladder["port"][name] = hit
+    return ladder["port"][name], ladder["jax"][name]
+
+
+@pytest.mark.parametrize("name", ["gbuffer", "bounce"])
+def test_ladder_closest_hit_matches_pallas_walk_bit_exact(ladder, name):
+    """The fused multiply-adds of the Wald test: on the ladder's
+    G-buffer and bounce batches the port's walk returns JAX's Pallas
+    walk's triangle, t, u and v on every ray."""
+    got, want = _ladder_closest(ladder, name)
+    for f in ("triangle_index", "geometry_index", "primitive_id"):
+        np.testing.assert_array_equal(
+            getattr(got, f).numpy(),
+            np.asarray(getattr(want, f)).astype(np.int64), err_msg=f)
+    for f in ("t", "u", "v"):
+        np.testing.assert_array_equal(getattr(got, f).numpy(),
+                                      np.asarray(getattr(want, f)),
+                                      err_msg=f)
+    assert (~got.missed).sum() > got.missed.numel() // 2
+
+
+def test_ladder_leak_ray_hits(ladder):
+    """Ray 4066 of the G-buffer batch hits triangle 247339 in both walks
+    and in the brute-force oracle."""
+    got, want = _ladder_closest(ladder, "gbuffer")
+    assert int(got.triangle_index[LEAK_RAY]) == LEAK_TRI
+    assert int(np.asarray(want.triangle_index)[LEAK_RAY]) == LEAK_TRI
+    _, o, d, tn, tx = ladder["batches"]["gbuffer"]
+    s = ladder["scene"]
+    one = slice(LEAK_RAY, LEAK_RAY + 1)
+    brute = intersect_brute_force(
+        _j(o[one]), _j(d[one]), _j(s.tri_v0), _j(s.tri_edge1),
+        _j(s.tri_edge2), _j(s.tri_geometry), _j(s.tri_primitive),
+        _j(tn[one]), _j(tx[one]))
+    assert int(np.asarray(brute.triangle_index)[0]) == LEAK_TRI
+    np.testing.assert_allclose(float(got.t[LEAK_RAY]),
+                               float(np.asarray(brute.t)[0]), rtol=1e-5)
+
+
+@pytest.mark.parametrize("name", ["gbuffer", "bounce"])
+def test_ladder_any_hit_matches_pallas_walk_bit_exact(ladder, name):
+    """Any hit on the same rays, each segment ending at its closest hit's
+    t scaled by a factor in [0.5, 1.5) (50 units where it missed): the
+    blocked flags equal JAX's Pallas walk's on every ray."""
+    presorted, o, d, tn, tx = ladder["batches"][name]
+    hit, _ = _ladder_closest(ladder, name)
+    f = np.random.default_rng(11).uniform(0.5, 1.5, o.shape[0])
+    seg = torch.from_numpy(f.astype(np.float32)) * torch.where(
+        hit.missed, 50.0, hit.t)
+    seg = torch.where(tx < 0, tx, seg)
+    tr = ladder["tracers"]
+    cfg = _ladder_shapes(ladder, "shadow" if presorted else False)
+    del cfg["cull"]  # the any-hit walk takes the exact cull
+    got, n_fallback = ct.occluded_bundle(
+        tr.clusters, tr.tables, o, d, tn, seg, tr.scene_min, tr.scene_max,
+        presorted=presorted, **cfg)
+    assert n_fallback == 0
+    want = ptm.occluded_bundle_pallas(
+        ladder["j_clusters"], _j(o), _j(d), _j(tn), _j(seg),
+        _j(tr.scene_min), _j(tr.scene_max), interpret=True, mb=1,
+        presorted=presorted, cull="exact", overflow_fallback=False, **cfg)
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+    live = (seg > 0).numpy()
+    assert 0 < got.numpy()[live].sum() < live.sum()
+
+
+def _fma_exact(a, b, c):
+    """float32(a * b + c) rounded once, to nearest and ties to even, from
+    the exact rational value."""
+    from fractions import Fraction
+
+    out = []
+    for x, y, z in zip(a.tolist(), b.tolist(), c.tolist()):
+        v = Fraction(x) * Fraction(y) + Fraction(z)
+        f = np.float32(float(v))
+        near = [np.nextafter(f, np.float32(-np.inf)), f,
+                np.nextafter(f, np.float32(np.inf))]
+        gap = [abs(Fraction(float(q)) - v) for q in near]
+        best = [q for q, e in zip(near, gap) if e == min(gap)]
+        out.append(min(best, key=lambda q: int(q.view(np.int32)) & 1))
+    return np.array(out, np.float32)
+
+
+def test_fma_rounds_once():
+    """ct._fma is one rounding of the exact a * b + c. The first case
+    sits where a float64 sum rounds onto a float32 tie: (1 + 2^-23) *
+    -(1 - 2^-23) + (2^24 + 2) = 2^24 + 1 + 2^-46, whose float64 sum is the
+    tie 2^24 + 1 (the 2^-46 is lost), which float32 rounds to even, 2^24,
+    while the exact value rounds up to 2^24 + 2."""
+    a = np.float32([1 + 2 ** -23, 1 + 2 ** -23, 3.0])
+    b = np.float32([-(1 - 2 ** -23), 1 - 2 ** -23, 2 ** -30])
+    c = np.float32([2 ** 24 + 2, -(2 ** 24 + 2), -2.0])
+    rng = np.random.default_rng(7)
+    scale = rng.choice(np.float32([1e-8, 1.0, 1e8]), 4000)
+    a = np.concatenate([a, rng.normal(size=4000).astype(np.float32)])
+    b = np.concatenate([b, rng.normal(size=4000).astype(np.float32)])
+    c = np.concatenate([c, (rng.normal(size=4000) * scale)
+                        .astype(np.float32)])
+    want = _fma_exact(a, b, c)
+    assert want[0] == np.float32(2 ** 24 + 2)
+    twice = (a.astype(np.float64) * b + c).astype(np.float32)
+    assert twice[0] != want[0]  # the case a double rounding gets wrong
+    got = ct._fma(*(torch.from_numpy(x) for x in (a, b, c))).numpy()
+    np.testing.assert_array_equal(got.view(np.int32), want.view(np.int32))
+
+
+def _edge_aimed_case(seed, nb=48, p=32, w=32):
+    """Rays [nb, p, 8] and Wald rows [nb, 12, 1, w] of random triangles
+    (three scales). Each ray aims, with d = target - o (so t ~ 1 there), at
+    one of its bundle's triangles: a vertex, a point of an edge, or a point
+    inside; a quarter of the rays have t_min = 1, a tie with the aimed
+    hit, the rest t_min = 0."""
+    from raytracer2_tpu_torch.ops.cluster import _wald_matrices
+
+    rng = np.random.default_rng(seed)
+    t = nb * w
+    scale = rng.choice([1e-2, 1.0, 50.0], (t, 1))
+    v0 = rng.normal(size=(t, 3)) * 20
+    e1 = rng.normal(size=(t, 3)) * scale
+    e2 = rng.normal(size=(t, 3)) * scale
+    m = _wald_matrices(v0, e1, e2)  # [T, 3 (u, v, z), 4 (x, y, z, bias)]
+    wr = torch.from_numpy(m.transpose(0, 2, 1).reshape(nb, w, 12)
+                          .transpose(0, 2, 1)[:, :, None, :].copy())
+    tri = rng.integers(0, w, (nb, p)) + np.arange(nb)[:, None] * w
+    a = rng.uniform(size=(nb, p, 1))
+    kind = rng.integers(0, 5, (nb, p, 1))
+    v0t, e1t, e2t = v0[tri], e1[tri], e2[tri]
+    target = np.select(
+        [kind == 0, kind == 1, kind == 2, kind == 3],
+        [v0t + e1t * (kind == 0) * rng.integers(0, 2, (nb, p, 1)),
+         v0t + a * e1t, v0t + a * e2t, v0t + e1t + a * (e2t - e1t)],
+        v0t + a * e1t + rng.uniform(size=(nb, p, 1)) * (1 - a) * e2t)
+    o = rng.normal(size=(nb, p, 3)) * 40
+    r = np.zeros((nb, p, 8), np.float32)
+    r[..., 0:3] = o
+    r[..., 3:6] = target.astype(np.float32) - r[..., 0:3]
+    r[..., 6] = np.where(rng.uniform(size=(nb, p)) < 0.25, 1.0, 0.0)
+    r[..., 7] = 1e30
+    return torch.from_numpy(r), wr
+
+
+@pytest.mark.parametrize("seed", [0, 1, 2])
+def test_wald_test_matches_fused_on_every_lane(seed):
+    """_wald_test's float32 pass and error bound send every lane a hit
+    could tip on to the fused roundings: on random rays aimed at
+    triangles' vertices, edges and insides (some with t_min at the hit),
+    hit equals _wald_fused's on every (ray, triangle) lane bit for bit,
+    and t does wherever hit is true."""
+    r, wr = _edge_aimed_case(seed)
+    nb, p, _ = r.shape
+    w = wr.shape[-1]
+    t, hit = ct._wald_test(r, wr)
+    rows = r[:, :, None, :].expand(nb, p, w, 8).reshape(-1, 8)
+    coeffs = wr[:, :, 0, :].permute(0, 2, 1)[:, None].expand(
+        nb, p, w, 12).reshape(-1, 12)
+    t_f, hit_f = ct._wald_fused(rows, coeffs)
+    hit_f = hit_f.reshape(nb, p, w)
+    np.testing.assert_array_equal(hit.numpy(), hit_f.numpy())
+    np.testing.assert_array_equal(
+        t[hit].numpy().view(np.int32),
+        t_f.reshape(nb, p, w)[hit].numpy().view(np.int32))
+    assert int(hit.sum()) > nb * p // 4
+    # the cases are sharp: the test in float64 decides some lanes
+    # otherwise
+    f64 = [torch.from_numpy(np.asarray(x, np.float64))
+           for x in (rows.numpy(), coeffs.numpy())]
+    rr, cc = f64
+    op = [(rr[:, 0] * cc[:, c] + rr[:, 1] * cc[:, 3 + c]
+           + rr[:, 2] * cc[:, 6 + c] + cc[:, 9 + c]) for c in range(3)]
+    dp = [(rr[:, 3] * cc[:, c] + rr[:, 4] * cc[:, 3 + c]
+           + rr[:, 5] * cc[:, 6 + c]) for c in range(3)]
+    te = -op[2] / dp[2]
+    ue, ve = op[0] + te * dp[0], op[1] + te * dp[1]
+    exact = ((dp[2].abs() > 1e-12) & (ue >= 0) & (ve >= 0)
+             & (ue + ve <= 1) & (te > rr[:, 6]))
+    assert int((exact != hit_f.reshape(-1)).sum()) > 0
+
+
+@pytest.mark.parametrize("backend,value,device", [
+    ("mkldnn", "bf16", "cpu"), ("mkldnn", "tf32", "cpu"),
+    ("cuda", "tf32", "cuda")])
+def test_wald_test_needs_ieee_matmuls(monkeypatch, backend, value, device):
+    """The float32 pass's affines are batched matmuls, which hold to its
+    error bound only in IEEE float32: with a device's float32 matmuls set
+    to TF32 or bfloat16 the plain Wald test raises instead of answering."""
+    r, wr = _edge_aimed_case(0, nb=2, p=4, w=8)
+    assert ct._ieee_fp32_matmul(torch.device(device))
+    matmul = getattr(torch.backends, backend).matmul
+    monkeypatch.setattr(matmul, "fp32_precision", value)
+    assert not ct._ieee_fp32_matmul(torch.device(device))
+    if device == "cpu":
+        with pytest.raises(RuntimeError, match="IEEE float32 matmuls"):
+            ct._wald_test(r, wr)
