@@ -15,12 +15,17 @@ the pair-sweep backend (create_renderer(..., backend="pairs")); and the
 flagship frame under a 2048x1024 EXR skybox, on checkerboard fields and
 stopped after each pass (the per-pass split); the lbvh backend
 (create_renderer(..., backend="lbvh"), torch ops), the app CLI
-(app.main) and the terminal viewer (viewer.run_interactive); and the
-frame row-sharded over torch.distributed ranks (parallel/mesh.py). Six
+(app.main) and the terminal viewer (viewer.run_interactive); the bundle
+walk's tracer configurations (every cull, sort key and shadow order, and a
+DI frame through create_renderer(tracer_opts={"cull": "sc"})); the JAX
+package's XLA bundle and scatter engines as torch ops
+(create_renderer(..., backend="bundle" / "scatter")); and the frame
+row-sharded over torch.distributed ranks (parallel/mesh.py). Eight
 hand-written CUDA kernels carry them: the closest-hit and any-hit walks
-(B1, B2), the exact cull's nearest box and bundle union (B3, B4), and the
-pair engine's sweep (B5) and stable counting sort (B6). The phases, each of
-which raises on failure:
+(B1, B2) and their supercluster forms (B1-sc, B2-sc), the exact cull's
+nearest box and bundle union (B3, B4), and the pair engine's sweep (B5)
+and stable counting sort (B6). The phases, each of which raises on
+failure:
 
 1. device             - a CUDA device is required; no CPU run.
 2. build              - nvcc builds every kernel from raytracer2_tpu_torch/csrc.
@@ -65,6 +70,23 @@ which raises on failure:
                         batch), nearest_box and bundle_union against their
                         plain versions, bit for bit, with NaN rays and the
                         signed zeros of the union table counted.
+11b. tracer-modes     - (once skybox-exr has taken the EXR worker's result, so
+                        that no trace timed on the host's clock shares the
+                        host with it) each cull (exact_iv, unsorted
+                        interval, hier, sc), each
+                        sort key of the exact cull (octz, hier, sc4, cand2)
+                        and each shadow order (pixz, octz, cand0) on the
+                        flagship frame's DI BRDF-candidate batch and the DI
+                        frame's visibility batch (2,073,600 rays each,
+                        kept by capture and flagship-capture): hits against
+                        the default trace's, every difference a tie; the
+                        fallback bundles, the kernels launched, the trace's
+                        time and one more trace split into the keys, the
+                        sort, the culls, the ranking (all inside the prep),
+                        the walk and the decode. Then walk_closest_sc and
+                        walk_occluded_sc (B1-sc, B2-sc, cull="sc") against
+                        their plain versions on the "sc" prep of those
+                        batches, bit for bit, timed, with their bound.
 12. flagship-frames   - three flagship frames; all four kernels but the
                         any-hit walk (the flagship frame casts no visibility
                         ray) must have launched. Then flagship-breakdown: one
@@ -123,6 +145,18 @@ which raises on failure:
                         256x144 on a pseudo-terminal, "w1" typed before each
                         frame: every half-block frame written, the camera
                         moved.
+    sc-frame          - one DI frame through create_renderer(tracer_opts=
+                        {"cull": "sc"}), counts reset just before it: both
+                        supercluster walks must launch; its pixels against
+                        the default DI frame.
+    engines           - one flagship and one DI frame each through
+                        create_renderer(backend="bundle") and
+                        (backend="scatter"), the JAX package's XLA engines
+                        as torch ops (no kernel may launch): seconds,
+                        finite displays, the pixels beyond 2e-3 against the
+                        bundle walk's frames, the bundle engine's steps and
+                        host read-backs, the scatter pool's overflowed
+                        traces.
 14. skybox            - a 2048x1024 procedural sky written as a float16 PIZ
                         EXR and read back, exact to float16 (skybox-exr,
                         taken before the DI frames: a worker process
@@ -247,6 +281,7 @@ from raytracer2_tpu_torch.models import procedural as proc  # noqa: E402
 from raytracer2_tpu_torch.ops import _build, binning, cull, native  # noqa: E402
 from raytracer2_tpu_torch.ops import cuda_pairs as cp  # noqa: E402
 from raytracer2_tpu_torch.ops import cuda_traverse as ct  # noqa: E402
+from raytracer2_tpu_torch.ops import traverse_bundle as tbm  # noqa: E402
 from raytracer2_tpu_torch.ops.bvh import (  # noqa: E402
     build_lbvh, max_depth, validate_bvh)
 from raytracer2_tpu_torch.ops.intersect import (  # noqa: E402
@@ -350,6 +385,14 @@ KERNELS = {
     "walk_occluded": dict(
         source="raytracer2_tpu_torch/csrc/bundle_occlude.cu",
         replaces="raytracer2_tpu/ops/pallas_traverse.py:1488"),
+    # B1-sc, B2-sc: the supercluster walks (cull="sc"), the TPU walks'
+    # sc_m > 0 branch
+    "walk_closest_sc": dict(
+        source="raytracer2_tpu_torch/csrc/bundle_walk.cu",
+        replaces="raytracer2_tpu/ops/pallas_traverse.py:1323"),
+    "walk_occluded_sc": dict(
+        source="raytracer2_tpu_torch/csrc/bundle_occlude.cu",
+        replaces="raytracer2_tpu/ops/pallas_traverse.py:1488"),
     "nearest_box": dict(
         source="raytracer2_tpu_torch/csrc/cull.cu",
         replaces="raytracer2_tpu/ops/pallas_cull.py:106"),
@@ -364,9 +407,11 @@ KERNELS = {
         replaces="raytracer2_tpu/ops/pallas_binning.py:56"),
 }
 WALKS = ("walk_closest", "walk_occluded")
+SC_WALKS = ("walk_closest_sc", "walk_occluded_sc")
 CULLS = ("nearest_box", "bundle_union")
 PAIR_KERNELS = ("pair_sweep", "bin_scatter")
 KERNEL_MODULES = {"walk_closest": ct, "walk_occluded": ct,
+                  "walk_closest_sc": ct, "walk_occluded_sc": ct,
                   "nearest_box": cull, "bundle_union": cull,
                   "pair_sweep": cp, "bin_scatter": binning}
 
@@ -499,8 +544,7 @@ def _plain_ms(fn) -> float:
     """A plain version's time in ms: one call of fn between CUDA events.
     The caller has made one call on the same inputs just before (the one
     whose outputs it compares), which is the warm-up; the plain walks and
-    culls take up to 10 s a call, so one timed call is all the run
-    affords."""
+    culls take seconds a call, so one timed call is all the run affords."""
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
     stop = torch.cuda.Event(enable_timing=True)
@@ -545,7 +589,8 @@ def lane_real(tracers) -> torch.Tensor:
     return (tracers.tables.meta_rows[:, 12] >= 0).reshape(-1, sp)
 
 
-def walk_bound(args, group: int, work: ct.WalkWork, real, kw) -> dict:
+def walk_bound(args, group: int, work: ct.WalkWork, real, kw,
+               sc_m: int = 0) -> dict:
     """The least time the card could take for one walk call on these
     inputs: the larger of (bytes it must move) / HBM rate and (FP32
     operations its data needs) / FP32 rate. Bytes: rays read once, the
@@ -553,8 +598,18 @@ def walk_bound(args, group: int, work: ct.WalkWork, real, kw) -> dict:
     of each real triangle of each distinct cluster walked, one i32 written
     per ray. Operations: WALD_TEST_OPS per (ray, real triangle) test over
     the steps each bundle takes, as the plain version counts them (padding
-    lanes left out; an any-hit ray counts up to its first hit)."""
+    lanes left out; an any-hit ray counts up to its first hit). sc_m > 0:
+    a supercluster walk, whose steps take one candidate (a supercluster
+    of sc_m clusters) each."""
     rays8, cand_idx, _, cand_count, _ = args
+    lane_count = kw["lanes"].count
+    if sc_m:
+        # per supercluster: its members' real lanes and lane counts
+        real = ct.sc_layout(real[:, None], sc_m)[:, 0]
+        pad = real.shape[0] * sc_m - lane_count.shape[0]
+        lane_count = torch.nn.functional.pad(lane_count, (0, pad)).reshape(
+            -1, sc_m).sum(dim=1)
+        group = 1
     walked = torch.minimum(work.steps * group, cand_count.long())
     mask = (torch.arange(cand_idx.shape[1], device=cand_idx.device)[None, :]
             < walked[:, None])
@@ -568,11 +623,11 @@ def walk_bound(args, group: int, work: ct.WalkWork, real, kw) -> dict:
     ops_ms = ops / FP32_OPS_PER_S * 1e3
     # what the bundles stage in all (mostly from L2), for comparison: each
     # walked cluster's lanes up to its lane count
-    lanes = int(kw["lanes"].count[cand_idx[mask].long()].long().sum())
+    lanes = int(lane_count[cand_idx[mask].long()].long().sum())
     return {"bound_ms": max(bytes_ms, ops_ms),
             "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
             "bytes": nbytes, "ops": ops, "steps": int(work.steps.sum()),
-            "clusters_walked": int(distinct.numel()),
+            "clusters_walked": int(distinct.numel()) * max(sc_m, 1),
             "triangles_walked": tris, "staged_bytes": lanes * 12 * 4}
 
 
@@ -582,18 +637,20 @@ def check_walk(kernel: str, cls: str, args, group: int, real,
     bit for bit, both times (CUDA events: the kernel's median of 5; the
     plain version's one call without the work count, after the call that
     gives the outputs and counts the work the bound reads) and the bound.
-    kw: the kernel's own table argument (lanes). Raises on any mismatch or
-    on a batch that tests nothing."""
+    kw: the kernel's own table argument (lanes). A supercluster walk
+    (walk_*_sc) is held to its plain version's sc_m = group mode. Raises
+    on any mismatch or on a batch that tests nothing."""
     walk = getattr(ct, kernel)
-    reference = getattr(ct, f"{kernel}_reference")
+    sc_m = group if kernel in SC_WALKS else 0
+    reference = getattr(ct, f"{kernel.removesuffix('_sc')}_reference")
     got = walk(*args, group=group, **kw)
-    want, work = reference(*args, group=group, lane_real=real)
-    plain_ms = _plain_ms(lambda: reference(*args, group=group))
+    want, work = reference(*args, group=group, lane_real=real, sc_m=sc_m)
+    plain_ms = _plain_ms(lambda: reference(*args, group=group, sc_m=sc_m))
     ms = _median_ms(lambda: walk(*args, group=group, **kw))
-    bound = walk_bound(args, group, work, real, kw)
+    bound = walk_bound(args, group, work, real, kw, sc_m)
     rays8, _, _, cand_count, _ = args
     mismatches = int((got != want).sum())
-    if kernel == "walk_closest":
+    if kernel.startswith("walk_closest"):
         hits = int((got != ct.MISS_CODE).sum())
         outcome = {"hits": hits}
         trivial = hits == 0
@@ -604,7 +661,7 @@ def check_walk(kernel: str, cls: str, args, group: int, real,
                    "blocked_share": f"{blocked / max(live, 1):.4f}"}
         trivial = blocked in (0, live)
     share = _bound_share(kernel, cls, bound["bound_ms"], ms)
-    log("kernel-occlude" if kernel == "walk_occluded" else "kernel",
+    log("kernel-occlude" if kernel.startswith("walk_occluded") else "kernel",
         kernel=kernel, cls=cls, rays=rays8.shape[0],
         bundles=cand_count.shape[0],
         bundle_size=rays8.shape[0] // cand_count.shape[0], group=group,
@@ -740,7 +797,8 @@ def phase_occupancy(renderer, renderer_p) -> dict:
     tracers = renderer.tracers
     sp = tracers.tables.wald_rows.shape[-1]
     ps = renderer_p.tracers.pair_scene
-    out = {"walk_closest": {}, "walk_occluded": {}, "nearest_box": {
+    out = {"walk_closest": {}, "walk_occluded": {}, "walk_closest_sc": {},
+           "walk_occluded_sc": {}, "nearest_box": {
         "all": _build.occupancy("rt2_nearest_box_occupancy")},
         "bundle_union": {
             "all": _build.occupancy("rt2_bundle_union_occupancy")},
@@ -754,7 +812,12 @@ def phase_occupancy(renderer, renderer_p) -> dict:
         if cls == "shadow":
             out["walk_occluded"]["visibility"] = _build.occupancy(
                 "rt2_walk_occluded_occupancy", cfg["bundle_size"], sp)
+            out["walk_occluded_sc"]["visibility"] = _build.occupancy(
+                "rt2_walk_occluded_sc_occupancy", cfg["bundle_size"], sp)
         else:
+            if not cls:
+                out["walk_closest_sc"]["bounces"] = _build.occupancy(
+                    "rt2_walk_closest_sc_occupancy", cfg["bundle_size"], sp)
             name = "pixel_tiles" if cls else "bounces"
             out["walk_closest"][name] = _build.occupancy(
                 "rt2_walk_closest_occupancy", cfg["bundle_size"], sp)
@@ -1315,7 +1378,7 @@ def phase_flagship_breakdown(scene, renderer, g_flag) -> None:
     _breakdown("flagship", scene, renderer, g_flag.replace(
         frame=FLAGSHIP_FRAMES), [
         (cull, "nearest_box", "b3_nearest_box"),
-        (ct, "_cand0_sort", "cand0_sort"),
+        (ct, "_sorted", "cand0_sort"),
         (cull, "bundle_union", "b4_bundle_union"),
         (ct, "_rank", "rank"),
         (ct, "walk_closest", "walk"),
@@ -1769,7 +1832,8 @@ def _lbvh_agrees(scene, name, rays, got, ref) -> dict:
 
 
 def _walk_delta(stats, before) -> dict:
-    """The lbvh walk's calls, steps and host checks since `before`."""
+    """A walk's (lbvh, bundle engine) calls, steps and host checks since
+    `before`."""
     calls = stats.calls - before.calls
     steps = stats.steps - before.steps
     return {"calls": calls, "steps": steps,
@@ -1967,6 +2031,200 @@ def phase_app(dev: torch.device, flag_seconds) -> dict:
     return in_frames
 
 
+# the tracer-modes phase's modes on the flagship frame's DI BRDF-candidate
+# batch (the bounce class: unsorted) and on the DI frame's visibility batch
+# (the shadow class: pixel Z-order, "pixz", unless a mode sorts it): (name,
+# changes to the class's shape)
+MODES_CLOSEST = (
+    ("default", {}),
+    ("cull-exact_iv", dict(cull="exact_iv")),
+    ("cull-interval", dict(cull="interval")),
+    ("cull-hier", dict(cull="hier")),
+    ("cull-sc", dict(cull="sc")),
+    ("key-octz", dict(sort_key="octz")),
+    ("key-hier", dict(sort_key="hier")),
+    ("key-sc4", dict(sort_key="sc4")),
+    ("key-cand2", dict(sort_key="cand2")),
+)
+MODES_VISIBILITY = (
+    ("shadow-pixz", {}),
+    ("cull-exact_iv", dict(cull="exact_iv", presorted=False)),
+    ("cull-interval", dict(cull="interval", presorted=False)),
+    ("cull-hier", dict(cull="hier")),
+    ("cull-sc", dict(cull="sc")),
+    ("key-hier", dict(sort_key="hier", presorted=False)),
+    ("key-sc4", dict(sort_key="sc4", presorted=False)),
+    ("key-cand2", dict(sort_key="cand2", presorted=False)),
+    ("shadow-octz", dict(sort_key="octz", presorted=False)),
+    ("shadow-cand0", dict(presorted=False)),
+)
+# a trace's parts, as in flagship-breakdown: the sort keys (B3 inside the
+# cand0, sc4 and hier keys), the argsort and permutation, the culls (B4,
+# the interval test), the ranking; the prep holds them all, beside the walk
+# and the decode
+MODE_PARTS = (
+    (ct, "cand0_sort_key", "key"), (ct, "octz_sort_key", "key"),
+    (ct, "hier_sort_key", "key"), (ct, "cand2_sort_key", "key"),
+    (tbm, "sort_rays_for_coherence", "key"), (ct, "_apply_sort", "sort"),
+    (cull, "bundle_union", "cull"), (ct, "bundle_cluster_overlap", "cull"),
+    (ct, "_rank", "rank"), (ct, "_prepare", "prep"),
+    (ct, "walk_closest", "walk"), (ct, "walk_occluded", "walk"),
+    (ct, "walk_closest_sc", "walk"), (ct, "walk_occluded_sc", "walk"),
+    (ct, "_decode", "decode"))
+MODE_BATCHES = {"flagship_di_brdf_candidate": (False, MODES_CLOSEST),
+                "di_visibility": ("shadow", MODES_VISIBILITY)}
+
+
+def _mode_trace(tracers, cls, rays, kw):
+    """One trace of `rays` through the bundle walk at ray class cls's
+    shape changed by kw: (result, fallback bundles)."""
+    cfg = dict(tracers.shapes_by_class[cls],
+               presorted=cls == "shadow")  # "pixz" for visibility rays
+    cfg.update(kw)
+    query = ct.occluded_bundle if cls == "shadow" else ct.closest_hit_bundle
+    return query(tracers.clusters, tracers.tables, *rays, tracers.scene_min,
+                 tracers.scene_max, **cfg)
+
+
+def phase_tracer_modes(scene, renderer, trace_log: TraceLog) -> dict:
+    """Each cull, sort key and shadow order (MODES_CLOSEST,
+    MODES_VISIBILITY) on the flagship frame's DI BRDF-candidate batch and
+    the DI frame's visibility batch (2,073,600 rays each), through
+    closest_hit_bundle / occluded_bundle at the class's shape: the answer
+    against the default trace's (every difference a tie, _backends_agree),
+    the fallback bundles, the kernels each trace launched, its time (one
+    synchronised trace after the one compared) and one more trace split
+    into MODE_PARTS. Then the "sc" prep's walk inputs on both batches:
+    walk_closest_sc and walk_occluded_sc against their plain versions bit
+    for bit, timed, with their bound (check_walk). Returns {kernel:
+    {class: result}} for the two supercluster walks."""
+    tracers = renderer.tracers
+    real = lane_real(tracers)
+    classes = {name: {} for name in SC_WALKS}
+    for name, (cls, modes) in MODE_BATCHES.items():
+        o, d, tn, tx, _ = trace_log.traces[name]
+        rays = _per_ray(trace_log.traces[name])
+        ref = None
+        for mode, kw in modes:
+            before = _launches()
+            got, n_ovf = _mode_trace(tracers, cls, rays, kw)
+            launched = {k: v - before[k] for k, v in _launches().items()
+                        if v != before[k]}
+            if ref is None:
+                ref = got
+            agree = _backends_agree("tracer-modes", scene, renderer, name,
+                                    rays, got, ref)
+            trace_ms = _wall_median_ms(
+                lambda: _mode_trace(tracers, cls, rays, kw), reps=1)
+            log("tracer-modes", batch=name, mode=mode, rays=o.shape[0],
+                trace_ms=f"{trace_ms:.2f}", fallback_bundles=n_ovf,
+                launches=json.dumps(launched, separators=(",", ":")),
+                **agree, **_parts_ms(
+                    lambda: _mode_trace(tracers, cls, rays, kw), MODE_PARTS))
+        # the supercluster walks on this batch's "sc" prep
+        cfg = dict(tracers.shapes_by_class[cls], presorted=cls == "shadow",
+                   cull="sc")
+        group, m = ct._walk_shape(tracers.tables, "sc", cfg["group"],
+                                  ct.M_SUPER)
+        prep = ct._prepare(tracers.clusters, *rays, tracers.scene_min,
+                           tracers.scene_max, cfg["bundle_size"],
+                           cfg["presorted"], "sc", cfg["k_cand"],
+                           m_super=m)
+        args = (ct._rays8(prep), prep.cand_idx, prep.cand_t,
+                prep.cand_count, tracers.tables.wald_rows)
+        kernel = SC_WALKS[cls == "shadow"]
+        classes[kernel][name] = check_walk(kernel, name, args, group, real,
+                                           lanes=tracers.tables.lanes)
+    return classes
+
+
+def phase_sc_frames(scene, view, g_di, di_imgs) -> dict:
+    """One DI frame through create_renderer(tracer_opts={"cull": "sc"})
+    from a fresh state, every count reset just before it: both supercluster
+    walks must launch. Its display against the default DI frame 0."""
+    t0 = time.perf_counter()
+    renderer = fr.create_renderer(scene, WIDTH, HEIGHT,
+                                  tracer_opts={"cull": "sc"})
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    _reset_counts(renderer.tracers)
+    state = fr.init_frame_state(WIDTH, HEIGHT, device=scene.device)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    state, img = fr.render_frame(
+        renderer, g_di.replace(frame=0, blend_factor=1.0), state)
+    torch.cuda.synchronize()
+    sec = time.perf_counter() - t0
+    launches = _launches()
+    log("sc-frame", config="di", create_seconds=f"{build_s:.2f}",
+        seconds=f"{sec:.3f}",
+        launches=json.dumps(launches, separators=(",", ":")),
+        fallback_bundles=json.dumps(
+            {str(k): v for k, v in renderer.tracers.fallback_by_class.items()},
+            separators=(",", ":")),
+        **_pixels_differing(img, di_imgs[0]))
+    _check_image("sc di display", img, display=True)
+    for name in SC_WALKS:
+        if launches[name] <= 0:
+            raise RuntimeError(f"the sc frame never launched {name}")
+    return launches
+
+
+def phase_engines(scene, g_flag, g_di, flag_imgs, di_imgs) -> dict:
+    """One flagship and one DI frame through create_renderer(backend=)
+    "bundle" and "scatter" (the XLA engines as torch ops; no kernel may
+    launch), each from a fresh state, every count reset just before them:
+    the seconds, finite displays, the pixels beyond 2e-3 against the bundle
+    walk's frames of the same index, the bundle engine's steps and host
+    read-backs, the scatter engine's pool overflows per class."""
+    out = {}
+    for backend in ("bundle", "scatter"):
+        t0 = time.perf_counter()
+        renderer = fr.create_renderer(scene, WIDTH, HEIGHT, backend=backend)
+        torch.cuda.synchronize()
+        tracers = renderer.tracers
+        log("engines-scene", backend=backend,
+            create_seconds=f"{time.perf_counter() - t0:.2f}",
+            clusters=tracers.clusters.num_clusters,
+            cluster_size=tracers.clusters.cluster_size,
+            superclusters=(tracers.superclusters.num_superclusters
+                           if tracers.superclusters is not None else 0))
+        _reset_counts(tracers)
+        for config, g, ref in (("flagship", g_flag.replace(frame=0),
+                                flag_imgs[0]),
+                               ("di", g_di.replace(frame=0, blend_factor=1.0),
+                                di_imgs[0])):
+            stats = tracers.walk_stats
+            before = dataclasses.replace(stats) if stats else None
+            overflows = dict(tracers.overflow_by_class)
+            state = fr.init_frame_state(WIDTH, HEIGHT, device=scene.device)
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            state, img = fr.render_frame(renderer, g, state)
+            torch.cuda.synchronize()
+            sec = time.perf_counter() - t0
+            # the scatter engine's traces whose pair pool overflowed, per
+            # class (pairs dropped: a hit may be missed)
+            extra = _walk_delta(stats, before) if stats else {
+                "overflowed_traces": json.dumps(
+                    {str(k): v - overflows.get(k, 0)
+                     for k, v in tracers.overflow_by_class.items()},
+                    separators=(",", ":"))}
+            log("engines-frame", backend=backend, config=config,
+                seconds=f"{sec:.3f}", **extra,
+                **_pixels_differing(img, ref, against="bundle_walk"),
+                peak_gib=f"{torch.cuda.max_memory_allocated() / 2**30:.2f}")
+            _check_image(f"{backend} {config} display", img, display=True)
+        launches = _launches()
+        if any(launches.values()):
+            raise RuntimeError(f"the {backend} engine launched a kernel: "
+                               f"{launches}")
+        out[backend] = launches
+        del renderer, tracers
+    return out
+
+
 def phase_viewer(scene, renderer) -> None:
     """viewer.run_interactive for VIEWER_FRAMES flagship frames at
     VIEWER_SIZE through the bundle backend, on a pseudo-terminal: the keys
@@ -2150,7 +2408,8 @@ def phase_kernel_checkerboard(renderer, trace_log: TraceLog) -> dict:
     half-grid visibility batch (each plain walk timed once, it takes
     seconds a batch): {kernel: {class: result}}."""
     real = lane_real(renderer.tracers)
-    out = {"walk_closest": {}, "walk_occluded": {}, "nearest_box": {},
+    out = {"walk_closest": {}, "walk_occluded": {}, "walk_closest_sc": {},
+           "walk_occluded_sc": {}, "nearest_box": {},
            "bundle_union": {}}
     checks = [(f"cb_{b}", k) for b in FLAGSHIP_BOUNCES for k in CULLS]
     checks.append(("cbdi_visibility", "bundle_union"))
@@ -2891,7 +3150,8 @@ def run(dev: torch.device, smi: str, pool, sky_job,
     phase_oracle(scene, renderer_p, batches, phase="oracle-pairs")
     del batches
 
-    trace_log = TraceLog(renderer.tracers)
+    # the traces' rays are kept for tracer-modes
+    trace_log = TraceLog(renderer.tracers, keep_traces=True)
     phase_capture(scene, renderer, g_di, trace_log)
     for kernel, by_cls in phase_kernel_di(renderer, trace_log).items():
         classes.setdefault(kernel, {}).update(by_cls)
@@ -2908,6 +3168,10 @@ def run(dev: torch.device, smi: str, pool, sky_job,
     classes.update(phase_kernel_cull(trace_log))
     trace_log.culls.clear()
     sky = phase_skybox_exr(pool, sky_job)
+    # after the EXR worker is done: the modes' traces are timed on the
+    # host's clock
+    classes.update(phase_tracer_modes(scene, renderer, trace_log))
+    trace_log.traces.clear()
     paths = {}
     paths["di_frames"], di_imgs = phase_di_frames(scene, renderer, g_di,
                                                   trace_log)
@@ -2931,6 +3195,10 @@ def run(dev: torch.device, smi: str, pool, sky_job,
     del renderer_l, oracle_rays
     paths["app_frames"] = phase_app(dev, flag_seconds)
     phase_viewer(scene, renderer)
+    paths["sc_frames"] = phase_sc_frames(scene, view, g_di, di_imgs)
+    for backend, launches in phase_engines(scene, g_flag, g_di, flag_imgs,
+                                           di_imgs).items():
+        paths[f"{backend}_engine_frames"] = launches
 
     sky_scene, sky_renderer = phase_skybox(model, sky, dev)
     del model, sky
@@ -2961,9 +3229,11 @@ def run(dev: torch.device, smi: str, pool, sky_job,
 
     # each kernel's launches on its main path: the flagship frames, the DI
     # frames for the any-hit walk (the flagship frame casts no visibility
-    # ray), the pairs frames for B5 and B6
+    # ray), the pairs frames for B5 and B6, the "sc" DI frame for the
+    # supercluster walks
     main_path = {name: "di_frames" if name == "walk_occluded"
                  else "pairs_frames" if name in PAIR_KERNELS
+                 else "sc_frames" if name in SC_WALKS
                  else "flagship_frames" for name in KERNELS}
     log("run", wall_seconds=f"{time.perf_counter() - t_start:.1f}")
     print(smi, flush=True)

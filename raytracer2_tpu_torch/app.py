@@ -11,11 +11,13 @@ path and writes PNGs/metrics. Live parameter editing maps to CLI flags over
 the same GConst surface.
 
 Everything runs on --device (default cuda; the run fails rather than fall
-back when no CUDA device is present). The JAX app's TPU tuning knobs
-(--cull, --group, --bundle-size, --shadow-order, --sort-key,
---cluster-size) have no counterpart; --backend takes the port's engines.
-Checkpoints use the JAX app's .npz layout, so each app resumes from the
-other's.
+back when no CUDA device is present). --backend takes the JAX app's
+engines (bundle_pallas is the port's CUDA bundle walk, as auto) and the
+port's bundle_cuda; the traversal knobs --cull, --group, --bundle-size,
+--shadow-order, --sort-key and --cluster-size take the JAX app's choices
+and go to make_tracers as the JAX app sends them. --k-cand sets every
+ray class's candidate budget. Checkpoints use the JAX app's .npz layout,
+so each app resumes from the other's.
 """
 
 from __future__ import annotations
@@ -35,10 +37,11 @@ import torch
 logger = logging.getLogger("raytracer2_tpu_torch")
 
 FRAME_BUDGET_SECONDS = 0.016  # 16 ms budget (main.rs:653-656)
-BACKENDS = ("auto", "bundle_cuda", "pairs", "lbvh", "brute")
 
 
 def build_arg_parser() -> argparse.ArgumentParser:
+    from raytracer2_tpu_torch.render.app_bridge import BACKENDS, SHADOW_ORDERS
+
     p = argparse.ArgumentParser(
         description="ReSTIR path tracer on PyTorch/CUDA (RayTracer2 "
                     "rebuild)")
@@ -83,7 +86,9 @@ def build_arg_parser() -> argparse.ArgumentParser:
                    help="brute-force intersection (oracle mode; the same "
                         "as --backend brute)")
     p.add_argument("--backend", default="auto", choices=BACKENDS,
-                   help="ray traversal engine (auto: the bundle walk)")
+                   help="ray traversal engine (auto, bundle_pallas: the "
+                        "bundle walk; bundle, scatter: the XLA engines' "
+                        "ports)")
     # light-sampling subsystems (frame-1 presample dispatch analogues,
     # light_passes.rs:538-547; ReGIR grid = local_light_sampling_mode 2)
     p.add_argument("--presample", type=int, default=1,
@@ -94,10 +99,31 @@ def build_arg_parser() -> argparse.ArgumentParser:
     p.add_argument("--local-light-sampling-mode", type=int, default=None,
                    choices=[0, 1, 2],
                    help="0 uniform, 1 power-RIS, 2 ReGIR (needs --regir)")
+    # traversal tuning (ops/cuda_traverse.py knobs, the JAX app's choices)
+    p.add_argument("--cull", default=None,
+                   choices=["auto", "exact", "exact_iv", "interval", "hier"],
+                   help="bundle culling strategy (default: auto)")
     p.add_argument("--k-cand", type=int, default=None,
                    help="max ranked candidate clusters per bundle, for "
                         "every ray class (default: sized per class by "
                         "the k_cand probe)")
+    p.add_argument("--group", type=int, default=None,
+                   help="clusters intersected per walk step")
+    p.add_argument("--bundle-size", type=int, default=None,
+                   help="rays per traversal bundle")
+    p.add_argument("--shadow-order", default=None,
+                   choices=list(SHADOW_ORDERS),
+                   help="visibility-batch ray ordering: pixz = static "
+                        "pixel-Z presort (no runtime sort), octz = "
+                        "octant|t-bucket cheap re-sort, cand0 = full "
+                        "nearest-cluster sort")
+    p.add_argument("--sort-key", default=None,
+                   choices=["cand0", "hier", "octz"],
+                   help="cull-order ray sort key (exact cull, unsorted "
+                        "batches): cand0 = dense nearest-cluster, hier = "
+                        "supercluster-refined (~1/32 the key cost)")
+    p.add_argument("--cluster-size", type=int, default=None,
+                   help="triangles per cluster (acceleration build)")
     p.add_argument("--checkerboard", action="store_true",
                    help="checkerboard rendering: lighting passes trace "
                         "half the pixel grid per frame, alternating "
@@ -228,11 +254,21 @@ def _traversal_overflow(renderer, view, width: int, height: int
                for d in (rays.direction, d_inc))
 
 
-def _size_k_cand(renderer, scene, backend: str, view):
+def tracer_options(args) -> dict:
+    """The traversal knobs the app passes to make_tracers (the JAX app's
+    tracer_opts, but for --k-cand: the k_cand_per_class of every class)."""
+    return {k: v for k, v in dict(
+        cull=args.cull, group=args.group, bundle_size=args.bundle_size,
+        sort_key=args.sort_key, shadow_order=args.shadow_order,
+        cluster_size=args.cluster_size).items() if v is not None}
+
+
+def _size_k_cand(renderer, scene, args, view):
     """Auto-size the traversal candidate budgets for this scene and
     camera (VERDICT r4 #4): zero-truncation k_cand per ray class, with the
     bounded overflow fallback still on as the safety net. Returns the
-    renderer, its tracers rebuilt where a budget changed."""
+    renderer, its tracers rebuilt (with the app's other knobs) where a
+    budget changed."""
     from raytracer2_tpu_torch.render.app_bridge import (
         make_tracers, suggest_k_cand)
 
@@ -250,7 +286,8 @@ def _size_k_cand(renderer, scene, backend: str, view):
     if not apply:
         return renderer
     return dataclasses.replace(renderer, tracers=make_tracers(
-        scene, backend=backend, k_cand_per_class=apply))
+        scene, use_bvh=not args.no_bvh, backend=args.backend,
+        k_cand_per_class=apply, **tracer_options(args)))
 
 
 def main(argv=None) -> int:
@@ -277,19 +314,20 @@ def main(argv=None) -> int:
                 scene.num_triangles, scene.num_geometries,
                 scene.num_emissive_triangles)
 
-    backend = "brute" if args.no_bvh else args.backend
     k_cand = (None if args.k_cand is None else
               {True: args.k_cand, False: args.k_cand, "shadow": args.k_cand})
     renderer = create_renderer(scene, args.width, args.height,
-                               backend=backend,
+                               use_bvh=not args.no_bvh, backend=args.backend,
                                presample=bool(args.presample),
-                               regir=args.regir, k_cand_per_class=k_cand)
+                               regir=args.regir,
+                               tracer_opts=tracer_options(args),
+                               k_cand_per_class=k_cand)
     camera = default_camera(
         window_size=(args.width, args.height),
         position=tuple(args.camera_pos), direction=tuple(args.camera_dir),
         fov=args.fov)
     if args.k_cand is None:
-        renderer = _size_k_cand(renderer, scene, backend,
+        renderer = _size_k_cand(renderer, scene, args,
                                 camera.planar_view_constants())
 
     environment = args.environment

@@ -44,9 +44,13 @@
 //   hits it, and a done ray never tests again), so testing the step's
 //   clusters in turn, and a ray stopping inside a step, change no flag.
 // The affines fuse exactly the multiply-adds the plain torch version fuses
-// (ops/cuda_traverse.py::_wald_test: XLA's contraction, explicit __fmaf_rn
+// (ops/wald.py::hit_test: XLA's contraction, explicit __fmaf_rn
 // here, nothing else fused), the divide is IEEE, so a hit here is a hit in
 // walk_occluded_reference bit for bit.
+//
+// Supercluster mode (rt2_walk_occluded_sc, the TPU kernel's sc_m > 0
+// branch) walks each supercluster's members as one group, as
+// bundle_walk.cu does; the exit is tested before each supercluster.
 
 #include <climits>
 
@@ -85,6 +89,8 @@ __device__ __forceinline__ bool blocks_ray(const rt2::Ray& r,
   return false;
 }
 
+// kSc: the supercluster walk, as in bundle_walk.cu.
+template <bool kSc>
 __global__ void __launch_bounds__(kMaxBundle, kMinBlocks)
 walk_occluded_kernel(const float* __restrict__ rays8,
                      const int* __restrict__ cand_idx,
@@ -94,7 +100,7 @@ walk_occluded_kernel(const float* __restrict__ rays8,
                      const int* __restrict__ lane_count,
                      const int* __restrict__ order,
                      int* __restrict__ out_blocked, int k, int s_pad,
-                     int group) {
+                     int group, int sc_m, int n_clusters) {
   extern __shared__ float4 ring[];  // [kRing][s_pad * kChunks]
   __shared__ int slot_lanes[kRing];
   __shared__ int warp_worst[2][kMaxBundle / 32];
@@ -108,11 +114,12 @@ walk_occluded_kernel(const float* __restrict__ rays8,
   // padded rays carry t_max <= t_min and are done from the start
   bool done = r.tx <= r.tn;
 
-  const int n_cand = cand_count[bundle];
+  // ring entries: candidates, or in supercluster mode their members
+  const int n_cand = kSc ? cand_count[bundle] * sc_m : cand_count[bundle];
   const int* ci_row = cand_idx + static_cast<long long>(bundle) * k;
   const float* ct_row = cand_t + static_cast<long long>(bundle) * k;
-  rt2::ClusterRing cr{ring, slot_lanes, coeffs, lane_count, ci_row, n_cand,
-                      s_pad};
+  rt2::ClusterRing<kSc> cr{ring, slot_lanes, coeffs, lane_count, ci_row,
+                           n_cand, s_pad, sc_m, n_clusters};
   cr.prime();
 
   int buf = 0;  // warp_worst half of this group start
@@ -129,7 +136,8 @@ walk_occluded_kernel(const float* __restrict__ rays8,
     // slot, and the warps' maxima are written
     __syncthreads();
     if (g == 0) {
-      const bool on = rt2::walk_goes_on(warp_worst[buf], n_warps, ct_row + j);
+      const bool on = rt2::walk_goes_on(warp_worst[buf], n_warps,
+                                        ct_row + (kSc ? j / sc_m : j));
       buf ^= 1;  // the next group start writes the other half
       if (!on) break;
     }
@@ -158,16 +166,36 @@ int rt2_walk_occluded(const float* rays8, const int* cand_idx,
                       const float* coeffs, const int* lane_count, int* order,
                       int* out_blocked, int n_bundles, int p, int k,
                       int s_pad, int group, void* stream) {
-  return rt2::launch_walk(walk_occluded_kernel, rays8, cand_idx, cand_t,
-                          cand_count, coeffs, lane_count, order, out_blocked,
-                          n_bundles, p, k, s_pad, group, stream);
+  return rt2::launch_walk(walk_occluded_kernel<false>, rays8, cand_idx,
+                          cand_t, cand_count, coeffs, lane_count, order,
+                          out_blocked, n_bundles, p, k, s_pad, group, 0, 0,
+                          stream);
+}
+
+// The supercluster walk: as rt2_walk_occluded, with cand_idx holding
+// supercluster ids of sc_m clusters each (group == sc_m) and n_clusters
+// the clusters of coeffs and lane_count.
+int rt2_walk_occluded_sc(const float* rays8, const int* cand_idx,
+                         const float* cand_t, const int* cand_count,
+                         const float* coeffs, const int* lane_count,
+                         int* order, int* out_blocked, int n_bundles, int p,
+                         int k, int s_pad, int group, int sc_m,
+                         int n_clusters, void* stream) {
+  return rt2::launch_walk(walk_occluded_kernel<true>, rays8, cand_idx,
+                          cand_t, cand_count, coeffs, lane_count, order,
+                          out_blocked, n_bundles, p, k, s_pad, group, sc_m,
+                          n_clusters, stream);
 }
 
 // out[4]: resident blocks per SM at p threads a block and s_pad lanes a
 // cluster, p, registers per thread, shared bytes per block. Returns a
 // cudaError_t (0 on success).
 int rt2_walk_occluded_occupancy(int p, int s_pad, int* out) {
-  return rt2::walk_occupancy(walk_occluded_kernel, p, s_pad, out);
+  return rt2::walk_occupancy(walk_occluded_kernel<false>, p, s_pad, out);
+}
+
+int rt2_walk_occluded_sc_occupancy(int p, int s_pad, int* out) {
+  return rt2::walk_occupancy(walk_occluded_kernel<true>, p, s_pad, out);
 }
 
 }  // extern "C"

@@ -64,13 +64,24 @@
 //   written before that cluster's barrier and read after it: no barrier of
 //   its own.
 // The affines fuse exactly the multiply-adds the plain torch version fuses
-// (ops/cuda_traverse.py::_wald_test: XLA's contraction, explicit __fmaf_rn
+// (ops/wald.py::hit_test: XLA's contraction, explicit __fmaf_rn
 // here, nothing else fused), the divide is IEEE, so the kernel agrees with
 // walk_closest_reference bit for bit.
 //
 // The any-hit walk (bundle_occlude.cu) shares this design and its helpers
 // (walk_common.cuh: the cluster ring, the group-start exit, the lane test,
 // the bundle order, the launch and the occupancy).
+//
+// Supercluster mode (rt2_walk_closest_sc, the kSc instance; the TPU
+// kernel's sc_m > 0 branch): each candidate is a supercluster of sc_m
+// clusters laid side by side, walked in one step, with group forced to
+// sc_m. Here the ring takes the supercluster's members in turn as a
+// group's clusters, reading the cluster tables (no supercluster copy of
+// them), so a step is the same group of sc_m clusters the TPU walks at
+// once and the exit is tested before each supercluster; the members past
+// C stage and test nothing (the TPU's zero rows never hit). The member's
+// slot g * S_pad + lane and its cluster s * sc_m + g give JAX's winner
+// code.
 
 #include <climits>
 
@@ -88,6 +99,12 @@ constexpr int kSlotMask = (1 << 10) - 1;
 constexpr int kMissCode = 0x7FFFFFFF;
 constexpr int kMinBlocks = 4;  // of kMaxBundle threads: <= 64 registers
 
+// kSc: the supercluster walk (cull="sc", group == sc_m): candidate s of
+// the list is the clusters s*sc_m .. s*sc_m + sc_m - 1, the ring walks them
+// as group members (ClusterRing<true>), and the exit test where a group
+// starts reads supercluster s's entry distance. A member's slot is
+// g * S_pad + lane, JAX's SC-mode slot, and its cluster decodes the winner.
+template <bool kSc>
 __global__ void __launch_bounds__(kMaxBundle, kMinBlocks)
 walk_closest_kernel(const float* __restrict__ rays8,
                     const int* __restrict__ cand_idx,
@@ -97,7 +114,7 @@ walk_closest_kernel(const float* __restrict__ rays8,
                     const int* __restrict__ lane_count,
                     const int* __restrict__ order,
                     int* __restrict__ out_code, int k, int s_pad,
-                    int group) {
+                    int group, int sc_m, int n_clusters) {
   extern __shared__ float4 ring[];  // [kRing][s_pad * kChunks]
   __shared__ int slot_lanes[kRing];
   __shared__ int warp_worst[2][kMaxBundle / 32];
@@ -114,11 +131,12 @@ walk_closest_kernel(const float* __restrict__ rays8,
   int best_key = (__float_as_int(r.tx) & ~kSlotMask) | kSlotMask;
   int best_j = -1;  // the candidate whose lane set best_key
 
-  const int n_cand = cand_count[bundle];
+  // ring entries: candidates, or in supercluster mode their members
+  const int n_cand = kSc ? cand_count[bundle] * sc_m : cand_count[bundle];
   const int* ci_row = cand_idx + static_cast<long long>(bundle) * k;
   const float* ct_row = cand_t + static_cast<long long>(bundle) * k;
-  rt2::ClusterRing cr{ring, slot_lanes, coeffs, lane_count, ci_row, n_cand,
-                      s_pad};
+  rt2::ClusterRing<kSc> cr{ring, slot_lanes, coeffs, lane_count, ci_row,
+                           n_cand, s_pad, sc_m, n_clusters};
   cr.prime();
 
   int buf = 0;  // warp_worst half of this group start
@@ -134,7 +152,8 @@ walk_closest_kernel(const float* __restrict__ rays8,
     // slot, and the warps' maxima are written
     __syncthreads();
     if (g == 0) {
-      const bool on = rt2::walk_goes_on(warp_worst[buf], n_warps, ct_row + j);
+      const bool on = rt2::walk_goes_on(warp_worst[buf], n_warps,
+                                        ct_row + (kSc ? j / sc_m : j));
       buf ^= 1;  // the next group start writes the other half
       if (!on) break;
     }
@@ -161,7 +180,7 @@ walk_closest_kernel(const float* __restrict__ rays8,
   int code = kMissCode;
   if (best_j >= 0) {
     const int lane = (best_key & kSlotMask) - (best_j % group) * s_pad;
-    code = ci_row[best_j] * s_pad + lane;
+    code = cr.cluster(best_j) * s_pad + lane;
   }
   out_code[ray] = code;
 }
@@ -181,16 +200,35 @@ int rt2_walk_closest(const float* rays8, const int* cand_idx,
                      const float* coeffs, const int* lane_count, int* order,
                      int* out_code, int n_bundles, int p, int k, int s_pad,
                      int group, void* stream) {
-  return rt2::launch_walk(walk_closest_kernel, rays8, cand_idx, cand_t,
+  return rt2::launch_walk(walk_closest_kernel<false>, rays8, cand_idx, cand_t,
                           cand_count, coeffs, lane_count, order, out_code,
-                          n_bundles, p, k, s_pad, group, stream);
+                          n_bundles, p, k, s_pad, group, 0, 0, stream);
+}
+
+// The supercluster walk: as rt2_walk_closest, with cand_idx holding
+// supercluster ids of sc_m clusters each (group == sc_m) and n_clusters
+// the clusters of coeffs and lane_count.
+int rt2_walk_closest_sc(const float* rays8, const int* cand_idx,
+                        const float* cand_t, const int* cand_count,
+                        const float* coeffs, const int* lane_count,
+                        int* order, int* out_code, int n_bundles, int p,
+                        int k, int s_pad, int group, int sc_m, int n_clusters,
+                        void* stream) {
+  return rt2::launch_walk(walk_closest_kernel<true>, rays8, cand_idx, cand_t,
+                          cand_count, coeffs, lane_count, order, out_code,
+                          n_bundles, p, k, s_pad, group, sc_m, n_clusters,
+                          stream);
 }
 
 // out[4]: resident blocks per SM at p threads a block and s_pad lanes a
 // cluster, p, registers per thread, shared bytes per block. Returns a
 // cudaError_t (0 on success).
 int rt2_walk_closest_occupancy(int p, int s_pad, int* out) {
-  return rt2::walk_occupancy(walk_closest_kernel, p, s_pad, out);
+  return rt2::walk_occupancy(walk_closest_kernel<false>, p, s_pad, out);
+}
+
+int rt2_walk_closest_sc_occupancy(int p, int s_pad, int* out) {
+  return rt2::walk_occupancy(walk_closest_kernel<true>, p, s_pad, out);
 }
 
 const char* rt2_error_string(int code) {

@@ -48,7 +48,7 @@
 //   order; a ray whose segment is empty (t_max <= t_min, or NaN) tests
 //   nothing, so the warps of a block's trailing dead pairs skip the loop.
 // The affines fuse exactly the multiply-adds the plain torch version fuses
-// (ops/cuda_traverse.py::_wald_test, explicit __fmaf_rn here) and the
+// (ops/wald.py::hit_test, explicit __fmaf_rn here) and the
 // divide is IEEE, so the kernel agrees with
 // ops/cuda_pairs.py::pair_sweep_reference bit for bit.
 
@@ -91,7 +91,7 @@ pair_sweep_kernel(const float* __restrict__ rays8,
   const rt2::Ray r = rt2::load_ray(rays8, ray);
   const bool active = r.tx > r.tn;
 
-  rt2::ClusterRing cr{ring, slot_lanes, coeffs, lane_count, members, n_mem,
+  rt2::ClusterRing<> cr{ring, slot_lanes, coeffs, lane_count, members, n_mem,
                       s_pad};
   cr.prime();
   int best = kMissKey;

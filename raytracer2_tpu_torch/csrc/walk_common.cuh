@@ -1,5 +1,6 @@
-// Code the bundle walks share (bundle_walk.cu, bundle_occlude.cu;
-// pair_sweep.cu runs the same ring over a supercluster's members): the ray
+// Code the bundle walks share (bundle_walk.cu, bundle_occlude.cu, each in a
+// cluster and a supercluster form; pair_sweep.cu runs the same ring over a
+// supercluster's members): the ray
 // rows and limits, the cp.async ring's copies, the lane-major Wald test, the
 // float order the early exit reduces over, the longest-first bundle order,
 // and the walks' launch and occupancy on the host.
@@ -8,7 +9,7 @@
 // in the JAX package's _intersect_block: explicit __fmaf_rn where XLA fuses,
 // every other multiply and add rounded on its own (--fmad=false keeps nvcc
 // from contracting more), in the order of the plain torch version
-// (ops/cuda_traverse.py::_wald_test), so the walks agree with their plain
+// (ops/wald.py::hit_test), so the walks agree with their plain
 // versions, and those with JAX's walks, bit for bit.
 
 #pragma once
@@ -86,6 +87,12 @@ __device__ __forceinline__ void stage_cluster(float4* slot,
 // refill(j), then tests tile(j)'s first lanes(j) lanes. The cluster id and
 // lane count of the next copies are loaded an iteration early, so that
 // those loads wait behind a cluster test.
+//
+// kSc (supercluster mode, cull="sc"): the list holds supercluster ids, and
+// ring entry q is member q % sc_m of supercluster ci_row[q / sc_m], i.e.
+// cluster ci_row[q / sc_m] * sc_m + q % sc_m; the members past the last
+// cluster (n_clusters) stage no lane. n_cand then counts members.
+template <bool kSc = false>
 struct ClusterRing {
   float4* slots;  // [kRing][s_pad * kChunks], shared
   int* slot_lanes;  // [kRing], shared: the lanes staged in each slot
@@ -93,22 +100,41 @@ struct ClusterRing {
   const int* lane_count;  // [C]
   const int* ci_row;  // the bundle's candidates
   int n_cand, s_pad;
+  int sc_m, n_clusters;  // supercluster mode only
   int ci_next, lanes_next, ci_after;
+
+  // The cluster of ring entry q (q < n_cand).
+  __device__ __forceinline__ int cluster(int q) const {
+    if constexpr (kSc) {
+      return ci_row[q / sc_m] * sc_m + q % sc_m;
+    } else {
+      return ci_row[q];
+    }
+  }
+
+  // The lanes cluster ci stages and tests.
+  __device__ __forceinline__ int lanes_of(int ci) const {
+    if constexpr (kSc) {
+      return ci < n_clusters ? lane_count[ci] : 0;
+    } else {
+      return lane_count[ci];
+    }
+  }
 
   // Starts the copies of candidates 0 .. kRing - 2.
   __device__ __forceinline__ void prime() {
     for (int q = 0; q < kRing - 1; ++q) {
       if (q < n_cand) {
-        const int ci = ci_row[q];
-        const int lanes = lane_count[ci];
+        const int ci = cluster(q);
+        const int lanes = lanes_of(ci);
         if (threadIdx.x == 0) slot_lanes[q] = lanes;
         stage_cluster(slots + q * s_pad * kChunks, coeffs, ci, lanes, s_pad);
       }
       cp_async_commit();
     }
-    ci_next = kRing - 1 < n_cand ? ci_row[kRing - 1] : 0;
-    lanes_next = lane_count[ci_next];
-    ci_after = kRing < n_cand ? ci_row[kRing] : 0;
+    ci_next = kRing - 1 < n_cand ? cluster(kRing - 1) : 0;
+    lanes_next = lanes_of(ci_next);
+    ci_after = kRing < n_cand ? cluster(kRing) : 0;
   }
 
   // Starts the copies of candidate j + kRing - 1 into the slot candidate
@@ -121,8 +147,8 @@ struct ClusterRing {
       stage_cluster(slots + slot * s_pad * kChunks, coeffs, ci_next,
                     lanes_next, s_pad);
       ci_next = ci_after;
-      lanes_next = lane_count[ci_after];
-      ci_after = jn + 2 < n_cand ? ci_row[jn + 2] : 0;
+      lanes_next = lanes_of(ci_after);
+      ci_after = jn + 2 < n_cand ? cluster(jn + 2) : 0;
     }
     cp_async_commit();
   }
@@ -213,25 +239,27 @@ size_t ring_bytes(int s_pad) {
   return sizeof(float4) * kRing * kChunks * static_cast<size_t>(s_pad);
 }
 
-// The signature of both walk kernels: rays8, cand_idx, cand_t, cand_count,
-// lane-major coeffs, lane_count, bundle order, out, k, s_pad, group.
+// The signature of the walk kernels: rays8, cand_idx, cand_t, cand_count,
+// lane-major coeffs, lane_count, bundle order, out, k, s_pad, group, and
+// the supercluster walks' sc_m and C (the cluster walks ignore them).
 using WalkKernel = void (*)(const float*, const int*, const float*,
                             const int*, const float4*, const int*,
-                            const int*, int*, int, int, int);
+                            const int*, int*, int, int, int, int, int);
 
 // A walk's launch: checks the shapes, orders the bundles longest first
 // into `order` (bundle_order_kernel), then runs `kernel` with one block of
-// p threads per bundle and a ring of kRing slots, all on `stream`. Returns
-// a cudaError_t (0 on success).
+// p threads per bundle and a ring of kRing slots, all on `stream`. sc_m > 0
+// launches a supercluster walk (group == sc_m, n_clusters = C). Returns a
+// cudaError_t (0 on success).
 int launch_walk(WalkKernel kernel, const float* rays8, const int* cand_idx,
                 const float* cand_t, const int* cand_count,
                 const float* coeffs, const int* lane_count, int* order,
                 int* out, int n_bundles, int p, int k, int s_pad, int group,
-                void* stream) {
+                int sc_m, int n_clusters, void* stream) {
   if (n_bundles <= 0) return 0;
   if (p <= 0 || p > kMaxBundle || p % 32 != 0 || group < 1 ||
       group > kMaxGroup || s_pad <= 0 || group * s_pad > kMaxLanes ||
-      k < 1) {
+      k < 1 || sc_m < 0 || (sc_m > 0 && (group != sc_m || n_clusters < 1))) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   const auto s = static_cast<cudaStream_t>(stream);
@@ -248,7 +276,7 @@ int launch_walk(WalkKernel kernel, const float* rays8, const int* cand_idx,
   kernel<<<n_bundles, p, smem, s>>>(
       rays8, cand_idx, cand_t, cand_count,
       reinterpret_cast<const float4*>(coeffs), lane_count, order, out, k,
-      s_pad, group);
+      s_pad, group, sc_m, n_clusters);
   return static_cast<int>(cudaGetLastError());
 }
 

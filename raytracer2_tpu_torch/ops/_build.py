@@ -111,7 +111,16 @@ def library() -> ctypes.CDLL:
         vp]  # stream
     lib.rt2_walk_occluded.restype = ci
     lib.rt2_walk_occluded.argtypes = lib.rt2_walk_closest.argtypes
-    for entry in ("rt2_walk_closest_occupancy", "rt2_walk_occluded_occupancy"):
+    for entry in ("rt2_walk_closest_sc", "rt2_walk_occluded_sc"):
+        getattr(lib, entry).restype = ci
+        getattr(lib, entry).argtypes = [
+            vp, vp, vp, vp, vp, vp, vp, vp,  # as rt2_walk_closest's
+            ci, ci, ci, ci, ci, ci, ci,  # n_bundles, p, k, s_pad, group,
+            #   sc_m, n_clusters
+            vp]  # stream
+    for entry in ("rt2_walk_closest_occupancy", "rt2_walk_occluded_occupancy",
+                  "rt2_walk_closest_sc_occupancy",
+                  "rt2_walk_occluded_sc_occupancy"):
         getattr(lib, entry).restype = ci
         getattr(lib, entry).argtypes = [ci, ci, vp]  # p, s_pad, out
     for entry in ("rt2_nearest_box_occupancy", "rt2_bundle_union_occupancy"):
@@ -151,8 +160,9 @@ def library() -> ctypes.CDLL:
 def occupancy(entry: str, *args: int) -> dict:
     """A kernel's residency on the card, from its occupancy entry point
     (rt2_walk_closest_occupancy(p, s_pad), rt2_walk_occluded_occupancy(p,
-    s_pad), rt2_nearest_box_occupancy(), rt2_bundle_union_occupancy(),
-    rt2_pair_sweep_occupancy(s_pad), rt2_bin_scatter_occupancy(kernel,
+    s_pad) and their _sc twins, rt2_nearest_box_occupancy(),
+    rt2_bundle_union_occupancy(), rt2_pair_sweep_occupancy(s_pad),
+    rt2_bin_scatter_occupancy(kernel,
     n_bins) for B6's count (0), scan (1) and scatter (2) kernels):
     resident blocks per SM (cudaOccupancyMaxActiveBlocksPerMultiprocessor),
     threads per block, registers per thread and shared bytes per block."""

@@ -12,6 +12,10 @@ space. For a ray (o, d):
 The build is the JAX package's numpy code, so both produce the same
 triangle order, boxes and transforms bit for bit. The per-bundle interval
 cull (bundle_cluster_overlap) feeds the pixel-tile candidate prep.
+intersect_cluster_block is the JAX engines' all-pairs test; the port's
+engines test their hits with wald.hit_test, which rounds the same way on
+the lanes that can hit, and the scatter engine re-evaluates its winners
+with intersect_cluster_block.
 """
 
 from __future__ import annotations
@@ -20,6 +24,8 @@ from typing import Mapping, NamedTuple
 
 import numpy as np
 import torch
+
+from raytracer2_tpu_torch.ops.wald import fma
 
 
 class Clusters(NamedTuple):
@@ -167,6 +173,42 @@ def build_clusters(tri_v0, tri_edge1, tri_edge2, cluster_size: int = 64,
     return clusters_from_arrays(
         cluster_arrays(tri_v0, tri_edge1, tri_edge2, cluster_size),
         device=device)
+
+
+def intersect_cluster_block(origins, directions, wald_block, t_min, t_cap):
+    """All-pairs intersection of R rays with one cluster block: origins,
+    directions [..., R, 3], wald_block [..., 4, 3S] (the [A|b]^T block of
+    Clusters.wald), t_min, t_cap [..., R]; leading dimensions broadcast, as
+    JAX's vmap of it. Returns (hit [..., R, S], t, u, v) with hit = |d'_z|
+    > 1e-12, u >= 0, v >= 0, u + v <= 1, t_min < t < t_cap.
+
+    Rounded as XLA's CPU backend rounds the JAX function (read off the
+    jitted function's outputs): each affine x wx + y wy + z wz [+ bias] is
+    fma(z, wz, fma(x, wx, y * wy)) [+ bias], t = -o'_z / d'_z (d'_z = 1
+    where |d'_z| <= 1e-12) and u, v are fma(t, d', o'); so t, u and v equal
+    the JAX package's bit for bit on every lane. The fused multiply-adds
+    are wald.fma (float64 work): the engines test their hits with the
+    float32 pass of wald.hit_test instead, which rounds the same way on
+    the lanes that can hit."""
+    w = wald_block[..., None, :, :]  # [..., 1, 4, 3S]
+
+    def affine(x, bias):
+        acc = fma(x[..., 2:3], w[..., 2, :], fma(
+            x[..., 0:1], w[..., 0, :], x[..., 1:2] * w[..., 1, :]))
+        return acc + w[..., 3, :] if bias else acc
+
+    op = affine(origins, True)
+    dp = affine(directions, False)
+    op = op.reshape(*op.shape[:-1], -1, 3)
+    dp = dp.reshape(*dp.shape[:-1], -1, 3)
+    dz = dp[..., 2]
+    valid = torch.abs(dz) > 1e-12
+    t = -op[..., 2] / torch.where(valid, dz, 1.0)
+    u = fma(t, dp[..., 0], op[..., 0])
+    v = fma(t, dp[..., 1], op[..., 1])
+    hit = (valid & (u >= 0.0) & (v >= 0.0) & (u + v <= 1.0)
+           & (t > t_min[..., None]) & (t < t_cap[..., None]))
+    return hit, t, u, v
 
 
 def bundle_cluster_overlap(o_min, o_max, inv_lo, inv_hi, t_max,

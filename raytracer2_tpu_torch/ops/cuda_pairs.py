@@ -40,6 +40,7 @@ from raytracer2_tpu_torch.ops import binning
 from raytracer2_tpu_torch.ops import cuda_traverse as ct
 from raytracer2_tpu_torch.ops.cluster import Clusters
 from raytracer2_tpu_torch.ops.intersect import HitRecord
+from raytracer2_tpu_torch.ops.wald import hit_test
 
 PAIR_P = 128  # rays per pair block
 MISS_KEY = 0x7F000000  # bits of ~1.7e38: above any real hit key
@@ -208,7 +209,7 @@ def pair_sweep_reference(rays8_pairs: torch.Tensor, block_sc: torch.Tensor,
                          block_live: torch.Tensor, wald_sc: torch.Tensor
                          ) -> torch.Tensor:
     """Plain torch version of pair_sweep over the live blocks, in chunks:
-    cuda_traverse._wald_test (XLA's contracted affines, which the kernels
+    wald.hit_test (XLA's contracted affines, which the kernels
     write with __fmaf_rn) plus the open t < t_max end, so the two agree
     bit for bit."""
     nblk, c2, w = _check_sweep_args(rays8_pairs, block_sc, block_live,
@@ -225,7 +226,7 @@ def pair_sweep_reference(rays8_pairs: torch.Tensor, block_sc: torch.Tensor,
         b = live[s:s + bc]
         r = rays[b]
         wr = wald_sc[block_sc[b].long(), :12, None, :]  # [nb, 12, 1, W]
-        t, hit = ct._wald_test(r, wr)
+        t, hit = hit_test(r, wr)
         hit &= t < r[..., 7:8]
         key = torch.where(hit, (t.view(torch.int32) & ~slot_mask) | lane,
                           MISS_KEY)

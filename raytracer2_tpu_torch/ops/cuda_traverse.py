@@ -1,33 +1,46 @@
 """Closest-hit and any-hit traversal through the hand-written CUDA walks.
 
 Port of the host side of raytracer2_tpu/ops/pallas_traverse.py
-(closest_hit_bundle_pallas, occluded_bundle_pallas) for the ray classes
-the frame traces, plus the wrappers of the kernels that replace its Pallas
+(closest_hit_bundle_pallas, occluded_bundle_pallas, _prep and its culls
+and sort keys), plus the wrappers of the kernels that replace its Pallas
 walks (csrc/bundle_walk.cu, csrc/bundle_occlude.cu) and those kernels'
 plain torch versions.
 
-- Pixel tiles (presorted=True, cull="interval"): rays arrive in screen
-  Z-order; each bundle's candidates come from the conservative interval
-  slab test over all cluster boxes (bundle_cluster_overlap). No sort.
-- Bounces (presorted=False, cull="exact"): every ray is slab-tested
-  exactly against every cluster box (a chunked dense [rays, C] pass), rays
-  are sorted by the cand0 key (nearest overlapped cluster | t_max bucket |
-  octant | origin Morton), and each bundle's candidate list is the union
-  of its rays' overlaps, ranked nearest first.
-- Visibility rays (any hit, presorted in pixel Z-order, cull="exact"):
-  the exact cull without the sort; each ray stops at its first hit.
+The culls (JAX's _prep dispatch; "auto" is "exact"):
+- "interval": each bundle's candidates come from the conservative interval
+  slab test over all cluster boxes (bundle_cluster_overlap). Presorted
+  rays (pixel tiles in screen Z-order) keep their order; others are sorted
+  by the coherence key (traverse_bundle.sort_rays_for_coherence) or, with
+  sort_key="octz", by octz_sort_key.
+- "exact_iv": rays sorted by the cand0 key, candidates from the interval
+  test as above.
+- "exact": every ray is slab-tested exactly against every cluster box (B4,
+  a chunked dense [rays, C] pass), rays are sorted by a key (unless
+  presorted), and each bundle's candidate list is the union of its rays'
+  overlaps, ranked nearest first. The keys: "cand0" (nearest overlapped
+  cluster | t_max bucket | octant | origin Morton; the dense pass is B3),
+  "sc4" (cand0 over 4-cluster supercluster boxes), "hier" (nearest
+  supercluster of 32, then its nearest cluster), "octz" (octant | t_max
+  bucket | arrival rank, no dense pass) and "cand2" (the two nearest
+  clusters).
+- "hier": the dense pass runs against 32-cluster supercluster boxes, then
+  only the clusters of each bundle's k_sc nearest superclusters are refined
+  exactly; a bundle that overlaps more superclusters overflows.
+- "sc": candidates are supercluster ids, full-length lists with no
+  truncation, and the walks take one supercluster of m clusters a step
+  (walk_closest_sc, walk_occluded_sc).
 
 Ranking uses a stable argsort and keeps the first k: jax.lax.top_k breaks
 ties by lower index and jnp.argsort is stable, so the candidate order
 matches the JAX package's exactly (torch.topk promises no tie order).
 uint32 keys are built in int64 with explicit masks.
 
-A bundle whose union exceeds k_cand overflows. Those bundles re-trace
-through the same kernel with full-length lists (k_cand = C, exact by
-construction); past FALLBACK_BUNDLES of them the whole batch re-traces
-at k_cand = C. The TPU tuning knobs (mb, depth, lean, mm, t_cap,
-debug_steps, the hier/sc/exact_iv culls and the other sort keys) are not
-ported: each gives the same hits as this path.
+A bundle whose union exceeds k_cand (or, under "hier", whose superclusters
+exceed k_sc) overflows. Those bundles re-trace through the same kernel
+with the exact cull and full-length lists (k_cand = C, exact by
+construction); past FALLBACK_BUNDLES of them the whole batch re-traces at
+k_cand = C ("hier" with the exact cull). The function-level TPU knobs mb,
+depth, lean, mm, t_cap and debug_steps are not ported.
 
 The exact cull's two dense [rays, C] passes, the cand0 key's nearest box
 and the per-bundle union, are the kernels of ops/cull.py (B3, B4): the
@@ -45,8 +58,10 @@ import torch
 from raytracer2_tpu_torch.ops import cull as cull_mod
 from raytracer2_tpu_torch.ops.cluster import Clusters, bundle_cluster_overlap
 from raytracer2_tpu_torch.ops.intersect import INVALID_INDEX, HitRecord
+from raytracer2_tpu_torch.ops import traverse_bundle as tb
 from raytracer2_tpu_torch.ops.traverse_bundle import (
-    _bundle_bounds, _expand_bits, _pad_rays)
+    _bundle_bounds, _expand_bits, _pad_rays, _per_ray)
+from raytracer2_tpu_torch.ops.wald import fma, hit_test
 
 LANE_PAD = 128  # triangles per cluster row, padded to the lane width
 SLOT_BITS = 10  # group * S_pad <= 1024; low key bits carry the winning slot
@@ -81,16 +96,23 @@ def wald_rows(clusters: Clusters) -> torch.Tensor:
     return torch.nn.functional.pad(rows, (0, s_pad(clusters) - s, 0, 4))
 
 
-def wald_sc_rows(clusters: Clusters, m: int) -> torch.Tensor:
-    """[C2, 16, m*S_pad] with C2 = ceil(C / m): supercluster s's m clusters
-    side by side in the lane dimension, cluster g at lanes g*S_pad + lane.
-    The clusters that pad C up to C2*m are zero rows (never hit)."""
-    rows = wald_rows(clusters)  # [C, 16, S_pad]
-    c, r, sp = rows.shape
+def sc_layout(rows: torch.Tensor, m: int) -> torch.Tensor:
+    """[C, R, W] per-cluster rows -> [C2, R, m*W] with C2 = ceil(C / m):
+    supercluster s's m clusters side by side in the last dimension, cluster
+    g at g*W + lane. The clusters that pad C up to C2*m are zero (False)
+    rows."""
+    c, r, w = rows.shape
     n_sc = (c + m - 1) // m
     rows = torch.nn.functional.pad(rows, (0, 0, 0, 0, 0, n_sc * m - c))
-    return (rows.reshape(n_sc, m, r, sp).permute(0, 2, 1, 3)
-            .reshape(n_sc, r, m * sp).contiguous())
+    return (rows.reshape(n_sc, m, r, w).permute(0, 2, 1, 3)
+            .reshape(n_sc, r, m * w).contiguous())
+
+
+def wald_sc_rows(clusters: Clusters, m: int) -> torch.Tensor:
+    """[C2, 16, m*S_pad] (JAX _wald_sc_rows): supercluster s's m clusters
+    side by side in the lane dimension, cluster g at lanes g*S_pad + lane;
+    the clusters padding C to C2*m are zero rows (never hit)."""
+    return sc_layout(wald_rows(clusters), m)
 
 
 def tri_meta(clusters: Clusters, tri_geometry: torch.Tensor,
@@ -192,10 +214,11 @@ def _check_walk_args(rays8, cand_idx, cand_t, cand_count, wald, group):
 
 
 def _launch(entry, name, rays8, cand_idx, cand_t, cand_count, wald_rows,
-            lanes, b, p, k, sp, group):
+            lanes, b, p, k, sp, group, *extra):
     """Launch one walk kernel of the library (it reads the table as
-    `lanes`) on the current stream and return its [B*P] i32 output; raises
-    if the launch is refused."""
+    `lanes`; `extra` are the supercluster walks' sc_m and C) on the current
+    stream and return its [B*P] i32 output; raises if the launch is
+    refused."""
     if p > MAX_BUNDLE or p % 32:
         raise ValueError(f"bundle size {p} must be a multiple of 32, "
                          f"<= {MAX_BUNDLE}")
@@ -211,7 +234,7 @@ def _launch(entry, name, rays8, cand_idx, cand_t, cand_count, wald_rows,
             rays8.data_ptr(), cand_idx.data_ptr(), cand_t.data_ptr(),
             cand_count.data_ptr(), lanes.coeffs.data_ptr(),
             lanes.count.data_ptr(), order.data_ptr(), out.data_ptr(), b, p,
-            k, sp, group, ctypes.c_void_p(stream))
+            k, sp, group, *extra, ctypes.c_void_p(stream))
     if err != 0:
         raise RuntimeError(f"{name} launch failed: "
                            f"{lib.rt2_error_string(err).decode()} ({err})")
@@ -267,124 +290,6 @@ def _step_rows(cand_idx, wald_rows, k0: int, group: int):
     return ci, wr
 
 
-def _wald_fused(r, w):
-    """The Wald test of rays r [n, 8] against coefficient rows w [n, 12],
-    one pair a row, rounded as XLA's CPU backend rounds the JAX package's
-    _intersect_block: each affine x wx + y wy + z wz is fma(z, wz, fma(x,
-    wx, y * wy)), u and v are fma(t, dp, op), the bias adds and the divide
-    round on their own. (t, hit) [n]. The u, v and z columns go together."""
-    def affine(x, y, z):  # [n, 3]: u, v, z
-        return _fma(z[:, None], w[:, 6:9],
-                    _fma(x[:, None], w[:, 0:3], y[:, None] * w[:, 3:6]))
-
-    op = affine(r[:, 0], r[:, 1], r[:, 2]) + w[:, 9:12]
-    dp = affine(r[:, 3], r[:, 4], r[:, 5])
-    t = -op[:, 2] / dp[:, 2]
-    uv = _fma(t[:, None], dp[:, :2], op[:, :2])
-    uu, vv = uv[:, 0], uv[:, 1]
-    hit = ((torch.abs(dp[:, 2]) > 1e-12) & (uu >= 0.0) & (vv >= 0.0)
-           & (uu + vv <= 1.0) & (t > r[:, 6]))
-    return t, hit
-
-
-# float32's unit roundoff, and an absolute term for products that
-# underflow into subnormals
-_U = 2.0 ** -24
-_TINY = 1e-37
-
-
-def _ieee_fp32_matmul(dev) -> bool:
-    """True where float32 matmuls on device type dev.type round as IEEE
-    float32 (no TF32 or bfloat16 inputs): torch's default."""
-    backend = (torch.backends.cuda.matmul if dev.type == "cuda"
-               else torch.backends.mkldnn.matmul)
-    prec = getattr(backend, "fp32_precision", None)
-    if prec is None:  # a torch without the fp32_precision settings
-        return torch.get_float32_matmul_precision() == "highest"
-    if prec == "none":
-        prec = torch.backends.fp32_precision
-    return prec in ("ieee", "none")
-
-
-def _wald_test(r, wr):
-    """The Wald unit-triangle test of rays r [nb, P, 8] against rows wr
-    [nb, 12, 1, W]: (t, hit) [nb, P, W] with hit = |d'_z| > 1e-12, u >= 0,
-    v >= 0, u + v <= 1, t > t_min, rounded as _wald_fused rounds it (the
-    pattern the kernels' csrc/walk_common.cuh writes with __fmaf_rn), so
-    the three agree bit for bit on hit, and on t wherever hit is true.
-
-    The fused roundings cost float64 work, so a float32 pass in any order
-    comes first and picks the lanes that need them. Any float32 order of a
-    3-term affine plus a bias, with or without contractions, lies within
-    4.01 u S of the exact value (u = 2^-24, S the sum of the terms'
-    magnitudes, here bounded by |o|_1 max|w| + max|bias| for the origin's
-    affines and |d|_1 max|w| for the direction's), so any two orders
-    differ by at most 16 u S. The bounds carry that through the divide
-    and the two multiply-adds (with a quarter more for second-order terms
-    and their own roundings), and a lane leaves the fused pass only if
-    even its farthest fused values miss. Elsewhere t is a float32 estimate
-    and hit is false.
-
-    The pass computes the six affines as two batched matrix products,
-    which hold to that bound only in IEEE float32: it raises where
-    float32 matmuls on the rays' device may round their inputs to TF32 or
-    bfloat16."""
-    if not _ieee_fp32_matmul(r.device):
-        raise RuntimeError(
-            "the plain Wald test needs IEEE float32 matmuls on "
-            f"{r.device.type}; set torch.backends.cuda.matmul.fp32_precision "
-            "or torch.backends.mkldnn.matmul.fp32_precision to 'ieee'")
-    nb, wd = wr.shape[0], wr.shape[-1]
-    coef = wr.reshape(nb, 12, wd)
-    # [nb, P, 3W]: the u, v and z affines side by side (row k*3 + c of wr
-    # is input k of output c, so [k, c*W + lane] is a plain reshape)
-    o1 = torch.cat([r[..., 0:3], torch.ones_like(r[..., 0:1])], dim=-1)
-    op_u, op_v, op_z = torch.bmm(o1, coef.reshape(nb, 4, 3 * wd)).split(
-        wd, dim=-1)
-    dp_u, dp_v, dp_z = torch.bmm(
-        r[..., 3:6], coef[:, :9].reshape(nb, 3, 3 * wd)).split(wd, dim=-1)
-    ox, oy, oz, dx, dy, dz, tn = (r[..., i:i + 1] for i in range(7))
-    t = torch.div(op_z, dp_z).neg_()
-    uu = op_u.addcmul_(t, dp_u)
-    vv = op_v.addcmul_(t, dp_v)
-
-    # x = 20 u (S_o + |t| S_d) and e_dp = 16 u S_d, for all three affines
-    w_max = wr[:, :9].abs().amax(dim=1)
-    b20 = wr[:, 9:12].abs().amax(dim=1) * (20 * _U) + _TINY
-    ro20 = (ox.abs() + oy.abs() + oz.abs()) * (20 * _U)
-    rd = dx.abs() + dy.abs() + dz.abs()
-    ta = t.abs()
-    e_dp = (rd * (16 * _U)) * w_max
-    x = ta * (rd * (20 * _U))
-    x += ro20
-    x *= w_max
-    x += b20
-    dz_a = dp_z.abs_()
-    # |t_fused - t| <= 1.25 (16 u S_o + |t| 16 u S_d) / (|d'_z| - e_dp)
-    # + 10 u |t|, unbounded (inf) unless |d'_z| clears its own error
-    e_t = torch.sub(dz_a, e_dp).clamp_min_(0.0)
-    torch.div(x, e_t, out=e_t).add_(ta, alpha=10 * _U)
-    # |u_fused - u| and |v_fused - v|, with |op| and |dp| at most S_o and
-    # S_d (1 + 64 u)
-    e_b = e_dp * (4 + 1 / (16 * _U))
-    e_b.mul_(e_t).add_(x, alpha=1.28)
-    # a test that a rounding could tip is strict, and each is false on a
-    # NaN, so such a lane keeps to the fused pass
-    miss = dz_a.add_(e_dp) < 1e-12
-    miss |= ta.copy_(t).add_(e_t) < tn
-    miss |= torch.minimum(uu, vv, out=e_dp) < e_t.copy_(e_b).neg_()
-    miss |= torch.add(uu, vv, out=x) > e_b.mul_(3).add_(1.0 + 2.0 ** -19)
-    lanes = (~miss).nonzero(as_tuple=True)
-    hit = torch.zeros(miss.shape, dtype=torch.bool, device=miss.device)
-    if lanes[0].numel():
-        rows = r.expand(*miss.shape[:2], 8)[lanes[0], lanes[1]]
-        coeffs = wr[lanes[0], :, 0, lanes[2]]
-        t_f, hit_f = _wald_fused(rows, coeffs)
-        t.index_put_(lanes, t_f)
-        hit.index_put_(lanes, hit_f)
-    return t, hit
-
-
 def _real_lanes(lane_real, ci, live):
     """[nb, W] bool: the step's lanes that hold a real triangle of a live
     candidate. lane_real [C, S_pad] marks each cluster's real triangles."""
@@ -420,42 +325,61 @@ def walk_closest(rays8, cand_idx, cand_t, cand_count, wald_rows, group, *,
 walk_closest.launches = 0
 
 
+def _sc_walk_args(wald_rows, group, lane_real, sc_m):
+    """A plain walk's table, group, S_pad and lane_real in supercluster
+    mode (sc_m > 0: candidate s is clusters s*sc_m .. s*sc_m + sc_m - 1,
+    one step each): the walk runs over sc_layout(wald_rows, sc_m) with one
+    candidate a step, whose lane s*sc_m*S_pad + g*S_pad + lane is JAX's
+    SC-mode slot and whose winner code cluster * S_pad + lane is the
+    cluster walk's."""
+    if group != sc_m:
+        raise ValueError(f"a supercluster walk's group {group} must be its "
+                         f"sc_m {sc_m}")
+    if lane_real is not None:
+        lane_real = sc_layout(lane_real[:, None], sc_m)[:, 0]
+    return sc_layout(wald_rows, sc_m), 1, lane_real
+
+
 def walk_closest_reference(rays8, cand_idx, cand_t, cand_count, wald_rows,
-                           group, lane_real=None):
-    """Plain torch version of the walk, batched over bundles: the same
-    steps, predicates, packed keys, tie rule and early exit as the kernel,
-    with the same Wald test (_wald_test), so the two agree bit for bit.
-    Given lane_real ([C, S_pad] bool, True on a real triangle's lane), it
-    also returns the WalkWork these inputs need."""
+                           group, lane_real=None, sc_m: int = 0):
+    """Plain torch version of the walk, batched over the bundles that step
+    (those still walking): the same steps, predicates, packed keys, tie
+    rule and early exit as the kernel, with the same Wald test (hit_test),
+    so the two agree bit for bit. Given lane_real ([C, S_pad] bool, True on a real triangle's lane), it
+    also returns the WalkWork these inputs need. sc_m > 0 is the
+    supercluster walk of walk_closest_sc (group == sc_m; _sc_walk_args)."""
     b, k, p, sp = _check_walk_args(rays8, cand_idx, cand_t, cand_count,
                                    wald_rows, group)
+    if sc_m:
+        wald_rows, group, lane_real = _sc_walk_args(wald_rows, group,
+                                                    lane_real, sc_m)
+        sp *= sc_m
     dev = rays8.device
     w = group * sp
     bc = _chunk_bundles(dev, p, w)
     lane = torch.arange(w, device=dev)
     grp = lane // sp
     lane_in = lane % sp
-    out = torch.empty((b, p), dtype=torch.int32, device=dev)
     work = _new_work(b, dev)
     rays = rays8.reshape(b, p, 8)
-    for b0 in range(0, b, bc):
-        r = rays[b0:b0 + bc]
-        nb = r.shape[0]
-        best_key = (r[..., 7].view(torch.int32) & ~SLOT_MASK) | SLOT_MASK
-        best_code = torch.full((nb, p), MISS_CODE, dtype=torch.int32,
-                               device=dev)
-        n = cand_count[b0:b0 + bc]
-        alive = torch.ones(nb, dtype=torch.bool, device=dev)
-        for k0 in range(0, int(n.max()), group):
-            worst = (best_key | SLOT_MASK).view(torch.float32).amax(dim=1)
-            alive &= (k0 < n) & (cand_t[b0:b0 + bc, k0] <= worst)
-            if not bool(alive.any()):
-                break
-            ci, wr = _step_rows(cand_idx[b0:b0 + bc], wald_rows, k0, group)
-            t, hit = _wald_test(r, wr)
-            live = (lane[None, :] < (n[:, None] - k0) * sp) & alive[:, None]
+    best_key = (rays[..., 7].view(torch.int32) & ~SLOT_MASK) | SLOT_MASK
+    best_code = torch.full((b, p), MISS_CODE, dtype=torch.int32, device=dev)
+    alive = torch.ones(b, dtype=torch.bool, device=dev)
+    for k0 in range(0, int(cand_count.max()), group):
+        worst = (best_key | SLOT_MASK).view(torch.float32).amax(dim=1)
+        alive &= (k0 < cand_count) & (cand_t[:, k0] <= worst)
+        # only the bundles that step are tested, in chunks of bc
+        stepping = alive.nonzero().reshape(-1)
+        if stepping.numel() == 0:
+            break
+        if lane_real is not None:
+            work.steps.add_(alive)
+        for ids in stepping.split(bc):
+            ci, wr = _step_rows(cand_idx[ids, k0:k0 + group], wald_rows, 0,
+                                group)
+            t, hit = hit_test(rays[ids], wr)
+            live = lane[None, :] < (cand_count[ids, None] - k0) * sp
             if lane_real is not None:
-                work.steps[b0:b0 + nb] += alive
                 work.ray_lanes.add_(
                     p * _real_lanes(lane_real, ci, live).sum())
             hit &= live[:, None, :]
@@ -463,14 +387,14 @@ def walk_closest_reference(rays8, cand_idx, cand_t, cand_count, wald_rows,
                 hit, (t.view(torch.int32) & ~SLOT_MASK) | lane.to(torch.int32),
                 NO_HIT_KEY)
             step_key, arg = key.min(dim=-1)  # [nb, P]
-            step_code = (torch.gather(ci, 1, grp[arg].reshape(nb, -1))
-                         .reshape(nb, p) * sp + lane_in[arg])
-            better = step_key < best_key
-            best_key = torch.where(better, step_key, best_key)
-            best_code = torch.where(better, step_code.to(torch.int32),
-                                    best_code)
-        out[b0:b0 + nb] = best_code
-    out = out.reshape(b * p)
+            step_code = (torch.gather(ci, 1, grp[arg].reshape(ids.numel(), -1))
+                         .reshape(-1, p) * sp + lane_in[arg])
+            key_was = best_key[ids]
+            better = step_key < key_was
+            best_key[ids] = torch.where(better, step_key, key_was)
+            best_code[ids] = torch.where(better, step_code.to(torch.int32),
+                                         best_code[ids])
+    out = best_code.reshape(b * p)
     return out if lane_real is None else (out, work)
 
 
@@ -502,39 +426,47 @@ walk_occluded.launches = 0
 
 
 def walk_occluded_reference(rays8, cand_idx, cand_t, cand_count, wald_rows,
-                            group, lane_real=None):
-    """Plain torch version of the any-hit walk, batched over bundles: the
-    same steps, predicates and exits as the kernel (a ray is done at its
-    first hit; a bundle stops when every ray is done, its candidates run
-    out, or the next entry distance exceeds the largest t_max of its live
-    rays, NaN ending the walk), with the kernel's Wald test, so the two
-    agree bit for bit. Given lane_real, it also returns the WalkWork, as
-    walk_closest_reference does."""
+                            group, lane_real=None, sc_m: int = 0):
+    """Plain torch version of the any-hit walk, batched over the bundles
+    that step: the same steps, predicates and exits as the kernel (a ray
+    is done at its first hit; a bundle stops when every ray is done, its
+    candidates run out, or the next entry distance exceeds the largest
+    t_max of its live rays, NaN ending the walk), with the kernel's Wald
+    test, so the two agree bit for bit. Given lane_real, it also returns the WalkWork, as
+    walk_closest_reference does; sc_m > 0 is the supercluster walk of
+    walk_occluded_sc."""
     b, k, p, sp = _check_walk_args(rays8, cand_idx, cand_t, cand_count,
                                    wald_rows, group)
+    if sc_m:
+        wald_rows, group, lane_real = _sc_walk_args(wald_rows, group,
+                                                    lane_real, sc_m)
+        sp *= sc_m
     dev = rays8.device
     w = group * sp
     bc = _chunk_bundles(dev, p, w)
     lane = torch.arange(w, device=dev)
-    out = torch.empty((b, p), dtype=torch.int32, device=dev)
     work = _new_work(b, dev)
     rays = rays8.reshape(b, p, 8)
-    for b0 in range(0, b, bc):
-        r = rays[b0:b0 + bc]
-        nb = r.shape[0]
-        done = (r[..., 7] <= r[..., 6])
-        n = cand_count[b0:b0 + bc]
-        alive = torch.ones(nb, dtype=torch.bool, device=dev)
-        for k0 in range(0, int(n.max()), group):
-            worst = torch.where(done, -torch.inf, r[..., 7]).amax(dim=1)
-            alive &= (k0 < n) & (cand_t[b0:b0 + bc, k0] <= worst)
-            if not bool(alive.any()):
-                break
-            ci, wr = _step_rows(cand_idx[b0:b0 + bc], wald_rows, k0, group)
-            t, hit = _wald_test(r, wr)
-            live = (lane[None, :] < (n[:, None] - k0) * sp) & alive[:, None]
+    done = rays[..., 7] <= rays[..., 6]
+    alive = torch.ones(b, dtype=torch.bool, device=dev)
+    for k0 in range(0, int(cand_count.max()), group):
+        worst = torch.where(done, -torch.inf, rays[..., 7]).amax(dim=1)
+        alive &= (k0 < cand_count) & (cand_t[:, k0] <= worst)
+        # only the bundles that step are tested, in chunks of bc
+        stepping = alive.nonzero().reshape(-1)
+        if stepping.numel() == 0:
+            break
+        if lane_real is not None:
+            work.steps.add_(alive)
+        for ids in stepping.split(bc):
+            r = rays[ids]
+            ci, wr = _step_rows(cand_idx[ids, k0:k0 + group], wald_rows, 0,
+                                group)
+            t, hit = hit_test(r, wr)
+            live = lane[None, :] < (cand_count[ids, None] - k0) * sp
             hit &= (t < r[..., 7:8]) & live[:, None, :]
             step_hit = hit.any(dim=-1)
+            done_was = done[ids]
             if lane_real is not None:
                 # real triangles a testing ray tests: up to and including
                 # its first hit, else all of the step's
@@ -542,12 +474,64 @@ def walk_occluded_reference(rays8, cand_idx, cand_t, cand_count, wald_rows,
                 first = hit.to(torch.uint8).argmax(dim=-1)  # [nb, P]
                 tested = torch.where(step_hit, torch.gather(upto, 1, first),
                                      upto[:, -1:])
-                work.steps[b0:b0 + nb] += alive
-                work.ray_lanes.add_((tested * ~done).sum())
-            done |= step_hit
-        out[b0:b0 + nb] = (done & (r[..., 7] > r[..., 6])).to(torch.int32)
-    out = out.reshape(b * p)
+                work.ray_lanes.add_((tested * ~done_was).sum())
+            done[ids] = done_was | step_hit
+    out = (done & (rays[..., 7] > rays[..., 6])).to(torch.int32).reshape(b * p)
     return out if lane_real is None else (out, work)
+
+
+def _walk_sc(wrapper, entry: str, reference, rays8, cand_idx, cand_t,
+             cand_count, wald_rows, group, lanes):
+    """A supercluster walk: the plain version on a CPU tensor, else the
+    library's `entry` (sc_m = group), counted in wrapper.launches."""
+    b, k, p, sp = _check_walk_args(rays8, cand_idx, cand_t, cand_count,
+                                   wald_rows, group)
+    if rays8.device.type == "cpu":
+        return reference(rays8, cand_idx, cand_t, cand_count, wald_rows,
+                         group, sc_m=group)
+    name = wrapper.__name__
+    if rays8.device.type != "cuda":
+        raise ValueError(f"{name} runs on cuda or cpu, not {rays8.device}")
+    out = _launch(entry, name, rays8, cand_idx, cand_t, cand_count,
+                  wald_rows, lanes, b, p, k, sp, group, group,
+                  wald_rows.shape[0])
+    wrapper.launches += 1
+    return out
+
+
+def walk_closest_sc(rays8, cand_idx, cand_t, cand_count, wald_rows, group,
+                    *, lanes: WalkLanes):
+    """Closest-hit walk of supercluster candidates (cull="sc"; JAX's
+    _walk_kernel with sc_m = group): candidate s stands for the clusters
+    s*group .. s*group + group - 1 (those past C hold nothing), all walked
+    in one step, and the early exit is tested before each candidate. The
+    winner code is cluster * S_pad + slot, as walk_closest's. Arguments as
+    walk_closest's (wald_rows and lanes are the cluster tables).
+
+    A CUDA tensor launches csrc/bundle_walk.cu's supercluster kernel (and
+    counts the launch in walk_closest_sc.launches); a CPU tensor runs
+    walk_closest_reference(..., sc_m=group). Anything else raises."""
+    return _walk_sc(walk_closest_sc, "rt2_walk_closest_sc",
+                    walk_closest_reference, rays8, cand_idx, cand_t,
+                    cand_count, wald_rows, group, lanes)
+
+
+walk_closest_sc.launches = 0
+
+
+def walk_occluded_sc(rays8, cand_idx, cand_t, cand_count, wald_rows, group,
+                     *, lanes: WalkLanes):
+    """Any-hit walk of supercluster candidates (JAX's _occlude_kernel with
+    sc_m = group), as walk_closest_sc is the closest-hit one. A CUDA tensor
+    launches csrc/bundle_occlude.cu's supercluster kernel (counted in
+    walk_occluded_sc.launches); a CPU tensor runs
+    walk_occluded_reference(..., sc_m=group)."""
+    return _walk_sc(walk_occluded_sc, "rt2_walk_occluded_sc",
+                    walk_occluded_reference, rays8, cand_idx, cand_t,
+                    cand_count, wald_rows, group, lanes)
+
+
+walk_occluded_sc.launches = 0
 
 
 # ---------------------------------------------------------------------------
@@ -558,32 +542,38 @@ def _norm3(v: torch.Tensor) -> torch.Tensor:
     return torch.sqrt(v[0] * v[0] + v[1] * v[1] + v[2] * v[2])
 
 
-def cand0_sort_key(rays8, amin, amax, scene_min, scene_max):
-    """Per-ray sort key of [N, 8] ray rows (int64 holding uint32): [nearest
-    exactly-overlapped box id | t_max bucket | octant | origin Morton]. Rays
-    that touch nothing key to C and compact into empty bundles."""
-    c = amin.shape[0]
-    cand0 = cull_mod.nearest_box(rays8, amin, amax).long()
-    o, d, tx = rays8[:, 0:3], rays8[:, 3:6], rays8[:, 7]
+SORT_KEYS = ("cand0", "hier", "sc4", "octz", "cand2")
+CULLS = ("auto", "exact", "exact_iv", "interval", "hier", "sc")
+HIER_KEY_M = 32  # clusters per supercluster of the "hier" sort key
+SC4_M = 4  # clusters per supercluster of the "sc4" sort key
 
-    # tiebreak (t_max bucket | octant | origin morton): short rays bundle
-    # together; then direction octant + origin morton for coherence
-    octant = ((d[:, 0] >= 0).long() | ((d[:, 1] >= 0).long() << 1)
-              | ((d[:, 2] >= 0).long() << 2))
-    span = scene_max - scene_min
-    extent = torch.clamp_min(span, 1e-12)
-    diag = _norm3(span)
+
+def _octant(d: torch.Tensor) -> torch.Tensor:
+    return ((d[:, 0] >= 0).long() | ((d[:, 1] >= 0).long() << 1)
+            | ((d[:, 2] >= 0).long() << 2))
+
+
+def _t_bucket(tx, scene_min, scene_max) -> torch.Tensor:
+    """clip(uint32(4 t_max / |scene diagonal|), 0, 3); dead lanes carry
+    t_max = -1: clamp BEFORE the integer conversion (the JAX uint32 cast of
+    a negative float saturates to 0)."""
+    diag = _norm3(scene_max - scene_min)
+    return torch.clamp(4.0 * tx / torch.clamp_min(diag, 1e-12),
+                       0.0, 3.0).long()
+
+
+def _tie_key(cand0, c: int, o, d, tx, scene_min, scene_max) -> torch.Tensor:
+    """[cand0 | t_max bucket | octant | 15-bit origin Morton] in 32 bits,
+    the tiebreak of the cand0 and hier keys: short rays bundle together,
+    then direction octant and origin Morton for coherence."""
+    extent = torch.clamp_min(scene_max - scene_min, 1e-12)
     q = torch.clamp((o - scene_min) / extent, 0.0, 0.999)
     ocell = (q * 32.0).long()
     o_morton = (_expand_bits(ocell[:, 0], 5)
                 | (_expand_bits(ocell[:, 1], 5) << 1)
                 | (_expand_bits(ocell[:, 2], 5) << 2))
-    # dead lanes carry tx = -1: clamp BEFORE the integer conversion (the
-    # JAX uint32 cast of a negative float saturates to 0)
-    t_bucket = torch.clamp(4.0 * tx / torch.clamp_min(diag, 1e-12),
-                           0.0, 3.0).long()
-    tie = (t_bucket << 18) | (octant << 15) | o_morton  # 20 bits
-
+    tie = ((_t_bucket(tx, scene_min, scene_max) << 18) | (_octant(d) << 15)
+           | o_morton)  # 20 bits
     bits_c = max((c + 1).bit_length(), 1)
     tie_bits = max(32 - bits_c, 0)
     if tie_bits >= 20:
@@ -593,10 +583,166 @@ def cand0_sort_key(rays8, amin, amax, scene_min, scene_max):
     return ((cand0 << tie_bits) | tie_part) & 0xFFFFFFFF
 
 
+def cand0_sort_key(rays8, amin, amax, scene_min, scene_max):
+    """Per-ray sort key of [N, 8] ray rows (int64 holding uint32): [nearest
+    exactly-overlapped box id | t_max bucket | octant | origin Morton]. Rays
+    that touch nothing key to C and compact into empty bundles. The boxes
+    are cluster boxes (the cand0 key) or supercluster boxes (sc4)."""
+    cand0 = cull_mod.nearest_box(rays8, amin, amax).long()
+    return _tie_key(cand0, amin.shape[0], rays8[:, 0:3], rays8[:, 3:6],
+                    rays8[:, 7], scene_min, scene_max)
+
+
+def octz_sort_key(d, tx, scene_min, scene_max):
+    """Key without a dense pass, for batches whose arrival order is
+    already coherent (visibility rays in pixel Z-order): direction octant
+    | t_max bucket | arrival rank (JAX _octz_sort_key)."""
+    rank = torch.arange(d.shape[0], device=d.device) & ((1 << 27) - 1)
+    return ((_octant(d) << 29) | (_t_bucket(tx, scene_min, scene_max) << 27)
+            | rank)
+
+
+def supercluster_boxes(clusters: Clusters, m: int):
+    """Boxes of m consecutive clusters [ceil(C/m), 3] (JAX
+    _supercluster_boxes); the clusters padding C to whole superclusters
+    carry never-hit boxes (1e30 / -1e30) that vanish in the union."""
+    c = clusters.num_clusters
+    sc = (c + m - 1) // m
+    pad = sc * m - c
+    amin = torch.nn.functional.pad(clusters.aabb_min, (0, 0, 0, pad),
+                                   value=1e30)
+    amax = torch.nn.functional.pad(clusters.aabb_max, (0, 0, 0, pad),
+                                   value=-1e30)
+    return amin.reshape(sc, m, 3).amin(1), amax.reshape(sc, m, 3).amax(1)
+
+
+def _entry_exact_rows(o, d, tn, tx, amin, amax):
+    """Slab test of rays o, d [..., 3] (tn, tx [...]) against per-ray box
+    rows amin, amax [..., K, 3] that broadcast against them: [..., K]
+    entry distances, +inf on a miss (JAX _entry_exact_rows, and the refine
+    of _prepare_bundles_hier)."""
+    eps = 1e-12
+    ds = torch.where(torch.abs(d) < eps, torch.where(d >= 0, eps, -eps), d)
+    inv = (1.0 / ds)[..., None, :]
+    o = o[..., None, :]
+    near = far = None
+    for ax in range(3):
+        t0 = (amin[..., ax] - o[..., ax]) * inv[..., ax]
+        t1 = (amax[..., ax] - o[..., ax]) * inv[..., ax]
+        lo = torch.minimum(t0, t1)
+        hi = torch.maximum(t0, t1)
+        near = lo if near is None else torch.maximum(near, lo)
+        far = hi if far is None else torch.minimum(far, hi)
+    tn, tx = tn[..., None], tx[..., None]
+    hit = (near <= far) & (far >= tn) & (near <= tx) & (tx >= 0.0)
+    return torch.where(hit, torch.where(near > 0.0, near, 0.0), torch.inf)
+
+
+def _ray_chunk(dev, per_ray_bytes: int) -> int:
+    """Rays per chunk of a plain pass whose temporaries take per_ray_bytes
+    a ray (a multiple of 1024, as JAX chunks its key passes)."""
+    return max(1024, cull_mod.chunk_bytes(dev) // max(per_ray_bytes, 1)
+               // 1024 * 1024)
+
+
+def hier_sort_key(rays8, clusters: Clusters, sc_min, sc_max, m: int,
+                  scene_min, scene_max):
+    """Cluster-granularity key without the dense [N, C] pass (JAX
+    _hier_sort_key): each ray's nearest supercluster (B3 over the [SC]
+    boxes), then its nearest cluster among that supercluster's m; a ray
+    that overlaps the supercluster box but none of its clusters keys to the
+    supercluster's first cluster, one that overlaps nothing to C. Then the
+    cand0 key's tiebreak."""
+    c = clusters.num_clusters
+    n_sc = sc_min.shape[0]
+    nearest = cull_mod.nearest_box(rays8, sc_min, sc_max).long()
+    any_sc = nearest < n_sc
+    sc0 = torch.where(any_sc, nearest, 0)
+    members = torch.arange(m, device=rays8.device)
+    cand0 = torch.empty_like(sc0)
+    chunk = _ray_chunk(rays8.device, 4 * 12 * m)
+    for s in range(0, rays8.shape[0], chunk):
+        r = rays8[s:s + chunk]
+        first = sc0[s:s + chunk] * m
+        cl = torch.clamp_max(first[:, None] + members, c - 1)
+        e_cl = _entry_exact_rows(r[:, 0:3], r[:, 3:6], r[:, 6], r[:, 7],
+                                 clusters.aabb_min[cl], clusters.aabb_max[cl])
+        near, local = e_cl.min(dim=-1)  # first index among ties
+        cand0[s:s + chunk] = torch.where(torch.isfinite(near), first + local,
+                                         first)
+    cand0 = torch.where(any_sc, cand0, c)
+    return _tie_key(cand0, c, rays8[:, 0:3], rays8[:, 3:6], rays8[:, 7],
+                    scene_min, scene_max)
+
+
+def cand2_sort_key(rays8, amin, amax, scene_min, scene_max):
+    """The nearest two exactly-overlapped clusters (JAX _cand2_sort_key):
+    [id0 | octant | id1 | 5-bit coarse origin Morton], or [id0 | octant |
+    Morton] where 2 ids and 8 bits do not fit in 32. The two nearest come
+    from a plain dense pass (the nearest, then the nearest of the rest:
+    jax.lax.top_k(-e, 2) with its lower-index ties)."""
+    n, c = rays8.shape[0], amin.shape[0]
+    id0 = torch.empty(n, dtype=torch.int64, device=rays8.device)
+    id1 = torch.empty_like(id0)
+    chunk = _ray_chunk(rays8.device, 4 * 4 * c)
+    for s in range(0, n, chunk):
+        r = rays8[s:s + chunk]
+        e = cull_mod._entry_exact(r[:, 0:3], r[:, 3:6], r[:, 6], r[:, 7],
+                                  amin, amax)
+        t0, i0 = e.min(dim=-1)
+        e.scatter_(1, i0[:, None], torch.inf)
+        t1, i1 = e.min(dim=-1)
+        id0[s:s + chunk] = torch.where(torch.isfinite(t0), i0, c)
+        id1[s:s + chunk] = torch.where(torch.isfinite(t1), i1, c)
+    o, d = rays8[:, 0:3], rays8[:, 3:6]
+    extent = torch.clamp_min(scene_max - scene_min, 1e-12)
+    q = torch.clamp((o - scene_min) / extent, 0.0, 0.999)
+    ocell = (q * 4.0).long()  # 2 bits per axis -> 6, keep 5
+    o_morton = (_expand_bits(ocell[:, 0], 2)
+                | (_expand_bits(ocell[:, 1], 2) << 1)
+                | (_expand_bits(ocell[:, 2], 2) << 2)) & 0x1F
+    octant = _octant(d)
+    # id0 | OCTANT | id1 | morton: the octant outranks id1, so rays sharing
+    # their nearest cluster but pointing opposite ways do not bundle
+    bits_c = max((c + 1).bit_length(), 1)
+    if 2 * bits_c + 8 > 32:
+        key = (id0 << 8) | (octant << 5) | o_morton
+    else:
+        shift_oct = 5 + bits_c
+        key = ((id0 << (shift_oct + 3)) | (octant << shift_oct)
+               | (id1 << 5) | o_morton)
+    return key & 0xFFFFFFFF
+
+
+def exact_sort_key(name: str, clusters: Clusters, rays8, scene_min,
+                   scene_max):
+    """The exact cull's sort key `name` (SORT_KEYS) of [N, 8] ray rows."""
+    if name == "cand0":
+        return cand0_sort_key(rays8, clusters.aabb_min, clusters.aabb_max,
+                              scene_min, scene_max)
+    if name == "sc4":
+        # cand0 at 4-cluster supercluster granularity: 1/4 of the dense
+        # key pass; only bundle composition changes, not the cull
+        sc_min, sc_max = supercluster_boxes(clusters, SC4_M)
+        return cand0_sort_key(rays8, sc_min, sc_max, scene_min, scene_max)
+    if name == "hier":
+        sc_min, sc_max = supercluster_boxes(clusters, HIER_KEY_M)
+        return hier_sort_key(rays8, clusters, sc_min, sc_max, HIER_KEY_M,
+                             scene_min, scene_max)
+    if name == "octz":
+        return octz_sort_key(rays8[:, 3:6], rays8[:, 7], scene_min,
+                             scene_max)
+    if name == "cand2":
+        return cand2_sort_key(rays8, clusters.aabb_min, clusters.aabb_max,
+                              scene_min, scene_max)
+    raise ValueError(f"sort_key must be one of {SORT_KEYS}, not {name!r}")
+
+
 class Prep(NamedTuple):
     """Bundled rays and their candidate lists. Rays are in bundle order
     (perm maps bundle row -> caller row; None when presorted) and padded
-    to whole bundles; candidate arrays are [B, k] nearest first."""
+    to whole bundles; candidate arrays are [B, k] nearest first. sc_m > 0:
+    the candidates are ids of superclusters of sc_m clusters (cull="sc")."""
 
     perm: torch.Tensor | None
     o: torch.Tensor
@@ -607,6 +753,7 @@ class Prep(NamedTuple):
     cand_t: torch.Tensor  # [B, k] f32 entry distances (+inf past the union)
     cand_count: torch.Tensor  # [B] i32
     overflowed: torch.Tensor  # [B] bool: union larger than k
+    sc_m: int = 0
 
 
 def _rank(entry: torch.Tensor, k: int):
@@ -619,58 +766,88 @@ def _rank(entry: torch.Tensor, k: int):
     return idx.to(torch.int32), cand_t, cand_count.to(torch.int32), n_union > k
 
 
-def _finish(perm, o, d, tn, tx, parts) -> Prep:
+def _finish(perm, o, d, tn, tx, parts, sc_m: int = 0) -> Prep:
     idx, ct, cnt, ovf = (torch.cat(x) for x in zip(*parts))
     return Prep(perm, o, d, tn, tx, idx.contiguous(), ct.contiguous(),
-                cnt.contiguous(), ovf)
+                cnt.contiguous(), ovf, sc_m)
 
 
-def _cand0_sort(clusters: Clusters, origins, directions, t_min, t_max,
-                scene_min, scene_max):
-    """The rays in cand0-key order (a stable argsort, as jnp.argsort):
-    (perm, o, d, tn, tx), perm mapping sorted row -> caller row."""
-    rays8 = _pack8(origins, directions, t_min, t_max)
-    key = cand0_sort_key(rays8, clusters.aabb_min, clusters.aabb_max,
-                         scene_min, scene_max)
+def _apply_sort(rays8, key):
+    """The rays in key order (a stable argsort, as jnp.argsort): (perm, o,
+    d, tn, tx), perm mapping sorted row -> caller row."""
     perm = torch.argsort(key, stable=True)
     packed = rays8[perm]
     return perm, packed[:, 0:3], packed[:, 3:6], packed[:, 6], packed[:, 7]
 
 
+def _ordered(origins, directions, t_min, t_max, key_of=None):
+    """(perm, o, d, tn, tx): the rays as they came (key_of None: presorted,
+    perm None) or sorted by key_of([N, 8] ray rows)."""
+    if key_of is None:
+        return None, origins, directions, t_min, t_max
+    rays8 = _pack8(origins, directions, t_min, t_max)
+    return _apply_sort(rays8, key_of(rays8))
+
+
+def _sorted(clusters: Clusters, origins, directions, t_min, t_max,
+            scene_min, scene_max, key: str):
+    """The rays sorted by the exact cull's key `key` (exact_sort_key)."""
+    return _ordered(origins, directions, t_min, t_max, lambda r:
+                    exact_sort_key(key, clusters, r, scene_min, scene_max))
+
+
+def _rank_chunks(entry: torch.Tensor, k: int):
+    """_rank over chunks of bundles: the stable argsort's [bundles, C] i64
+    temporaries stay under the cull's chunk bound."""
+    c = entry.shape[1]
+    cb = max(1, cull_mod.chunk_bytes(entry.device) // (8 * max(c, 1)))
+    return [_rank(entry[b0:b0 + cb], k) for b0 in range(0, entry.shape[0], cb)]
+
+
 def prepare_bundles_exact(clusters: Clusters, origins, directions, t_min,
                           t_max, scene_min, scene_max, bundle_size: int,
-                          presorted: bool, k_cand: int) -> Prep:
-    """Exact-cull prep (JAX _prepare_bundles_exact with sort_key="cand0"):
-    per-ray slab tests, cand0 ray sort (unless presorted), per-bundle union
+                          presorted: bool, k_cand: int,
+                          sort_key: str = "cand0") -> Prep:
+    """Exact-cull prep (JAX _prepare_bundles_exact): per-ray slab tests,
+    the rays sorted by `sort_key` (unless presorted), per-bundle union
     candidate lists ranked nearest first."""
     p = bundle_size
     c = clusters.num_clusters
     if presorted:
-        perm = None
-        o, d, tn, tx = origins, directions, t_min, t_max
+        perm, o, d, tn, tx = _ordered(origins, directions, t_min, t_max)
     else:
-        perm, o, d, tn, tx = _cand0_sort(clusters, origins, directions,
-                                         t_min, t_max, scene_min, scene_max)
+        perm, o, d, tn, tx = _sorted(clusters, origins, directions, t_min,
+                                     t_max, scene_min, scene_max, sort_key)
     o, d, tn, tx, _ = _pad_rays(o, d, tn, tx, p)
-    k = min(k_cand, c)
     union = cull_mod.bundle_union(_pack8(o, d, tn, tx), clusters.aabb_min,
                                   clusters.aabb_max, p)
-    # rank in chunks of bundles: the stable argsort's [bundles, C] i64
-    # temporaries stay under the cull's chunk bound
-    cb = max(1, cull_mod.chunk_bytes(o.device) // (8 * c))
-    parts = [_rank(union[b0:b0 + cb], k)
-             for b0 in range(0, union.shape[0], cb)]
-    return _finish(perm, o, d, tn, tx, parts)
+    return _finish(perm, o, d, tn, tx, _rank_chunks(union, min(k_cand, c)))
 
 
 def prepare_bundles_interval(clusters: Clusters, origins, directions, t_min,
-                             t_max, bundle_size: int, k_cand: int) -> Prep:
-    """Interval-union prep for presorted rays (JAX _prepare_bundles with
-    presorted=True): per-bundle candidates from the conservative interval
-    slab test over all clusters, ranked nearest first."""
+                             t_max, bundle_size: int, k_cand: int,
+                             presorted: bool = True, scene_min=None,
+                             scene_max=None, exact_key: bool = False,
+                             sort_key: str = "cand0") -> Prep:
+    """Interval-union prep (JAX _prepare_bundles): per-bundle candidates
+    from the conservative interval slab test over all clusters, ranked
+    nearest first. Unless presorted the rays are sorted first: by the cand0
+    key with exact_key=True (cull="exact_iv"), by octz_sort_key with
+    sort_key="octz", else by the coherence key
+    (traverse_bundle.sort_rays_for_coherence)."""
     p = bundle_size
     c = clusters.num_clusters
-    o, d, tn, tx, _ = _pad_rays(origins, directions, t_min, t_max, p)
+    if presorted:
+        perm, o, d, tn, tx = _ordered(origins, directions, t_min, t_max)
+    elif exact_key or sort_key == "octz":
+        perm, o, d, tn, tx = _sorted(clusters, origins, directions, t_min,
+                                     t_max, scene_min, scene_max,
+                                     "cand0" if exact_key else "octz")
+    else:
+        perm = tb.sort_rays_for_coherence(origins, directions, scene_min,
+                                          scene_max)
+        o, d, tn, tx = (x[perm] for x in (origins, directions, t_min, t_max))
+    o, d, tn, tx, _ = _pad_rays(o, d, tn, tx, p)
     k = min(k_cand, c)
     b = o.shape[0] // p
     o_min, o_max, inv_lo, inv_hi, bundle_tmax = _bundle_bounds(o, d, tx, p)
@@ -685,37 +862,84 @@ def prepare_bundles_interval(clusters: Clusters, origins, directions, t_min,
         entry = torch.where(may_hit, torch.clamp_min(t_enter, 0.0),
                             torch.inf)
         parts.append(_rank(entry, k))
-    return _finish(None, o, d, tn, tx, parts)
+    return _finish(perm, o, d, tn, tx, parts)
+
+
+def prepare_bundles_hier(clusters: Clusters, origins, directions, t_min,
+                         t_max, scene_min, scene_max, bundle_size: int,
+                         presorted: bool, k_cand: int, m_super: int,
+                         k_sc: int) -> Prep:
+    """Two-level exact cull (JAX _prepare_bundles_hier): the union over
+    each bundle's rays of the exact entries into C/m_super supercluster
+    boxes (B4 over those boxes), its k_sc nearest superclusters, then the
+    exact per-ray entries of their clusters, unioned per bundle and ranked
+    nearest first. A bundle overflows where its union exceeds k_cand or it
+    overlaps more than k_sc superclusters (sc_dropped): the fallback then
+    makes it exact. The last supercluster's members past C repeat cluster
+    C - 1, as in JAX."""
+    p = bundle_size
+    c = clusters.num_clusters
+    sc_min, sc_max = supercluster_boxes(clusters, m_super)
+    n_sc = sc_min.shape[0]
+    k_sc = min(k_sc, n_sc)
+    kk = k_sc * m_super
+    perm, o, d, tn, tx = _ordered(
+        origins, directions, t_min, t_max, None if presorted else
+        lambda r: hier_sort_key(r, clusters, sc_min, sc_max, m_super,
+                                scene_min, scene_max))
+    o, d, tn, tx, _ = _pad_rays(o, d, tn, tx, p)
+    b = o.shape[0] // p
+    k = min(k_cand, kk)
+    ue_sc = cull_mod.bundle_union(_pack8(o, d, tn, tx), sc_min, sc_max, p)
+    members = torch.arange(m_super, device=o.device)
+    # ~8 live [bundles, P, kk] temporaries per chunk
+    cb = max(1, cull_mod.chunk_bytes(o.device) // (4 * 8 * max(kk, n_sc) * p))
+    parts = []
+    for b0 in range(0, b, cb):
+        ue = ue_sc[b0:b0 + cb]
+        nb = ue.shape[0]
+        sc_idx = torch.argsort(ue, dim=-1, stable=True)[:, :k_sc]
+        sc_ok = torch.isfinite(torch.gather(ue, 1, sc_idx))  # [nb, k_sc]
+        sc_dropped = torch.isfinite(ue).sum(dim=-1) > k_sc
+        cl = torch.clamp_max((sc_idx[:, :, None] * m_super + members)
+                             .reshape(nb, kk), c - 1)
+        rows = slice(b0 * p, (b0 + nb) * p)
+        e = _entry_exact_rows(
+            o[rows].reshape(nb, p, 3), d[rows].reshape(nb, p, 3),
+            tn[rows].reshape(nb, p), tx[rows].reshape(nb, p),
+            clusters.aabb_min[cl][:, None], clusters.aabb_max[cl][:, None])
+        # clusters of unselected (inf-entry) superclusters: masked
+        ok = sc_ok.repeat_interleave(m_super, dim=1)[:, None, :]
+        union = torch.where(ok, e, torch.inf).amin(dim=1)  # [nb, kk]
+        idx, cand_t, cnt, ovf = _rank(union, k)
+        parts.append((torch.gather(cl, 1, idx.long()).to(torch.int32),
+                      cand_t, cnt, ovf | sc_dropped))
+    return _finish(perm, o, d, tn, tx, parts)
+
+
+def prepare_bundles_sc(clusters: Clusters, origins, directions, t_min,
+                       t_max, scene_min, scene_max, bundle_size: int,
+                       presorted: bool, m_super: int) -> Prep:
+    """Supercluster-walk prep (JAX _prepare_bundles_sc): the rays sorted
+    by the hier key at m_super (unless presorted), each bundle's union of
+    exact entries into the ceil(C/m_super) supercluster boxes (B4 over
+    them), ranked nearest first at full length: no truncation, so nothing
+    overflows. Candidates are supercluster ids (Prep.sc_m = m_super)."""
+    p = bundle_size
+    sc_min, sc_max = supercluster_boxes(clusters, m_super)
+    perm, o, d, tn, tx = _ordered(
+        origins, directions, t_min, t_max, None if presorted else
+        lambda r: hier_sort_key(r, clusters, sc_min, sc_max, m_super,
+                                scene_min, scene_max))
+    o, d, tn, tx, _ = _pad_rays(o, d, tn, tx, p)
+    union = cull_mod.bundle_union(_pack8(o, d, tn, tx), sc_min, sc_max, p)
+    return _finish(perm, o, d, tn, tx,
+                   _rank_chunks(union, sc_min.shape[0]), sc_m=m_super)
 
 
 # ---------------------------------------------------------------------------
 # Closest hit
 # ---------------------------------------------------------------------------
-
-def _per_ray(x, n: int, ref: torch.Tensor) -> torch.Tensor:
-    return torch.as_tensor(x, dtype=torch.float32,
-                           device=ref.device).expand(n).contiguous()
-
-
-def _fma(a: torch.Tensor, b: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
-    """float32 a * b + c rounded once, as __fmaf_rn and XLA's contracted
-    multiply-adds round it. The float64 product of two float32 values is
-    exact; its sum with c rounds to float64 with an error that a two-sum
-    recovers. Rounding that sum to odd (a non-zero error on an even
-    mantissa steps one ulp toward the error) keeps the information a
-    second rounding needs: round-to-odd in a format at least 2 bits wider
-    than the target, then rounding to the target, is one correct
-    rounding."""
-    p = a.double() * b.double()
-    c = c.double()
-    s = p + c
-    pv = s - c
-    err = (p - pv) + (c - (s - pv))
-    even = (s.view(torch.int64) & 1) == 0
-    step = (err != 0) & even & torch.isfinite(s)
-    toward = torch.full_like(s, torch.inf).copysign(err)
-    return torch.where(step, torch.nextafter(s, toward), s).float()
-
 
 def _decode(code, meta_rows, on, dn, t_max_orig) -> HitRecord:
     """Winner code -> payload ids via one meta-row gather, then the 12-term
@@ -727,21 +951,21 @@ def _decode(code, meta_rows, on, dn, t_max_orig) -> HitRecord:
     prim_r = torch.where(missed, 0, meta[:, 14])
 
     # XLA contracts these affines into fused multiply-adds, which torch's
-    # elementwise ops do not offer; _fma rounds each of them once, as XLA
+    # elementwise ops do not offer; fma rounds each of them once, as XLA
     # does, in XLA's order, so (t, u, v) equal the JAX package's bit for bit
     wf = meta[:, 0:12].contiguous().view(torch.float32)
 
     def affine(r, x, bias=None):
         # ((w_r x0 + w_r+3 x1) + w_r+6 x2) [+ bias] as XLA fuses it
-        acc = _fma(wf[:, r + 6], x[:, 2],
-                   _fma(wf[:, r], x[:, 0], wf[:, r + 3] * x[:, 1]))
+        acc = fma(wf[:, r + 6], x[:, 2],
+                  fma(wf[:, r], x[:, 0], wf[:, r + 3] * x[:, 1]))
         return acc if bias is None else acc + wf[:, bias]
 
     op_u, op_v, op_z = (affine(r, on, r + 9) for r in range(3))
     dp_u, dp_v, dzv = (affine(r, dn) for r in range(3))
     t_r = -op_z / torch.where(dzv == 0.0, 1.0, dzv)
-    u_r = _fma(t_r, dp_u, op_u)
-    v_r = _fma(t_r, dp_v, op_v)
+    u_r = fma(t_r, dp_u, op_u)
+    v_r = fma(t_r, dp_v, op_v)
     missed_r = tri_r < 0
 
     return HitRecord(
@@ -753,20 +977,37 @@ def _decode(code, meta_rows, on, dn, t_max_orig) -> HitRecord:
         triangle_index=tri_r)
 
 
+M_SUPER = 32  # JAX's m_super: clusters per supercluster of "hier" / "sc"
+K_SC = 12  # JAX's k_sc: superclusters each bundle refines under "hier"
+
+
 def _prepare(clusters: Clusters, origins, directions, tn_o, tx_o,
              scene_min, scene_max, p: int, presorted: bool, cull: str,
-             k_cand: int) -> Prep:
-    if cull == "interval":
-        if not presorted:
-            raise NotImplementedError(
-                "the interval cull is ported for presorted rays only")
-        return prepare_bundles_interval(clusters, origins, directions, tn_o,
-                                        tx_o, p, k_cand)
+             k_cand: int, sort_key: str = "cand0", m_super: int = M_SUPER,
+             k_sc: int = K_SC) -> Prep:
+    """JAX's _prep dispatch over the culls (module docstring); "auto" is
+    "exact". For "sc" m_super is the caller's, clamped to the walk's
+    slot field."""
+    if cull == "auto":
+        cull = "exact"
+    if cull == "sc":
+        return prepare_bundles_sc(clusters, origins, directions, tn_o, tx_o,
+                                  scene_min, scene_max, p, presorted,
+                                  m_super)
+    if cull == "hier":
+        return prepare_bundles_hier(clusters, origins, directions, tn_o,
+                                    tx_o, scene_min, scene_max, p, presorted,
+                                    k_cand, m_super, k_sc)
     if cull == "exact":
         return prepare_bundles_exact(clusters, origins, directions, tn_o,
                                      tx_o, scene_min, scene_max, p,
-                                     presorted, k_cand)
-    raise ValueError(f"cull must be 'exact' or 'interval', not {cull!r}")
+                                     presorted, k_cand, sort_key=sort_key)
+    if cull in ("interval", "exact_iv"):
+        return prepare_bundles_interval(
+            clusters, origins, directions, tn_o, tx_o, p, k_cand,
+            presorted=presorted, scene_min=scene_min, scene_max=scene_max,
+            exact_key=cull == "exact_iv", sort_key=sort_key)
+    raise ValueError(f"cull must be one of {CULLS}, not {cull!r}")
 
 
 def _pack8(o, d, tn, tx) -> torch.Tensor:
@@ -795,30 +1036,50 @@ def _overflowed_rays(prep: Prep, p: int, n_orig: int) -> torch.Tensor:
     return prep.perm[j] if prep.perm is not None else j
 
 
+def _walk_shape(tables: WalkTables, cull: str, group: int, m_super: int):
+    """(group, m_super) as the walks take them: group clamped to the
+    SLOT_BITS slot field, and under cull="sc" m_super clamped the same way
+    and the group forced to it (one supercluster a step)."""
+    cap = (1 << SLOT_BITS) // tables.wald_rows.shape[-1]
+    if cull == "sc":
+        m = max(1, min(m_super, cap))
+        return m, m
+    return max(1, min(group, cap)), m_super
+
+
+def _full_cull(cull: str) -> str:
+    """The cull of a whole-batch re-trace at k_cand = C: "hier" would still
+    drop superclusters past k_sc, so it re-traces with the exact cull."""
+    return "exact" if cull == "hier" else cull
+
+
 def closest_hit_bundle(clusters: Clusters, tables: WalkTables,
                        origins: torch.Tensor, directions: torch.Tensor,
                        t_min, t_max, scene_min: torch.Tensor,
                        scene_max: torch.Tensor, *, bundle_size: int = 128,
                        presorted: bool = False, cull: str = "exact",
                        group: int = 4, k_cand: int = 256,
-                       overflow_fallback: bool = True
+                       sort_key: str = "cand0", m_super: int = M_SUPER,
+                       k_sc: int = K_SC, overflow_fallback: bool = True
                        ) -> tuple[HitRecord, int]:
     """Closest hit through the bundle walk. Returns (HitRecord, number of
     bundles that overflowed k_cand and took the fallback).
 
-    cull="interval" needs presorted rays (pixel tiles); cull="exact" sorts
-    by the cand0 key unless presorted."""
+    cull is one of CULLS (module docstring); sort_key (SORT_KEYS) orders
+    unsorted rays under "exact" (and "octz" the interval cull's); m_super
+    and k_sc shape "hier" and "sc". Under "sc" the walk is walk_closest_sc
+    and nothing overflows."""
     n_orig = origins.shape[0]
     p = bundle_size
-    sp = tables.wald_rows.shape[-1]
-    group = max(1, min(group, (1 << SLOT_BITS) // sp))
+    group, m_super = _walk_shape(tables, cull, group, m_super)
     tn_o = _per_ray(t_min, n_orig, origins)
     tx_o = _per_ray(t_max, n_orig, origins)
     prep = _prepare(clusters, origins, directions, tn_o, tx_o, scene_min,
-                    scene_max, p, presorted, cull, k_cand)
-    code = walk_closest(_rays8(prep), prep.cand_idx, prep.cand_t,
-                        prep.cand_count, tables.wald_rows, group,
-                        lanes=tables.lanes)[:n_orig]
+                    scene_max, p, presorted, cull, k_cand, sort_key, m_super,
+                    k_sc)
+    walk = walk_closest_sc if prep.sc_m else walk_closest
+    code = walk(_rays8(prep), prep.cand_idx, prep.cand_t, prep.cand_count,
+                tables.wald_rows, group, lanes=tables.lanes)[:n_orig]
     # un-sort the codes, then decode in caller order
     rec = _decode(_unsort(code, prep), tables.meta_rows, origins,
                   directions, tx_o)
@@ -830,8 +1091,9 @@ def closest_hit_bundle(clusters: Clusters, tables: WalkTables,
     if n_ovf > FALLBACK_BUNDLES:
         rec, _ = closest_hit_bundle(
             clusters, tables, origins, directions, tn_o, tx_o, scene_min,
-            scene_max, bundle_size=p, presorted=presorted, cull=cull,
-            group=group, k_cand=full_k, overflow_fallback=False)
+            scene_max, bundle_size=p, presorted=presorted,
+            cull=_full_cull(cull), group=group, k_cand=full_k,
+            sort_key=sort_key, overflow_fallback=False)
         return rec, n_ovf
     # re-trace only the overflowed bundles' rays, in their bundle order,
     # with full-length candidate lists (cannot truncate => exact)
@@ -853,25 +1115,27 @@ def occluded_bundle(clusters: Clusters, tables: WalkTables,
                     origins: torch.Tensor, directions: torch.Tensor,
                     t_min, t_max, scene_min: torch.Tensor,
                     scene_max: torch.Tensor, *, bundle_size: int = 128,
-                    presorted: bool = False, group: int = 4,
-                    k_cand: int = 256, overflow_fallback: bool = True
+                    presorted: bool = False, cull: str = "exact",
+                    group: int = 4, k_cand: int = 256,
+                    sort_key: str = "cand0", m_super: int = M_SUPER,
+                    k_sc: int = K_SC, overflow_fallback: bool = True
                     ) -> tuple[torch.Tensor, int]:
-    """Any-hit visibility batch through the bundle walk (the exact cull;
-    cand0-sorted unless presorted): (blocked bool [N], number of bundles
-    that overflowed k_cand and took the fallback). The fallback is the
-    closest-hit one: the overflowed bundles' rays re-trace through the same
-    kernel at k_cand = C, or the whole batch does past FALLBACK_BUNDLES."""
+    """Any-hit visibility batch through the bundle walk: (blocked bool
+    [N], number of bundles that overflowed k_cand and took the fallback).
+    The culls, keys and fallback are closest_hit_bundle's: the overflowed
+    bundles' rays re-trace through the same kernel at k_cand = C, or the
+    whole batch does past FALLBACK_BUNDLES."""
     n_orig = origins.shape[0]
     p = bundle_size
-    sp = tables.wald_rows.shape[-1]
-    group = max(1, min(group, (1 << SLOT_BITS) // sp))
+    group, m_super = _walk_shape(tables, cull, group, m_super)
     tn_o = _per_ray(t_min, n_orig, origins)
     tx_o = _per_ray(t_max, n_orig, origins)
     prep = _prepare(clusters, origins, directions, tn_o, tx_o, scene_min,
-                    scene_max, p, presorted, "exact", k_cand)
-    hit = walk_occluded(_rays8(prep), prep.cand_idx, prep.cand_t,
-                        prep.cand_count, tables.wald_rows, group,
-                        lanes=tables.lanes)[:n_orig]
+                    scene_max, p, presorted, cull, k_cand, sort_key, m_super,
+                    k_sc)
+    walk = walk_occluded_sc if prep.sc_m else walk_occluded
+    hit = walk(_rays8(prep), prep.cand_idx, prep.cand_t, prep.cand_count,
+               tables.wald_rows, group, lanes=tables.lanes)[:n_orig]
     blocked = _unsort(hit, prep) != 0
 
     n_ovf = int(prep.overflowed.sum())
@@ -881,14 +1145,15 @@ def occluded_bundle(clusters: Clusters, tables: WalkTables,
     if n_ovf > FALLBACK_BUNDLES:
         blocked, _ = occluded_bundle(
             clusters, tables, origins, directions, tn_o, tx_o, scene_min,
-            scene_max, bundle_size=p, presorted=presorted, group=group,
-            k_cand=full_k, overflow_fallback=False)
+            scene_max, bundle_size=p, presorted=presorted,
+            cull=_full_cull(cull), group=group, k_cand=full_k,
+            sort_key=sort_key, overflow_fallback=False)
         return blocked, n_ovf
     oi = _overflowed_rays(prep, p, n_orig)
     sub, _ = occluded_bundle(
         clusters, tables, origins[oi], directions[oi], tn_o[oi], tx_o[oi],
-        scene_min, scene_max, bundle_size=p, presorted=True, group=group,
-        k_cand=full_k, overflow_fallback=False)
+        scene_min, scene_max, bundle_size=p, presorted=True, cull="exact",
+        group=group, k_cand=full_k, overflow_fallback=False)
     return blocked.index_put((oi,), sub), n_ovf
 
 
@@ -905,17 +1170,19 @@ def union_max_bundle(clusters: Clusters, origins, directions, t_min, t_max,
     union_max_bundle), as a 0-d int32 tensor on the rays' device. The
     bundles are composed as the trace's prep composes them: cand0-sorted
     (unless presorted) exact-cull unions (B3 inside the sort key, B4 for
-    the unions on a CUDA batch), or interval-cull unions of presorted
-    pixel tiles."""
+    the unions on a CUDA batch), or interval-cull unions (sorted by the
+    coherence key unless presorted)."""
     n = origins.shape[0]
     p = bundle_size
     tn = _per_ray(t_min, n, origins)
     tx = _per_ray(t_max, n, origins)
     if cull == "interval":
+        o, d = origins, directions
         if not presorted:
-            raise NotImplementedError(
-                "the interval cull is ported for presorted rays only")
-        o, d, tn, tx, _ = _pad_rays(origins, directions, tn, tx, p)
+            perm = tb.sort_rays_for_coherence(origins, directions,
+                                              scene_min, scene_max)
+            o, d, tn, tx = o[perm], d[perm], tn[perm], tx[perm]
+        o, d, tn, tx, _ = _pad_rays(o, d, tn, tx, p)
         o_min, o_max, inv_lo, inv_hi, bundle_tmax = _bundle_bounds(o, d, tx,
                                                                    p)
         c = clusters.num_clusters
@@ -932,8 +1199,8 @@ def union_max_bundle(clusters: Clusters, origins, directions, t_min, t_max,
     if presorted:
         o, d = origins, directions
     else:
-        _, o, d, tn, tx = _cand0_sort(clusters, origins, directions, tn, tx,
-                                      scene_min, scene_max)
+        _, o, d, tn, tx = _sorted(clusters, origins, directions, tn, tx,
+                                  scene_min, scene_max, "cand0")
     o, d, tn, tx, _ = _pad_rays(o, d, tn, tx, p)
     union = cull_mod.bundle_union(_pack8(o, d, tn, tx), clusters.aabb_min,
                                   clusters.aabb_max, p)

@@ -1,9 +1,9 @@
 """Traversal backends and the RAB_* bridge, port of
 raytracer2_tpu/render/app_bridge.py: Tracers and make_tracers (closest hit
-and any hit per ray class), make_bridge, which wires scene, tracers,
-G-buffers and light tables into the closure bundle the ReSTIR library
-reads, and suggest_k_cand, the per-class candidate budgets a camera's rays
-need.
+and any hit per ray class, JAX's tracer knobs included), make_bridge,
+which wires scene, tracers, G-buffers and light tables into the closure
+bundle the ReSTIR library reads, and suggest_k_cand, the per-class
+candidate budgets a camera's rays need.
 """
 
 from __future__ import annotations
@@ -20,6 +20,8 @@ from raytracer2_tpu_torch.lights.polymorphic import (
 from raytracer2_tpu_torch.ops import cuda_pairs as cp
 from raytracer2_tpu_torch.ops import cuda_traverse as ct
 from raytracer2_tpu_torch.ops import traverse as lbvh
+from raytracer2_tpu_torch.ops import traverse_bundle as tbm
+from raytracer2_tpu_torch.ops import traverse_scatter as tsm
 from raytracer2_tpu_torch.ops.bvh import BVH, build_lbvh, max_depth
 from raytracer2_tpu_torch.ops.cluster import Clusters, build_clusters
 from raytracer2_tpu_torch.ops.intersect import (
@@ -53,11 +55,14 @@ class Tracers:
     bundles whose candidate union overflowed k_cand and re-traced at full
     length, for the pair sweep the rays of the traces in which some ray
     overlapped more than k_cand superclusters and that re-traced whole
-    through the bundle walk. union_max(o, d, t_min, t_max, presorted=False)
-    (the bundle walk only) gives a batch's largest per-bundle candidate
-    union as a 0-d device tensor: the k_cand its class needs to truncate
-    nothing. The lbvh walk keeps its BVH and sums its steps and host
-    checks over calls in walk_stats."""
+    through the bundle walk. overflow_by_class counts, per class, the
+    scatter engine's trace calls whose pair pool overflowed: pairs were
+    dropped and hits may be missed (that engine has no fallback).
+    union_max(o, d, t_min, t_max, presorted=False) (the bundle walk only)
+    gives a batch's largest per-bundle candidate union as a 0-d device
+    tensor: the k_cand its class needs to truncate nothing. The lbvh walk
+    keeps its BVH; it and the bundle engine sum their steps and host
+    read-backs over calls in walk_stats."""
 
     closest_hit: Callable
     occluded: Callable | None = None
@@ -66,11 +71,13 @@ class Tracers:
     clusters: Clusters | None = None
     tables: ct.WalkTables | None = None
     pair_scene: cp.PairScene | None = None
+    superclusters: tsm.SuperClusters | None = None
     bvh: BVH | None = None
     walk_stats: lbvh.WalkStats | None = None
     scene_min: torch.Tensor | None = None
     scene_max: torch.Tensor | None = None
     fallback_by_class: dict = dataclasses.field(default_factory=dict)
+    overflow_by_class: dict = dataclasses.field(default_factory=dict)
 
     @property
     def k_cand_by_class(self) -> dict | None:
@@ -97,28 +104,63 @@ K_CAND = 256  # candidate clusters per bundle before the overflow fallback
 # overflow fallback, clusters per supercluster
 PAIR_K_CAND = 24
 PAIR_GROUP = 16
+# the XLA engines' cluster sizes in the JAX make_tracers: cluster_size or
+# 64 for "bundle", min(cluster_size or 64, 16) for "scatter", whose
+# superclusters hold SCATTER_GROUP clusters
+ENGINE_CLUSTER_SIZE = 64
+SCATTER_MAX_CLUSTER_SIZE = 16
+SCATTER_GROUP = 16
+BACKENDS = ("auto", "bundle_cuda", "bundle_pallas", "bundle", "scatter",
+            "pairs", "lbvh", "brute")
+SHADOW_ORDERS = ("pixz", "octz", "cand0")
 
 
-def make_tracers(scene: Scene, backend: str = "auto",
-                 k_cand_per_class: dict | None = None,
-                 bvh: BVH | None = None) -> Tracers:
-    """Traversal backends:
+def make_tracers(scene: Scene, bvh: BVH | None = None, use_bvh: bool = True,
+                 backend: str = "auto", cluster_size: int | None = None,
+                 sort_secondary: bool = True, cull: str | None = None,
+                 k_cand: int | None = None, group: int | None = None,
+                 bundle_size: int | None = None, sort_key: str | None = None,
+                 shadow_order: str = "pixz",
+                 k_cand_per_class: dict | None = None) -> Tracers:
+    """Traversal backends (the JAX make_tracers' signature):
     - "auto" (default): the bundle walk; on a CUDA scene it launches the
-      CUDA kernel, on a CPU scene the wrapper runs its plain version
+      CUDA kernels, on a CPU scene the wrappers run their plain versions.
+      (The JAX package's "auto" is its Pallas walk on a TPU and its XLA
+      bundle engine, here "bundle", elsewhere.)
     - "bundle_cuda": the bundle walk, and the scene must be on a CUDA device
+    - "bundle_pallas": the JAX name of the bundle walk, as "auto", so that a
+      JAX command line runs unchanged
+    - "bundle": the frustum-bundle engine (ops/traverse_bundle.py, torch
+      ops, no kernel); sort_secondary sorts every batch by the coherence
+      key (presorted is ignored, as in JAX)
+    - "scatter": per-ray exact culling + supercluster ray binning
+      (ops/traverse_scatter.py, torch ops, no kernel); a trace whose pair
+      pool overflows may miss hits and is counted in overflow_by_class
     - "pairs": the pair sweep (ops/cuda_pairs.py: the binning and sweep
       kernels on a CUDA scene, their plain versions on a CPU scene); every
       ray class takes the same path (presorted is ignored), and a trace in
-      which some ray overlaps more than PAIR_K_CAND superclusters re-traces
-      whole through the bundle walk
+      which some ray overlaps more than k_cand (default PAIR_K_CAND)
+      superclusters re-traces whole through the bundle walk
     - "lbvh": the per-ray stack walk over an LBVH (ops/bvh.py,
       ops/traverse.py; torch ops, no kernel), built from the scene's
       triangles on its device unless `bvh` is given; presorted is ignored
-    - "brute": the all-pairs oracle
-    k_cand_per_class sets the bundle walk's candidate budget per ray
-    class, keyed as suggest_k_cand returns it: True (pixel tiles), False
-    (bounces), "shadow" (visibility rays); None values keep K_CAND."""
-    if scene.num_triangles < 2:
+    - "brute": the all-pairs oracle (also use_bvh=False)
+    cluster_size defaults per backend as in JAX: 128 for the bundle walk
+    and the pair sweep, 64 for "bundle", min(cluster_size or 64, 16) for
+    "scatter". For the bundle walk, cull (ct.CULLS), k_cand, group,
+    bundle_size and sort_key (ct.SORT_KEYS) override every ray class's
+    shape, then k_cand_per_class sets the candidate budget per class,
+    keyed as suggest_k_cand returns it: True (pixel tiles), False
+    (bounces), "shadow" (visibility rays); None values keep the budget.
+    shadow_order orders the visibility rays: "pixz" keeps their pixel
+    Z-order, "octz" re-sorts them by ct.octz_sort_key, "cand0" by the
+    cand0 key. The pair sweep takes k_cand and group (at most 16)."""
+    if backend not in BACKENDS:
+        raise ValueError(f"unknown backend {backend!r}")
+    if shadow_order not in SHADOW_ORDERS:
+        raise ValueError(f"shadow_order must be one of {SHADOW_ORDERS}, "
+                         f"not {shadow_order!r}")
+    if not use_bvh or scene.num_triangles < 2:
         backend = "brute"
     if backend == "brute":
         def brute(o, d, tmin, tmax, presorted=False):
@@ -134,15 +176,17 @@ def make_tracers(scene: Scene, backend: str = "auto",
         return Tracers(closest_hit=brute, occluded=brute_occl)
     if backend == "lbvh":
         return _lbvh_tracers(scene, bvh)
+    if backend == "bundle":
+        return _bundle_engine_tracers(scene, cluster_size, sort_secondary)
+    if backend == "scatter":
+        return _scatter_tracers(scene, cluster_size)
     if backend == "bundle_cuda" and scene.device.type != "cuda":
         raise ValueError(f"backend 'bundle_cuda' needs a CUDA scene, "
                          f"this one is on {scene.device}")
-    if backend not in ("auto", "bundle_cuda", "pairs"):
-        raise ValueError(f"unknown backend {backend!r}")
 
     clusters = build_clusters(
         scene.host_tri_v0, scene.host_tri_edge1, scene.host_tri_edge2,
-        cluster_size=CLUSTER_SIZE, device=scene.device)
+        cluster_size=cluster_size or CLUSTER_SIZE, device=scene.device)
     scene_min = clusters.aabb_min.amin(dim=0)
     scene_max = clusters.aabb_max.amax(dim=0)
     # the walk's scene tables, built once per scene rather than per trace
@@ -150,7 +194,9 @@ def make_tracers(scene: Scene, backend: str = "auto",
     tables = ct.build_tables(clusters, scene.tri_geometry,
                              scene.tri_primitive)
     if backend == "pairs":
-        return _pair_tracers(scene, clusters, tables, scene_min, scene_max)
+        return _pair_tracers(scene, clusters, tables, scene_min, scene_max,
+                             k_cand=k_cand or PAIR_K_CAND,
+                             group=min(group or PAIR_GROUP, PAIR_GROUP))
 
     # per-class kernel shapes (raytracer2_tpu/render/app_bridge.py:119-143):
     # presorted pixel tiles take wide bundles, narrow groups and the
@@ -168,40 +214,58 @@ def make_tracers(scene: Scene, backend: str = "auto",
         "shadow": dict(bundle_size=128, group=8 if big else 4,
                        k_cand=K_CAND, cull="exact"),
     }
+    # explicit knobs (app.py --cull/--k-cand/--group/...) win over the
+    # scene-size shapes
+    for key, val in (("cull", cull), ("k_cand", k_cand),
+                     ("bundle_size", bundle_size), ("group", group),
+                     ("sort_key", sort_key)):
+        if val is not None:
+            for shapes in by_sort.values():
+                shapes[key] = val
     for cls, val in (k_cand_per_class or {}).items():
         if cls in by_sort and val is not None:
             by_sort[cls]["k_cand"] = int(val)
+    if shadow_order == "octz":
+        by_sort["shadow"]["sort_key"] = "octz"
+    elif shadow_order == "cand0":
+        by_sort["shadow"].pop("sort_key", None)
+    shadow_presorted = shadow_order == "pixz"
 
     tracers = Tracers(
         closest_hit=None, shapes_by_class=by_sort, clusters=clusters,
         tables=tables, scene_min=scene_min, scene_max=scene_max)
 
+    def classed(presorted):
+        """(ray class, whether the walk skips its sort): "shadow" rays keep
+        their pixel Z-order only under shadow_order "pixz"."""
+        if presorted == "shadow":
+            return "shadow", shadow_presorted
+        return bool(presorted), bool(presorted)
+
     def closest(o, d, tmin, tmax, presorted=False):
-        cls = bool(presorted)
+        cls, sorted_in = classed(presorted)
         rec, n_fallback = ct.closest_hit_bundle(
             clusters, tables, o, d, tmin, tmax, scene_min, scene_max,
-            presorted=cls, **by_sort[cls])
+            presorted=sorted_in, **by_sort[cls])
         tracers._count(cls, n_fallback)
         return rec
 
     def occl(o, d, tmin, tmax, presorted=False):
-        cls = presorted if presorted == "shadow" else bool(presorted)
-        kw = {k: v for k, v in by_sort[cls].items() if k != "cull"}
-        if by_sort[cls]["cull"] != "exact":
-            raise NotImplementedError(
-                "the any-hit walk is ported with the exact cull only")
+        cls, sorted_in = classed(presorted)
         blocked, n_fallback = ct.occluded_bundle(
             clusters, tables, o, d, tmin, tmax, scene_min, scene_max,
-            presorted=bool(presorted), **kw)
+            presorted=sorted_in, **by_sort[cls])
         tracers._count(cls, n_fallback)
         return blocked
 
     def umax(o, d, tmin, tmax, presorted=False):
-        cfg = by_sort[presorted if presorted == "shadow" else bool(presorted)]
+        cls, sorted_in = classed(presorted)
+        cfg = by_sort[cls]
         return ct.union_max_bundle(
             clusters, o, d, tmin, tmax, scene_min, scene_max,
-            bundle_size=cfg["bundle_size"], cull=cfg["cull"],
-            presorted=bool(presorted))
+            bundle_size=cfg["bundle_size"],
+            cull="interval" if cfg["cull"] == "interval" else "exact",
+            presorted=sorted_in)
 
     tracers.closest_hit = closest
     tracers.occluded = occl
@@ -209,12 +273,73 @@ def make_tracers(scene: Scene, backend: str = "auto",
     return tracers
 
 
+def _bundle_engine_tracers(scene: Scene, cluster_size: int | None,
+                           sort_secondary: bool) -> Tracers:
+    """The XLA bundle engine's tracers (JAX's make_tracers,
+    backend="bundle")."""
+    clusters = build_clusters(
+        scene.host_tri_v0, scene.host_tri_edge1, scene.host_tri_edge2,
+        cluster_size=cluster_size or ENGINE_CLUSTER_SIZE,
+        device=scene.device)
+    scene_min = clusters.aabb_min.amin(dim=0)
+    scene_max = clusters.aabb_max.amax(dim=0)
+    stats = lbvh.WalkStats()
+
+    def closest(o, d, tmin, tmax, presorted=False):
+        return tbm.closest_hit_bundle(
+            clusters, scene.tri_geometry, scene.tri_primitive, o, d, tmin,
+            tmax, scene_min, scene_max, sort_rays=sort_secondary,
+            stats=stats)
+
+    def occl(o, d, tmin, tmax, presorted=False):
+        return tbm.occluded_bundle(
+            clusters, o, d, tmin, tmax, scene_min, scene_max,
+            sort_rays=sort_secondary, stats=stats)
+
+    return Tracers(closest_hit=closest, occluded=occl, clusters=clusters,
+                   walk_stats=stats, scene_min=scene_min,
+                   scene_max=scene_max)
+
+
+def _scatter_tracers(scene: Scene, cluster_size: int | None) -> Tracers:
+    """The scatter engine's tracers (JAX's make_tracers,
+    backend="scatter"): clusters of min(cluster_size or 64, 16) triangles
+    in superclusters of SCATTER_GROUP."""
+    clusters = build_clusters(
+        scene.host_tri_v0, scene.host_tri_edge1, scene.host_tri_edge2,
+        cluster_size=min(cluster_size or ENGINE_CLUSTER_SIZE,
+                         SCATTER_MAX_CLUSTER_SIZE),
+        device=scene.device)
+    sc = tsm.build_superclusters(clusters, group=SCATTER_GROUP)
+    tracers = Tracers(closest_hit=None, clusters=clusters, superclusters=sc)
+
+    def counted(presorted, overflowed: torch.Tensor) -> None:
+        cls = presorted if presorted == "shadow" else bool(presorted)
+        tracers.overflow_by_class[cls] = (
+            tracers.overflow_by_class.get(cls, 0) + int(overflowed))
+
+    def closest(o, d, tmin, tmax, presorted=False):
+        rec, overflowed = tsm.closest_hit_scatter(
+            sc, scene.tri_geometry, scene.tri_primitive, o, d, tmin, tmax)
+        counted(presorted, overflowed)
+        return rec
+
+    def occl(o, d, tmin, tmax, presorted=False):
+        blocked, overflowed = tsm.occluded_scatter(sc, o, d, tmin, tmax)
+        counted(presorted, overflowed)
+        return blocked
+
+    tracers.closest_hit = closest
+    tracers.occluded = occl
+    return tracers
+
+
 def _pair_tracers(scene: Scene, clusters: Clusters, tables: ct.WalkTables,
-                  scene_min: torch.Tensor, scene_max: torch.Tensor
-                  ) -> Tracers:
+                  scene_min: torch.Tensor, scene_max: torch.Tensor,
+                  k_cand: int, group: int) -> Tracers:
     """The pair sweep's tracers (JAX's make_tracers, backend="pairs")."""
     ps = cp.build_pair_scene(clusters, scene.tri_geometry,
-                             scene.tri_primitive, group=PAIR_GROUP)
+                             scene.tri_primitive, group=group)
     tracers = Tracers(closest_hit=None, clusters=clusters, tables=tables,
                       pair_scene=ps, scene_min=scene_min,
                       scene_max=scene_max)
@@ -222,14 +347,14 @@ def _pair_tracers(scene: Scene, clusters: Clusters, tables: ct.WalkTables,
     def closest(o, d, tmin, tmax, presorted=False):
         rec, overflowed = cp.closest_hit_pairs(
             ps, clusters, tables, o, d, tmin, tmax, scene_min, scene_max,
-            k_cand=PAIR_K_CAND)
+            k_cand=k_cand)
         tracers._count(bool(presorted), o.shape[0] if overflowed else 0)
         return rec
 
     def occl(o, d, tmin, tmax, presorted=False):
         blocked, overflowed = cp.occluded_pairs(
             ps, clusters, tables, o, d, tmin, tmax, scene_min, scene_max,
-            k_cand=PAIR_K_CAND)
+            k_cand=k_cand)
         cls = presorted if presorted == "shadow" else bool(presorted)
         tracers._count(cls, o.shape[0] if overflowed else 0)
         return blocked

@@ -146,14 +146,20 @@ def make_regir_params(scene: Scene, cells: tuple[int, int, int] = (16, 16, 16),
 
 
 def create_renderer(scene: Scene, width: int, height: int,
-                    backend: str = "auto", presample: bool = True,
-                    regir: bool = False, presample_seed: int = 0,
+                    use_bvh: bool = True, backend: str = "auto",
+                    presample: bool = True, regir: bool = False,
+                    presample_seed: int = 0, tracer_opts: dict | None = None,
                     k_cand_per_class: dict | None = None) -> Renderer:
     """presample=True fills the RIS tile buffer once at creation, the
     static-scene equivalent of the reference's frame-1 presample dispatch
     (light_passes.rs:538-547). regir=True also builds the ReGIR grid
     (make_regir_params), which local_light_sampling_mode 2 samples.
-    backend and k_cand_per_class go to make_tracers."""
+    use_bvh, backend, the keyword arguments in tracer_opts (cluster_size,
+    cull, k_cand, group, bundle_size, sort_key, shadow_order, ...) and
+    k_cand_per_class go to make_tracers."""
+    opts = dict(tracer_opts or {})
+    if k_cand_per_class is not None:
+        opts["k_cand_per_class"] = k_cand_per_class
     scene_lights = prepare_lights(scene)
     ris_buffer = None
     if presample and scene_lights.num_local_lights > 0:
@@ -174,8 +180,8 @@ def create_renderer(scene: Scene, width: int, height: int,
             regir_p)
     return Renderer(
         scene=scene,
-        tracers=make_tracers(scene, backend=backend,
-                             k_cand_per_class=k_cand_per_class),
+        tracers=make_tracers(scene, use_bvh=use_bvh, backend=backend,
+                             **opts),
         scene_lights=scene_lights,
         neighbor_offsets=fill_neighbor_offsets(device=scene.device),
         width=width, height=height, ris_buffer=ris_buffer,

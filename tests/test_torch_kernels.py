@@ -1,5 +1,6 @@
-"""The port's CUDA kernels (the closest-hit and any-hit bundle walks)
-against their plain torch versions, on the card.
+"""The port's CUDA kernels (the closest-hit and any-hit bundle walks, and
+their supercluster forms of cull="sc") against their plain torch versions,
+on the card.
 
 Every test here is marked `cuda` and skips where torch.cuda.is_available()
 is false (a CUDA kernel has no CPU mode). The file imports no JAX, so it
@@ -22,6 +23,7 @@ from raytracer2_tpu_torch.ops.cluster import (
     _wald_matrices as wald_matrices, build_clusters)
 from raytracer2_tpu_torch.ops.intersect import (
     intersect_brute_force, occluded_brute_force)
+from raytracer2_tpu_torch.ops.wald import hit_test
 from raytracer2_tpu_torch.render.rays import zorder_permutation
 from raytracer2_tpu_torch.scene import gltf
 from raytracer2_tpu_torch.scene.scene import build_scene
@@ -208,7 +210,7 @@ def test_kernel_adversarial_cases_on_card(dev, p, group):
     rays8, wald = args[0].clone(), args[4]
     sp = wald.shape[-1]
     rows = wald[(want[hit] // sp).long(), :12, (want[hit] % sp).long()]
-    t, ok = ct._wald_test(rays8[hit][:, None, :], rows[:, :, None, None])
+    t, ok = hit_test(rays8[hit][:, None, :], rows[:, :, None, None])
     assert ok.all()
     rays8[hit, 7] = t[:, 0, 0]
     args = (rays8,) + args[1:]
@@ -301,7 +303,7 @@ def test_occluded_kernel_adversarial_on_card(dev, p, group):
     hit = code != ct.MISS_CODE
     sp = wald.shape[-1]
     rows = wald[(code[hit] // sp).long(), :12, (code[hit] % sp).long()]
-    t, ok = ct._wald_test(rays8[hit][:, None, :], rows[:, :, None, None])
+    t, ok = hit_test(rays8[hit][:, None, :], rows[:, :, None, None])
     assert ok.all()
     rays8 = rays8.clone()
     rays8[hit, 7] = t[:, 0, 0]
@@ -310,3 +312,45 @@ def test_occluded_kernel_adversarial_on_card(dev, p, group):
     want2 = ct.walk_occluded_reference(*args, group=group)
     np.testing.assert_array_equal(got.cpu().numpy(), want2.cpu().numpy())
     assert (w & ~want2.cpu().bool()).any()  # the case bites
+
+
+def _synthetic_sc_walk(dev, p, m):
+    """_synthetic_walk's rays and cluster table with candidate lists of
+    superclusters of m clusters (the last ones padded past the table's 15
+    clusters): 6 bundles whose lists are 0, 1, 2, ... superclusters long,
+    in a shuffled order, with rising entry distances."""
+    rays8, _, _, _, wald = _synthetic_walk(dev, p)
+    n_sc = (wald.shape[0] + m - 1) // m
+    rng = np.random.default_rng(m)
+    nb = 6
+    cand_idx = np.zeros((nb, n_sc), np.int32)
+    cand_t = np.full((nb, n_sc), np.inf, np.float32)
+    count = np.minimum(np.arange(nb), n_sc).astype(np.int32)
+    for b in range(nb):
+        cand_idx[b, :count[b]] = rng.permutation(n_sc)[:count[b]]
+        cand_t[b, :count[b]] = np.sort(rng.uniform(0, 20, count[b]))
+    return (rays8,) + tuple(torch.from_numpy(x).to(dev)
+                            for x in (cand_idx, cand_t, count)) + (wald,)
+
+
+@pytest.mark.parametrize("walk", ["closest", "occluded"])
+@pytest.mark.parametrize("p,m", [(128, 8), (256, 4), (64, 2), (128, 3)])
+def test_sc_kernels_match_plain_versions_on_card(dev, walk, p, m):
+    """The supercluster walks (cull="sc") against their plain versions,
+    bit for bit, on _synthetic_walk's adversarial rays over superclusters
+    of m of its clusters (the members past the table's 15 clusters hold
+    nothing), lists of 0 to 5 superclusters; each launch counted."""
+    args = _synthetic_sc_walk(dev, p, m)
+    lanes = ct.walk_lanes(args[4])
+    kernel = getattr(ct, f"walk_{walk}_sc")
+    reference = getattr(ct, f"walk_{walk}_reference")
+    launches = kernel.launches
+    got = kernel(*args, group=m, lanes=lanes)
+    torch.cuda.synchronize()
+    assert kernel.launches == launches + 1
+    want = reference(*args, group=m, sc_m=m)
+    np.testing.assert_array_equal(got.cpu().numpy(), want.cpu().numpy())
+    if walk == "closest":
+        assert (want[3 * p:] != ct.MISS_CODE).float().mean() > 0.2
+    else:
+        assert want[3 * p:].any()

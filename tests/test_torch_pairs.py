@@ -391,7 +391,7 @@ def test_make_tracers_pairs_counts_fallback_rays(tiny, monkeypatch):
                                    rtol=1e-5)
         assert tracers.fallback_by_class == {
             **{True: 0, "shadow": 0}, **fallback}
-    for backend in ("pair", "bundle"):  # JAX's XLA bundle walk is not ported
+    for backend in ("pair", "xla_bundle"):  # names no backend has
         with pytest.raises(ValueError, match="unknown backend"):
             app_bridge.make_tracers(ts, backend=backend)
 

@@ -25,6 +25,8 @@ from raytracer2_tpu.scene import gltf
 from raytracer2_tpu.scene.scene import build_scene
 from raytracer2_tpu_torch import convert
 from raytracer2_tpu_torch.ops import cuda_traverse as ct
+from raytracer2_tpu_torch.ops.wald import (
+    fma, fused_hit, hit_test, ieee_fp32_matmul)
 from raytracer2_tpu_torch.render import app_bridge
 from raytracer2_tpu_torch.render.rays import zorder_permutation
 
@@ -529,7 +531,7 @@ def _replay_occluded(args, group, lane_real, steps):
         r = rays[bi:bi + 1]
         for k0 in range(0, int(steps[bi]) * group, group):
             ci, wr = ct._step_rows(cand_idx[bi:bi + 1], wald, k0, group)
-            t, hit = ct._wald_test(r, wr)
+            t, hit = hit_test(r, wr)
             hit = (hit & (t < r[..., 7:8]))[0].numpy()
             real = lane_real[ci.long()].reshape(-1).numpy()
             n_live = min(group, int(cand_count[bi]) - k0) * sp
@@ -760,7 +762,7 @@ def _fma_exact(a, b, c):
 
 
 def test_fma_rounds_once():
-    """ct._fma is one rounding of the exact a * b + c. The first case
+    """fma is one rounding of the exact a * b + c. The first case
     sits where a float64 sum rounds onto a float32 tie: (1 + 2^-23) *
     -(1 - 2^-23) + (2^24 + 2) = 2^24 + 1 + 2^-46, whose float64 sum is the
     tie 2^24 + 1 (the 2^-46 is lost), which float32 rounds to even, 2^24,
@@ -778,7 +780,7 @@ def test_fma_rounds_once():
     assert want[0] == np.float32(2 ** 24 + 2)
     twice = (a.astype(np.float64) * b + c).astype(np.float32)
     assert twice[0] != want[0]  # the case a double rounding gets wrong
-    got = ct._fma(*(torch.from_numpy(x) for x in (a, b, c))).numpy()
+    got = fma(*(torch.from_numpy(x) for x in (a, b, c))).numpy()
     np.testing.assert_array_equal(got.view(np.int32), want.view(np.int32))
 
 
@@ -819,19 +821,19 @@ def _edge_aimed_case(seed, nb=48, p=32, w=32):
 
 @pytest.mark.parametrize("seed", [0, 1, 2])
 def test_wald_test_matches_fused_on_every_lane(seed):
-    """_wald_test's float32 pass and error bound send every lane a hit
+    """hit_test's float32 pass and error bound send every lane a hit
     could tip on to the fused roundings: on random rays aimed at
     triangles' vertices, edges and insides (some with t_min at the hit),
-    hit equals _wald_fused's on every (ray, triangle) lane bit for bit,
+    hit equals fused_hit's on every (ray, triangle) lane bit for bit,
     and t does wherever hit is true."""
     r, wr = _edge_aimed_case(seed)
     nb, p, _ = r.shape
     w = wr.shape[-1]
-    t, hit = ct._wald_test(r, wr)
+    t, hit = hit_test(r, wr)
     rows = r[:, :, None, :].expand(nb, p, w, 8).reshape(-1, 8)
     coeffs = wr[:, :, 0, :].permute(0, 2, 1)[:, None].expand(
         nb, p, w, 12).reshape(-1, 12)
-    t_f, hit_f = ct._wald_fused(rows, coeffs)
+    t_f, hit_f = fused_hit(rows, coeffs)
     hit_f = hit_f.reshape(nb, p, w)
     np.testing.assert_array_equal(hit.numpy(), hit_f.numpy())
     np.testing.assert_array_equal(
@@ -862,10 +864,10 @@ def test_wald_test_needs_ieee_matmuls(monkeypatch, backend, value, device):
     error bound only in IEEE float32: with a device's float32 matmuls set
     to TF32 or bfloat16 the plain Wald test raises instead of answering."""
     r, wr = _edge_aimed_case(0, nb=2, p=4, w=8)
-    assert ct._ieee_fp32_matmul(torch.device(device))
+    assert ieee_fp32_matmul(torch.device(device))
     matmul = getattr(torch.backends, backend).matmul
     monkeypatch.setattr(matmul, "fp32_precision", value)
-    assert not ct._ieee_fp32_matmul(torch.device(device))
+    assert not ieee_fp32_matmul(torch.device(device))
     if device == "cpu":
         with pytest.raises(RuntimeError, match="IEEE float32 matmuls"):
-            ct._wald_test(r, wr)
+            hit_test(r, wr)
