@@ -87,6 +87,24 @@ failure:
                         walk_occluded_sc (B1-sc, B2-sc, cull="sc") against
                         their plain versions on the "sc" prep of those
                         batches, bit for bit, timed, with their bound.
+11c. knobs            - the walk's function-level knobs on the same two
+                        batches, every count reset just before them:
+                        traces through closest_hit_bundle / occluded_bundle
+                        with lean, debug_steps (with and without t_cap:
+                        the steps sum, no bundle taking more), depth 1-3,
+                        mb 2, mm and t_cap (hits against the default
+                        trace's, lean/depth/mb bit for bit, t_cap and mm up
+                        to ties; each instance must launch); then each
+                        kernel instance on the default prep's walk inputs:
+                        B1 lean and debug_steps and B2 debug_steps against
+                        their plain versions (one plain call each, bit for
+                        bit) and the default kernel's outputs, depth 1-3
+                        and mb 2 against the default kernel's (kernel calls
+                        only), B1 and B2 mm against their plain mm versions
+                        (rounding ties counted, the largest tie's relative
+                        t), B4 with the cap against its plain version on
+                        both batches; each timed, with its bound share and
+                        occupancy.
 12. flagship-frames   - three flagship frames; all four kernels but the
                         any-hit walk (the flagship frame casts no visibility
                         ray) must have launched. Then flagship-breakdown: one
@@ -378,13 +396,42 @@ FLAGSHIP_WALKS = ("flagship_gbuffer",) + tuple(
 NO_OVERFLOW_TRACES = tuple(f"pairs_flagship_{b}" for b in (
     "gbuffer",) + FLAGSHIP_BOUNCES) + ("pairs_di_visibility",)
 
-KERNELS = {
+# the function-level knob instances (kernel[instance], knob_instance's
+# names), each with its own launch count: lean and debug_steps change B1's
+# and B2's outputs, depth their ring (template instances), mb their launch,
+# mm their test (the tensor-core instances), cap B4's outputs
+KNOB_WALKS = {"walk_closest": ("lean", "steps", "depth=1", "depth=2",
+                               "depth=3", "mb=2", "mm"),
+              "walk_occluded": ("steps", "depth=1", "depth=2", "depth=3",
+                                "mb=2", "mm")}
+KNOB_KERNELS = tuple(f"{w}[{i}]" for w, insts in KNOB_WALKS.items()
+                     for i in insts) + ("bundle_union[cap]",)
+# 3xTF32 (walk_common.cuh::mma_3xtf32): a product's error is below 2^-21
+# |a b| (lo_a lo_b and lo's rounding dropped), the tensor core's float32
+# sums add a few units of 2^-24: the mm instances' rounding bound, in units
+# of the sum of the absolute terms, as WALD_ROUNDING is the lane test's
+MM_ROUNDING = 2.0 ** -19
+# operations of one (ray, triangle) test of the mm instances: 6 affines of
+# 4 multiply-adds, 3 products each (3xTF32), on the tensor cores; beside
+# them a divide, 2 multiplies, 3 adds, 5 compares and the key or flag
+MM_TF32_OPS = 6 * 4 * 2 * 3
+MM_FP32_OPS = 12
+TF32_OPS_PER_S = 495e12  # H100 SXM dense TF32 rate, the data sheet's
+
+KERNELS_BASE = {
     "walk_closest": dict(
         source="raytracer2_tpu_torch/csrc/bundle_walk.cu",
         replaces="raytracer2_tpu/ops/pallas_traverse.py:1323"),
     "walk_occluded": dict(
         source="raytracer2_tpu_torch/csrc/bundle_occlude.cu",
         replaces="raytracer2_tpu/ops/pallas_traverse.py:1488"),
+    "bundle_union": dict(
+        source="raytracer2_tpu_torch/csrc/cull.cu",
+        replaces="raytracer2_tpu/ops/pallas_cull.py:128"),
+}
+KERNELS = {
+    "walk_closest": dict(KERNELS_BASE["walk_closest"]),
+    "walk_occluded": dict(KERNELS_BASE["walk_occluded"]),
     # B1-sc, B2-sc: the supercluster walks (cull="sc"), the TPU walks'
     # sc_m > 0 branch
     "walk_closest_sc": dict(
@@ -396,15 +443,15 @@ KERNELS = {
     "nearest_box": dict(
         source="raytracer2_tpu_torch/csrc/cull.cu",
         replaces="raytracer2_tpu/ops/pallas_cull.py:106"),
-    "bundle_union": dict(
-        source="raytracer2_tpu_torch/csrc/cull.cu",
-        replaces="raytracer2_tpu/ops/pallas_cull.py:128"),
+    "bundle_union": dict(KERNELS_BASE["bundle_union"]),
     "pair_sweep": dict(
         source="raytracer2_tpu_torch/csrc/pair_sweep.cu",
         replaces="raytracer2_tpu/ops/pallas_pairs.py:115"),
     "bin_scatter": dict(
         source="raytracer2_tpu_torch/csrc/binning.cu",
         replaces="raytracer2_tpu/ops/pallas_binning.py:56"),
+    **{name: dict(KERNELS_BASE[name.partition("[")[0]])
+       for name in KNOB_KERNELS},
 }
 WALKS = ("walk_closest", "walk_occluded")
 SC_WALKS = ("walk_closest_sc", "walk_occluded_sc")
@@ -416,8 +463,17 @@ KERNEL_MODULES = {"walk_closest": ct, "walk_occluded": ct,
                   "pair_sweep": cp, "bin_scatter": binning}
 
 
+def _wrapper(name: str):
+    """A KERNELS name's wrapper and instance ("" for the default): the
+    knob instances "kernel[instance]" count in the wrapper's
+    knob_launches."""
+    base, _, inst = name.partition("[")
+    return getattr(KERNEL_MODULES[base], base), inst.removesuffix("]")
+
+
 def launch_count(name: str) -> int:
-    return getattr(KERNEL_MODULES[name], name).launches
+    fn, inst = _wrapper(name)
+    return fn.knob_launches.get(inst, 0) if inst else fn.launches
 
 
 T_START = time.perf_counter()  # the run's clock, which each log line reads
@@ -545,14 +601,19 @@ def _plain_ms(fn) -> float:
     The caller has made one call on the same inputs just before (the one
     whose outputs it compares), which is the warm-up; the plain walks and
     culls take seconds a call, so one timed call is all the run affords."""
+    return _timed_call(fn)[1]
+
+
+def _timed_call(fn):
+    """fn's result and its time in ms between CUDA events (one call)."""
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
     stop = torch.cuda.Event(enable_timing=True)
     start.record()
-    fn()
+    out = fn()
     stop.record()
     torch.cuda.synchronize()
-    return start.elapsed_time(stop)
+    return out, start.elapsed_time(stop)
 
 
 def _median_ms(fn, reps: int = 5) -> float:
@@ -801,7 +862,9 @@ def phase_occupancy(renderer, renderer_p) -> dict:
            "walk_occluded_sc": {}, "nearest_box": {
         "all": _build.occupancy("rt2_nearest_box_occupancy")},
         "bundle_union": {
-            "all": _build.occupancy("rt2_bundle_union_occupancy")},
+            "all": _build.occupancy("rt2_bundle_union_occupancy", 0)},
+        "bundle_union[cap]": {
+            "all": _build.occupancy("rt2_bundle_union_occupancy", 1)},
         "pair_sweep": {"all": _build.occupancy("rt2_pair_sweep_occupancy",
                                                ps.s_pad)},
         "bin_scatter": {
@@ -809,18 +872,22 @@ def phase_occupancy(renderer, renderer_p) -> dict:
                                    ps.num_superclusters + 1)
             for i, name in enumerate(("count", "scan", "scatter"))}}
     for cls, cfg in tracers.shapes_by_class.items():
-        if cls == "shadow":
-            out["walk_occluded"]["visibility"] = _build.occupancy(
-                "rt2_walk_occluded_occupancy", cfg["bundle_size"], sp)
-            out["walk_occluded_sc"]["visibility"] = _build.occupancy(
-                "rt2_walk_occluded_sc_occupancy", cfg["bundle_size"], sp)
-        else:
-            if not cls:
-                out["walk_closest_sc"]["bounces"] = _build.occupancy(
-                    "rt2_walk_closest_sc_occupancy", cfg["bundle_size"], sp)
-            name = "pixel_tiles" if cls else "bounces"
-            out["walk_closest"][name] = _build.occupancy(
-                "rt2_walk_closest_occupancy", cfg["bundle_size"], sp)
+        p = cfg["bundle_size"]
+        walk = "walk_occluded" if cls == "shadow" else "walk_closest"
+        name = ("visibility" if cls == "shadow" else "pixel_tiles" if cls
+                else "bounces")
+        entry = f"rt2_{walk}_occupancy"
+        out[walk][name] = _build.occupancy(entry, p, sp, 0, ct.DEPTH, 0)
+        if cls is True:
+            continue
+        out[f"{walk}_sc"][name] = _build.occupancy(entry, p, sp, 1, ct.DEPTH,
+                                                   0)
+        # the knob instances at this class's shape (lean, steps and mb run
+        # the default instance; depth and mm are instances of their own)
+        for inst in KNOB_WALKS[walk]:
+            depth = int(inst[6:]) if inst.startswith("depth=") else ct.DEPTH
+            out.setdefault(f"{walk}[{inst}]", {})[name] = _build.occupancy(
+                entry, p, sp, 0, depth, int(inst == "mm"))
     for kernel, by_cls in out.items():
         for cls, occ in by_cls.items():
             log("occupancy", kernel=kernel, cls=cls, **occ,
@@ -1067,11 +1134,14 @@ def phase_kernel_di(renderer, trace_log: TraceLog) -> dict:
 
 
 def _blocked_with_slack(scene, wald, o, d, tn, tx, s_edge: int, s_min: int,
-                        s_max: int) -> torch.Tensor:
+                        s_max: int, rounding: float = WALD_ROUNDING
+                        ) -> torch.Tensor:
     """Moller-Trumbore any-hit of a few rays against every triangle, with
     the triangle edges and the two segment ends each moved by the Wald
-    test's float32 rounding bound for that ray and triangle, outwards (+1)
-    or inwards (-1). wald: [T, 12] Wald coefficients per triangle."""
+    test's rounding bound for that ray and triangle (`rounding` units of
+    the terms' magnitudes: the lane test's float32 one, or MM_ROUNDING),
+    outwards (+1) or inwards (-1). wald: [T, 12] Wald coefficients per
+    triangle."""
     _, t, u, v = moller_trumbore(
         o[:, None], d[:, None], scene.tri_v0[None], scene.tri_edge1[None],
         scene.tri_edge2[None], -torch.inf, torch.inf)
@@ -1085,16 +1155,27 @@ def _blocked_with_slack(scene, wald, o, d, tn, tx, s_edge: int, s_min: int,
     dz = (d[:, None, 0] * wald[None, :, 2] + d[:, None, 1] * wald[None, :, 5]
           + d[:, None, 2] * wald[None, :, 8]).abs()
     # t = -o'_z / d'_z: the rounding of o'_z, and that of d'_z times |t|
-    err_t = (WALD_ROUNDING * (so[2] + t.abs() * sd[2])
+    err_t = (rounding * (so[2] + t.abs() * sd[2])
              / torch.clamp_min(dz, 1e-30))
-    err_b = WALD_ROUNDING * (so[0] + so[1] + t.abs() * (sd[0] + sd[1]))
+    err_b = rounding * (so[0] + so[1] + t.abs() * (sd[0] + sd[1]))
     inside = ((u >= -s_edge * err_b) & (v >= -s_edge * err_b)
               & (u + v <= 1.0 + s_edge * err_b))
     seg = (t > tn[:, None] - s_min * err_t) & (t < tx[:, None] + s_max * err_t)
     return (ok & inside & seg).any(dim=1)
 
 
-def _rounding_ties(scene, tracers, rays, got) -> dict:
+def _tri_wald(scene, tracers) -> torch.Tensor:
+    """[T, 12] Wald coefficients per triangle, from the walk's meta rows."""
+    meta = tracers.tables.meta_rows
+    real = meta[:, 12] >= 0
+    wald = torch.empty((scene.num_triangles, 12), device=meta.device)
+    wald[meta[real, 12].long()] = meta[real, :12].contiguous().view(
+        torch.float32)
+    return wald
+
+
+def _rounding_ties(scene, tracers, rays, got,
+                   rounding: float = WALD_ROUNDING) -> dict:
     """Of the visibility rays `rays` (o, d, t_min, t_max) on which a tracer
     answered `got` and a reference differs, the ties: the tracer's answer
     lies between the brute-force oracle's answers with every triangle edge
@@ -1103,17 +1184,14 @@ def _rounding_ties(scene, tracers, rays, got) -> dict:
     triangle far from the origin): blocked only if some such move blocks
     it, clear only if some such move clears it. Returns the ties, which
     single bound moved outwards flips the oracle on them, and how many
-    start outside the scene."""
-    meta = tracers.tables.meta_rows
-    real = meta[:, 12] >= 0
-    wald = torch.empty((scene.num_triangles, 12), device=got.device)
-    wald[meta[real, 12].long()] = meta[real, :12].contiguous().view(
-        torch.float32)
-    strict = _blocked_with_slack(scene, wald, *rays, -1, -1, -1)
-    loose = _blocked_with_slack(scene, wald, *rays, 1, 1, 1)
+    start outside the scene. `rounding`: the bound's units (the lane
+    test's float32 WALD_ROUNDING, or MM_ROUNDING for the mm instances)."""
+    wald = _tri_wald(scene, tracers)
+    strict = _blocked_with_slack(scene, wald, *rays, -1, -1, -1, rounding)
+    loose = _blocked_with_slack(scene, wald, *rays, 1, 1, 1, rounding)
     tied = torch.where(got, loose, ~strict)
     ties = {f"{name}_ties": int((tied & (_blocked_with_slack(
-        scene, wald, *rays, *signs) != strict)).sum())
+        scene, wald, *rays, *signs, rounding) != strict)).sum())
         for name, signs in (("t_max", (-1, -1, 1)), ("t_min", (-1, 1, -1)),
                             ("edge", (1, -1, -1)))}
     # rays from a sky pixel's surface at the background depth start
@@ -1153,7 +1231,9 @@ def phase_oracle_occlude(scene, renderer, batch,
 
 def _reset_counts(tracers) -> None:
     for name in KERNELS:
-        getattr(KERNEL_MODULES[name], name).launches = 0
+        fn, _ = _wrapper(name)
+        fn.launches = 0
+        getattr(fn, "knob_launches", {}).clear()
     tracers.fallback_by_class.clear()
 
 
@@ -2136,6 +2216,363 @@ def phase_tracer_modes(scene, renderer, trace_log: TraceLog) -> dict:
         classes[kernel][name] = check_walk(kernel, name, args, group, real,
                                            lanes=tracers.tables.lanes)
     return classes
+
+
+# the knobs phase's traces on MODE_BATCHES: (name, knobs); lean has no
+# any-hit form
+KNOB_TRACES = (
+    ("lean", dict(lean=True)), ("steps", dict(debug_steps=True)),
+    ("steps-cap", dict(debug_steps=True, t_cap=True)),
+    ("depth=1", dict(depth=1)), ("depth=2", dict(depth=2)),
+    ("depth=3", dict(depth=3)), ("mb=2", dict(mb=2)), ("mm", dict(mm=True)),
+    ("cap", dict(t_cap=True)))
+
+
+def _knobs_of(inst: str) -> dict:
+    """The keyword arguments of a knob instance's name (knob_instance)."""
+    out = {}
+    for part in inst.split(","):
+        key, _, val = part.partition("=")
+        if key in ("depth", "mb"):
+            out[key] = int(val)
+        else:
+            out[{"steps": "debug_steps"}.get(key, key)] = True
+    return out
+
+
+def _bits_differ(got, ref) -> torch.Tensor:
+    """[N] bool: the rays on which two hit records (or flag tensors)
+    differ in any bit."""
+    if torch.is_tensor(got):
+        return got != ref
+    diff = torch.zeros_like(got.missed)
+    for g, r in zip(got, ref):
+        if g.dtype == torch.float32:
+            g, r = g.view(torch.int32), r.view(torch.int32)
+        diff |= g != r
+    return diff
+
+
+def _hits_of(rec, idx):
+    """The hit record of rays idx."""
+    return type(rec)(*(x[idx] for x in rec))
+
+
+def _mm_ties(scene, tracers, rays, got, ref) -> dict:
+    """Of closest hits `got` (an mm instance's) and `ref` on rays (o, d,
+    t_min, t_max) whose triangle differs, the ties: a key tie (the same
+    miss flag, t within KEY_TIE_REL), or a ray that passes within the
+    products' rounding (MM_ROUNDING) of an edge, of t_min or of t_max of
+    the nearer answer's triangle, so that either test may drop it, where
+    the farther answer is a miss or a hit with those bounds moved
+    outwards. Returns {"tied": [n] bool, "key_ties", "edge_ties",
+    "max_key_tie_rel_t"} (an edge tie's answers are two triangles, or a
+    hit and a miss, whose t differ as they may)."""
+    o, d, tn, tx = (x.double() for x in rays)
+    wald = _tri_wald(scene, tracers).double()
+
+    def margins(rec):
+        w = wald[rec.triangle_index.clamp_min(0).long()]
+        op = [o[:, 0] * w[:, c] + o[:, 1] * w[:, c + 3] + o[:, 2] * w[:, c + 6]
+              + w[:, c + 9] for c in range(3)]
+        dp = [d[:, 0] * w[:, c] + d[:, 1] * w[:, c + 3] + d[:, 2] * w[:, c + 6]
+              for c in range(3)]
+        aw, ao, ad = w.abs(), o.abs(), d.abs()
+        so = [ao[:, 0] * aw[:, c] + ao[:, 1] * aw[:, c + 3]
+              + ao[:, 2] * aw[:, c + 6] + aw[:, c + 9] for c in range(3)]
+        sd = [ad[:, 0] * aw[:, c] + ad[:, 1] * aw[:, c + 3]
+              + ad[:, 2] * aw[:, c + 6] for c in range(3)]
+        t = -op[2] / dp[2]
+        u, v = op[0] + t * dp[0], op[1] + t * dp[1]
+        err_b = MM_ROUNDING * (so[0] + so[1] + t.abs() * (sd[0] + sd[1]))
+        err_t = (MM_ROUNDING * (so[2] + t.abs() * sd[2])
+                 / dp[2].abs().clamp_min(1e-30))
+        edge = torch.stack([u, v, 1.0 - u - v]).amin(dim=0)
+        marginal = ((edge <= err_b) | ((t - tn).abs() <= err_t)
+                    | ((t - tx).abs() <= err_t))
+        return marginal, edge >= -err_b
+
+    rel = (got.t - ref.t).abs() / ref.t.abs()
+    key_tie = (got.missed == ref.missed) & (rel <= KEY_TIE_REL)
+    g_marg, g_loose = margins(got)
+    r_marg, r_loose = margins(ref)
+    got_nearer = ~got.missed & (ref.missed | (got.t < ref.t))
+    edge_tie = torch.where(got_nearer, g_marg & (ref.missed | r_loose),
+                           ~ref.missed & r_marg & (got.missed | g_loose))
+    hits = key_tie & ~got.missed
+    return {"tied": key_tie | edge_tie, "key_ties": int(key_tie.sum()),
+            "edge_ties": int((edge_tie & ~key_tie).sum()),
+            "max_key_tie_rel_t": float(rel[hits].max()) if hits.any()
+            else 0.0}
+
+
+def _knob_agree(scene, renderer, name, rays, got, ref, mm: bool) -> dict:
+    """A knob trace against the default trace: _backends_agree, or for mm
+    with the tensor-core rounding (_mm_ties, _rounding_ties at
+    MM_ROUNDING). Raises on a difference that is no tie."""
+    if not mm:
+        return _backends_agree("knobs", scene, renderer, name, rays, got,
+                               ref)
+    closest = not torch.is_tensor(got)
+    differ = torch.nonzero(got.triangle_index != ref.triangle_index
+                           if closest else got != ref).reshape(-1)
+    if differ.numel() > ORACLE_RAYS:
+        raise RuntimeError(f"knobs {name} mm: {differ.numel()} rays differ")
+    r = tuple(x[differ] for x in rays)
+    if closest:
+        ties = _mm_ties(scene, renderer.tracers, r, _hits_of(got, differ),
+                        _hits_of(ref, differ))
+    else:
+        ties = _rounding_ties(scene, renderer.tracers, r, got[differ],
+                              MM_ROUNDING)
+    tied = ties.pop("tied")
+    bad = int((~tied).sum())
+    fields = dict(differ=differ.numel(), ties=int(tied.sum()), **ties,
+                  disagree=bad)
+    if bad:
+        log("knobs", trace=name, **fields)
+        raise RuntimeError(f"knobs {name} mm: {bad} rays differ beyond "
+                           "rounding ties")
+    return fields
+
+
+def _knob_traces(scene, renderer, trace_log) -> dict:
+    """KNOB_TRACES through closest_hit_bundle / occluded_bundle on the two
+    MODE_BATCHES, every count reset just before them: each against the
+    default trace (lean, depth, mb and debug_steps bit for bit; t_cap and
+    mm up to ties), debug_steps's steps with and without t_cap (no bundle
+    may take more with it). Returns the launches; every KNOB_KERNELS
+    instance must have launched."""
+    tracers = renderer.tracers
+    _reset_counts(tracers)
+    for name, (cls, _) in MODE_BATCHES.items():
+        rays = _per_ray(trace_log.traces[name])
+        ref, _ = _mode_trace(tracers, cls, rays, {})
+        steps = {}
+        for knob, kw in KNOB_TRACES:
+            if cls == "shadow" and "lean" in kw:
+                continue
+            got, info = _mode_trace(tracers, cls, rays, kw)
+            fields = {}
+            if "debug_steps" in kw:
+                steps[knob] = info["steps"].long()
+                fields = dict(steps=int(steps[knob].sum()),
+                              steps_max=int(steps[knob].max()),
+                              overflowed=bool(info["overflowed"]))
+            exact = "t_cap" not in kw and "mm" not in kw
+            if exact and not (isinstance(info, dict) and info["overflowed"]):
+                differ = int(_bits_differ(got, ref).sum())
+                if differ:
+                    raise RuntimeError(f"knobs {name} {knob}: {differ} rays "
+                                       "differ from the default trace")
+                fields["bit_equal"] = True
+            else:
+                fields.update(_knob_agree(scene, renderer, name, rays, got,
+                                          ref, "mm" in kw))
+            # one more synchronised trace after a warm-up, as tracer-modes
+            trace_ms = _wall_median_ms(
+                lambda: _mode_trace(tracers, cls, rays, kw), reps=1)
+            log("knobs", batch=name, knob=knob, trace_ms=f"{trace_ms:.2f}",
+                **fields)
+        more = int((steps["steps-cap"] > steps["steps"]).sum())
+        log("knobs-steps", batch=name, steps=int(steps["steps"].sum()),
+            steps_t_cap=int(steps["steps-cap"].sum()),
+            bundles_fewer=int((steps["steps-cap"] < steps["steps"]).sum()),
+            bundles_more=more)
+        if more:
+            raise RuntimeError(f"knobs {name}: t_cap took more steps in "
+                               f"{more} bundles")
+    launches = _launches()
+    log("knobs-traces", launches=json.dumps(
+        {k: launches[k] for k in KNOB_KERNELS}, separators=(",", ":")))
+    for k in KNOB_KERNELS:
+        if launches[k] <= 0:
+            raise RuntimeError(f"the knob traces never launched {k}")
+    return launches
+
+
+def _rows(x) -> tuple:
+    return x if isinstance(x, tuple) else (x,)
+
+
+def _knob_prep(tracers, trace_log, name, cls):
+    """The default trace's prep of a MODE_BATCHES batch, and its shape."""
+    rays = _per_ray(trace_log.traces[name])
+    cfg = dict(tracers.shapes_by_class[cls], presorted=cls == "shadow")
+    prep = ct._prepare(tracers.clusters, *rays, tracers.scene_min,
+                       tracers.scene_max, cfg["bundle_size"],
+                       cfg["presorted"], cfg["cull"], cfg["k_cand"],
+                       cfg.get("sort_key", "cand0"))
+    return prep, cfg
+
+
+def mm_bound(args, group: int, work: ct.WalkWork, real, kw) -> dict:
+    """walk_bound for the mm instances: the same bytes; the operations are
+    MM_TF32_OPS a (ray, triangle) test on the tensor cores at
+    TF32_OPS_PER_S beside MM_FP32_OPS at FP32_OPS_PER_S (the two pipes run
+    side by side, so the larger time bounds)."""
+    out = walk_bound(args, group, work, real, kw)
+    tests = int(work.ray_lanes)
+    ops_ms = max(tests * MM_TF32_OPS / TF32_OPS_PER_S,
+                 tests * MM_FP32_OPS / FP32_OPS_PER_S) * 1e3
+    bytes_ms = out["bytes"] / HBM_BYTES_PER_S * 1e3
+    out.update(bound_ms=max(bytes_ms, ops_ms),
+               bound_by="bytes" if bytes_ms >= ops_ms else "operations",
+               ops=tests * (MM_TF32_OPS + MM_FP32_OPS))
+    return out
+
+
+def _knob_walk_kernels(scene, renderer, trace_log, name, cls,
+                       occupancy) -> dict:
+    """Each knob instance of the batch's walk (B1 on the BRDF-candidate
+    batch, B2 on visibility) on the default prep's walk inputs, timed with
+    its bound share: {KNOB_KERNELS name: result}. lean and debug_steps
+    against their plain versions (one call each) and the default kernel;
+    depth and mb against the default plain version and kernel; mm against
+    its plain mm version up to rounding ties."""
+    tracers = renderer.tracers
+    real = lane_real(tracers)
+    prep, cfg = _knob_prep(tracers, trace_log, name, cls)
+    group, _ = ct._walk_shape(tracers.tables, cfg["cull"], cfg["group"],
+                              ct.M_SUPER)
+    args = (ct._rays8(prep), prep.cand_idx, prep.cand_t, prep.cand_count,
+            tracers.tables.wald_rows)
+    walk = "walk_occluded" if cls == "shadow" else "walk_closest"
+    kernel, reference = getattr(ct, walk), getattr(ct, f"{walk}_reference")
+    kw = dict(lanes=tracers.tables.lanes)
+    default = kernel(*args, group=group, **kw)
+    default_ms = _median_ms(lambda: kernel(*args, group=group, **kw))
+    # the default plain version, with each bundle's steps and the work
+    (want_steps, work), steps_plain_ms = _timed_call(lambda: reference(
+        *args, group=group, lane_real=real, debug_steps=True))
+    default_bad = int((default != want_steps[0]).sum())
+    if default_bad:
+        raise RuntimeError(f"knobs {walk} ({name}): the default kernel and "
+                           f"its plain version differ on {default_bad} rays")
+    sp, p = tracers.tables.wald_rows.shape[-1], cfg["bundle_size"]
+    out = {}
+    for inst in KNOB_WALKS[walk]:
+        knobs = _knobs_of(inst)
+        got = _rows(kernel(*args, group=group, **kw, **knobs))
+        ms = _median_ms(lambda: kernel(*args, group=group, **kw, **knobs))
+        if inst == "mm":
+            (want_mm, work_mm), plain_ms = _timed_call(lambda: reference(
+                *args, group=group, lane_real=real, mm=True))
+            bound = mm_bound(args, group, work_mm, real, kw)
+            rows = (prep.o, prep.d, prep.tn, prep.tx)
+            if walk == "walk_closest":
+                recs = [ct._decode(c, tracers.tables.meta_rows, prep.o,
+                                   prep.d, prep.tx) for c in (got[0], want_mm)]
+                agree = _knob_agree(scene, renderer, name, rows, *recs,
+                                    mm=True)
+                both = ~recs[0].missed & ~recs[1].missed
+                max_abs = float((recs[0].t - recs[1].t)[both].abs().max())
+            else:
+                agree = _knob_agree(scene, renderer, name, rows,
+                                    got[0] != 0, want_mm != 0, mm=True)
+                max_abs = int((got[0] - want_mm).abs().max())
+            mismatches = int((got[0] != want_mm).sum())
+            extra = dict(ties=agree["ties"], disagree=agree["disagree"],
+                         max_key_tie_rel_t=agree.get("max_key_tie_rel_t",
+                                                     "-"),
+                         vs_default=int((got[0] != default).sum()))
+        else:
+            bound = walk_bound(args, group, work, real, kw)
+            if inst == "lean":
+                want, plain_ms = _timed_call(lambda: reference(
+                    *args, group=group, lean=True))
+                code = ct._lean_code(got[0], got[1], prep, group, sp, p)
+            elif inst == "steps":
+                want, plain_ms = want_steps, steps_plain_ms
+                code = got[0]
+            else:  # depth, mb: the default plain version
+                want, plain_ms = (want_steps[0],), steps_plain_ms
+                code = got[0]
+            mismatches = sum(int((g != w).sum()) for g, w in zip(got, want))
+            max_abs = max(int((g.long() - w.long()).abs().max())
+                          for g, w in zip(got, want))
+            vs_default = int((code != default).sum())
+            extra = dict(vs_default=vs_default,
+                         plain="own" if inst in ("lean", "steps")
+                         else "steps'")
+            if mismatches or vs_default:
+                raise RuntimeError(f"knobs {walk}[{inst}] ({name}): "
+                                   f"{mismatches} values differ from the "
+                                   f"plain version, {vs_default} rays from "
+                                   "the default kernel")
+        share = _bound_share(f"{walk}[{inst}]", name, bound["bound_ms"], ms)
+        occ = occupancy.get(f"{walk}[{inst}]", {}).get(
+            "visibility" if cls == "shadow" else "bounces", {})
+        log("knobs-kernel", kernel=f"{walk}[{inst}]", batch=name,
+            kernel_ms=f"{ms:.3f}", default_ms=f"{default_ms:.3f}",
+            ratio=f"{ms / default_ms:.3f}", plain_ms=f"{plain_ms:.3f}",
+            bound_ms=f"{bound['bound_ms']:.4f}", bound_by=bound["bound_by"],
+            bound_share=f"{share:.3f}", mismatches=mismatches,
+            blocks_per_sm=occ.get("blocks_per_sm"),
+            registers=occ.get("registers"), **extra)
+        # the mm instance's differences are its counted rounding ties
+        out[f"{walk}[{inst}]"] = {"ms": ms, "plain_ms": plain_ms,
+                                  "mismatches": (agree["disagree"]
+                                                 if inst == "mm"
+                                                 else mismatches),
+                                  "max_abs_err": max_abs, **bound}
+    return out
+
+
+def _knob_cap_kernel(renderer, trace_log, name, cls) -> dict:
+    """B4 with the cap on the batch's default prep's rays: the union table
+    and each ray's cap against bundle_union_reference(cap=True), bit for
+    bit; timed, with its bound (cull_bound plus the cap's bytes and one
+    max a test)."""
+    tracers = renderer.tracers
+    prep, cfg = _knob_prep(tracers, trace_log, name, cls)
+    args = (ct._rays8(prep), tracers.clusters.aabb_min,
+            tracers.clusters.aabb_max, cfg["bundle_size"])
+    got = cull.bundle_union(*args, cap=True)
+    want, plain_ms = _timed_call(lambda: cull.bundle_union_reference(
+        *args, cap=True))
+    ms = _median_ms(lambda: cull.bundle_union(*args, cap=True))
+    default_ms = _median_ms(lambda: cull.bundle_union(*args))
+    mismatches = sum(int((g.view(torch.int32) != w.view(torch.int32)).sum())
+                     for g, w in zip(got, want))
+    bound = cull_bound(args, got[0])
+    nbytes = bound["bytes"] + got[1].numel() * 4
+    ops = bound["live_rays"] * args[1].shape[0] * (SLAB_TEST_OPS + 1)
+    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    ops_ms = ops / FP32_OPS_PER_S * 1e3
+    bound.update(bytes=nbytes, ops=ops, bound_ms=max(bytes_ms, ops_ms),
+                 bound_by="bytes" if bytes_ms >= ops_ms else "operations")
+    share = _bound_share("bundle_union[cap]", name, bound["bound_ms"], ms)
+    cap = want[1]
+    log("knobs-kernel", kernel="bundle_union[cap]", batch=name,
+        kernel_ms=f"{ms:.3f}", default_ms=f"{default_ms:.3f}",
+        ratio=f"{ms / default_ms:.3f}", plain_ms=f"{plain_ms:.3f}",
+        bound_ms=f"{bound['bound_ms']:.4f}", bound_by=bound["bound_by"],
+        bound_share=f"{share:.3f}", mismatches=mismatches,
+        rays_capped=int(torch.isfinite(cap).sum()),
+        rays_overlapping_none=int(torch.isneginf(cap).sum()))
+    if mismatches:
+        raise RuntimeError(f"bundle_union[cap] ({name}): kernel and plain "
+                           f"version differ on {mismatches} values")
+    return {"ms": ms, "plain_ms": plain_ms, "mismatches": mismatches,
+            "max_abs_err": 0, **bound}
+
+
+def phase_knobs(scene, renderer, trace_log: TraceLog,
+                occupancy: dict) -> tuple[dict, dict]:
+    """The walk's function-level knobs (11c in the module docstring) on
+    the flagship DI BRDF-candidate and the DI visibility batch: the knob
+    traces (launches counted from 0), then every knob instance's kernel
+    check. Returns (launches, {KNOB_KERNELS name: {batch: result}})."""
+    launches = _knob_traces(scene, renderer, trace_log)
+    classes = {k: {} for k in KNOB_KERNELS}
+    for name, (cls, _) in MODE_BATCHES.items():
+        for k, res in _knob_walk_kernels(scene, renderer, trace_log, name,
+                                         cls, occupancy).items():
+            classes[k][name] = res
+        classes["bundle_union[cap]"][name] = _knob_cap_kernel(
+            renderer, trace_log, name, cls)
+    return launches, classes
 
 
 def phase_sc_frames(scene, view, g_di, di_imgs) -> dict:
@@ -3171,8 +3608,11 @@ def run(dev: torch.device, smi: str, pool, sky_job,
     # after the EXR worker is done: the modes' traces are timed on the
     # host's clock
     classes.update(phase_tracer_modes(scene, renderer, trace_log))
-    trace_log.traces.clear()
     paths = {}
+    paths["knob_traces"], knob_classes = phase_knobs(scene, renderer,
+                                                     trace_log, occupancy)
+    classes.update(knob_classes)
+    trace_log.traces.clear()
     paths["di_frames"], di_imgs = phase_di_frames(scene, renderer, g_di,
                                                   trace_log)
     phase_di_breakdown(scene, renderer, g_di)
@@ -3230,10 +3670,11 @@ def run(dev: torch.device, smi: str, pool, sky_job,
     # each kernel's launches on its main path: the flagship frames, the DI
     # frames for the any-hit walk (the flagship frame casts no visibility
     # ray), the pairs frames for B5 and B6, the "sc" DI frame for the
-    # supercluster walks
+    # supercluster walks, the knob traces for the knob instances
     main_path = {name: "di_frames" if name == "walk_occluded"
                  else "pairs_frames" if name in PAIR_KERNELS
                  else "sc_frames" if name in SC_WALKS
+                 else "knob_traces" if name in KNOB_KERNELS
                  else "flagship_frames" for name in KERNELS}
     log("run", wall_seconds=f"{time.perf_counter() - t_start:.1f}")
     print(smi, flush=True)

@@ -300,6 +300,11 @@ def main(argv=None) -> int:
                            "(torch.cuda.is_available() is false); pass "
                            "--device cpu to render on the CPU")
 
+    # the build cache (JAX's compile cache): the kernels and the cluster
+    # builder compile at first use into build/ of a writable checkout, or
+    # a user-level cache for an installed package
+    from raytracer2_tpu_torch.compile_cache import enable_compile_cache
+    enable_compile_cache()
     from raytracer2_tpu_torch.params import default_gconst
     from raytracer2_tpu_torch.render.frame import (
         create_renderer, init_frame_state, render_frame)

@@ -51,6 +51,16 @@
 // Supercluster mode (rt2_walk_occluded_sc, the TPU kernel's sc_m > 0
 // branch) walks each supercluster's members as one group, as
 // bundle_walk.cu does; the exit is tested before each supercluster.
+//
+// The TPU walk's knobs (occluded_bundle_pallas's depth, mb, debug_steps,
+// mm) as in bundle_walk.cu: the ring's depth a template parameter (1-4),
+// mb bundles a block in turn, each bundle's steps as one more output, and
+// the tensor-core form (walk_occluded_kernel<false, kDepth, true>): a
+// warp's 32 rays against 8 lanes a tile (walk_common.cuh::wald_tile_mm),
+// each thread folding its 4 rays' hits over its own lanes and the 4
+// threads of a ray meeting where a group starts (the exit: done rays
+// leave the max) and at the end; a warp whose rays are all done skips its
+// tiles. Held to its plain version only up to rounding ties.
 
 #include <climits>
 
@@ -60,9 +70,8 @@ namespace {
 
 using rt2::kChunks;
 using rt2::kMaxBundle;
-using rt2::kRing;
+using rt2::WalkArgs;
 
-constexpr int kMinBlocks = 4;  // of kMaxBundle threads: <= 64 registers
 constexpr int kLaneStep = 4;   // lanes tested together before a hit ends
 
 // Tests ray r against the first `lanes` lanes of a slot until the first
@@ -89,41 +98,32 @@ __device__ __forceinline__ bool blocks_ray(const rt2::Ray& r,
   return false;
 }
 
-// kSc: the supercluster walk, as in bundle_walk.cu.
-template <bool kSc>
-__global__ void __launch_bounds__(kMaxBundle, kMinBlocks)
-walk_occluded_kernel(const float* __restrict__ rays8,
-                     const int* __restrict__ cand_idx,
-                     const float* __restrict__ cand_t,
-                     const int* __restrict__ cand_count,
-                     const float4* __restrict__ coeffs,
-                     const int* __restrict__ lane_count,
-                     const int* __restrict__ order,
-                     int* __restrict__ out_blocked, int k, int s_pad,
-                     int group, int sc_m, int n_clusters) {
-  extern __shared__ float4 ring[];  // [kRing][s_pad * kChunks]
-  __shared__ int slot_lanes[kRing];
-  __shared__ int warp_worst[2][kMaxBundle / 32];
-
+// One bundle, one thread per ray (the lane test).
+template <bool kSc, int kDepth>
+__device__ __forceinline__ void occlude_lanes(
+    const WalkArgs& a, int bundle, float4* ring, int* slot_lanes,
+    int (*warp_worst)[kMaxBundle / 32]) {
   const int tid = threadIdx.x;
   const int n_warps = blockDim.x >> 5;
-  const int bundle = order[blockIdx.x];
   const long long ray = static_cast<long long>(bundle) * blockDim.x + tid;
-  const rt2::Ray r = rt2::load_ray(rays8, ray);
+  const rt2::Ray r = rt2::load_ray(a.rays8, ray);
 
   // padded rays carry t_max <= t_min and are done from the start
   bool done = r.tx <= r.tn;
 
   // ring entries: candidates, or in supercluster mode their members
-  const int n_cand = kSc ? cand_count[bundle] * sc_m : cand_count[bundle];
-  const int* ci_row = cand_idx + static_cast<long long>(bundle) * k;
-  const float* ct_row = cand_t + static_cast<long long>(bundle) * k;
-  rt2::ClusterRing<kSc> cr{ring, slot_lanes, coeffs, lane_count, ci_row,
-                           n_cand, s_pad, sc_m, n_clusters};
+  const int n_cand =
+      kSc ? a.cand_count[bundle] * a.sc_m : a.cand_count[bundle];
+  const int* ci_row = a.cand_idx + static_cast<long long>(bundle) * a.k;
+  const float* ct_row = a.cand_t + static_cast<long long>(bundle) * a.k;
+  rt2::ClusterRing<kSc, kDepth> cr{ring, slot_lanes, a.coeffs, a.lane_count,
+                                   ci_row, n_cand, a.s_pad, a.sc_m,
+                                   a.n_clusters};
   cr.prime();
 
-  int buf = 0;  // warp_worst half of this group start
-  int g = 0;    // j % group
+  int buf = 0;    // warp_worst half of this group start
+  int g = 0;      // j % group
+  int steps = 0;  // groups started
   for (int j = 0; j < n_cand; ++j) {
     if (g == 0) {
       const float live_tx = done ? -INFINITY : r.tx;
@@ -131,25 +131,162 @@ walk_occluded_kernel(const float* __restrict__ rays8,
           0xffffffffu, rt2::float_order(__float_as_int(live_tx)));
       if ((tid & 31) == 0) warp_worst[buf][tid >> 5] = w;
     }
-    rt2::cp_async_wait<kRing - 2>();  // this thread's copies of cluster j
-    // cluster j is in its slot, every thread is done with cluster j - 1's
-    // slot, and the warps' maxima are written
+    rt2::ring_wait<kDepth>();  // this thread's copies of cluster j
+    // cluster j is in its slot (depth > 1), every thread is done with
+    // cluster j - 1's slot, and the warps' maxima are written
     __syncthreads();
     if (g == 0) {
       const bool on = rt2::walk_goes_on(warp_worst[buf], n_warps,
-                                        ct_row + (kSc ? j / sc_m : j));
+                                        ct_row + (kSc ? j / a.sc_m : j));
       buf ^= 1;  // the next group start writes the other half
       if (!on) break;
+      ++steps;
     }
     cr.refill(j);
+    rt2::ring_ready<kDepth>();
 
     if (!done) done = blocks_ray(r, cr.tile(j), cr.lanes(j));
-    g = g + 1 == group ? 0 : g + 1;
+    g = g + 1 == a.group ? 0 : g + 1;
   }
-  rt2::cp_async_wait<0>();  // no copy outlives the block
+  rt2::cp_async_wait<0>();  // no copy outlives the bundle
 
-  out_blocked[ray] = (done && r.tx > r.tn) ? 1 : 0;
+  a.out[ray] = (done && r.tx > r.tn) ? 1 : 0;
+  if (a.steps != nullptr && tid == 0) a.steps[bundle] = steps;
 }
+
+// Whether any of the 4 threads that hold a ray saw it blocked.
+__device__ __forceinline__ bool quad_any(bool hit) {
+  int h = hit;
+  h |= __shfl_xor_sync(0xffffffffu, h, 1);
+  h |= __shfl_xor_sync(0xffffffffu, h, 2);
+  return h != 0;
+}
+
+// One bundle in the tensor-core form (walk_common.cuh::wald_tile_mm).
+template <int kDepth>
+__device__ __forceinline__ void occlude_mm(const WalkArgs& a, int bundle,
+                                           float4* ring, int* slot_lanes,
+                                           int (*warp_worst)[kMaxBundle / 32]) {
+  const int tid = threadIdx.x;
+  const int n_warps = blockDim.x >> 5;
+  const int tig = tid & 3;
+  const rt2::MmRays m = rt2::load_mm_rays(
+      a.rays8, static_cast<long long>(bundle) * blockDim.x + (tid & ~31));
+  // per ray q: blocked by one of this thread's lanes (padding: from the
+  // start)
+  bool done_q[4];
+#pragma unroll
+  for (int q = 0; q < 4; ++q) done_q[q] = m.tx[q] <= m.tn[q];
+
+  const int n_cand = a.cand_count[bundle];
+  const int* ci_row = a.cand_idx + static_cast<long long>(bundle) * a.k;
+  const float* ct_row = a.cand_t + static_cast<long long>(bundle) * a.k;
+  rt2::ClusterRing<false, kDepth> cr{ring, slot_lanes, a.coeffs,
+                                     a.lane_count, ci_row, n_cand, a.s_pad,
+                                     0, 0};
+  cr.prime();
+
+  int buf = 0, g = 0, steps = 0;
+  bool warp_done = false;  // every ray of the warp blocked
+  for (int j = 0; j < n_cand; ++j) {
+    if (g == 0) {
+      int w = INT_MIN;
+      bool all = true;
+#pragma unroll
+      for (int q = 0; q < 4; ++q) {
+        done_q[q] = quad_any(done_q[q]);
+        all = all && done_q[q];
+        const float live_tx = done_q[q] ? -INFINITY : m.tx[q];
+        w = max(w, rt2::float_order(__float_as_int(live_tx)));
+      }
+      w = __reduce_max_sync(0xffffffffu, w);
+      warp_done = __all_sync(0xffffffffu, all);
+      if ((tid & 31) == 0) warp_worst[buf][tid >> 5] = w;
+    }
+    rt2::ring_wait<kDepth>();
+    __syncthreads();
+    if (g == 0) {
+      const bool on = rt2::walk_goes_on(warp_worst[buf], n_warps, ct_row + j);
+      buf ^= 1;
+      if (!on) break;
+      ++steps;
+    }
+    cr.refill(j);
+    rt2::ring_ready<kDepth>();
+
+    if (!warp_done) {
+      const float4* tile = cr.tile(j);
+      const int lanes = cr.lanes(j);
+      for (int n0 = 0; n0 < lanes; n0 += 8) {
+        rt2::Tf32Pair w[3];
+        rt2::load_mm_lane(tile, n0, w);
+#pragma unroll
+        for (int mt = 0; mt < 2; ++mt) {
+          float acc[6][4];
+          rt2::wald_tile_mm(acc, m.o[2 * mt], m.o[2 * mt + 1], m.d[2 * mt],
+                            m.d[2 * mt + 1], w);
+#pragma unroll
+          for (int i = 0; i < 4; ++i) {
+            const int q = 2 * mt + (i >> 1);
+            const int l = n0 + 2 * tig + (i & 1);
+            float t;
+            const bool hit =
+                rt2::wald_mm_hit(acc[0][i], acc[1][i], acc[2][i], acc[3][i],
+                                 acc[4][i], acc[5][i], m.tn[q], t) &&
+                t < m.tx[q] && l < lanes;
+            done_q[q] = done_q[q] || hit;
+          }
+        }
+      }
+    }
+    g = g + 1 == a.group ? 0 : g + 1;
+  }
+  rt2::cp_async_wait<0>();
+
+  // thread 4 g + c writes ray q = c of its four (selects, not an indexed
+  // read, which would put the arrays in local memory)
+  bool blocked = false;
+  long long ray = m.ray[0];
+#pragma unroll
+  for (int q = 0; q < 4; ++q) {
+    const bool d = quad_any(done_q[q]) && m.tx[q] > m.tn[q];
+    if (tig == q) {
+      blocked = d;
+      ray = m.ray[q];
+    }
+  }
+  a.out[ray] = blocked ? 1 : 0;
+  if (a.steps != nullptr && tid == 0) a.steps[bundle] = steps;
+}
+
+// kSc: the supercluster walk, as in bundle_walk.cu; kDepth: the ring's
+// slots; kMm: the tensor-core form (not with kSc). Blocks of kMaxBundle
+// threads per SM: 4 at <= 64 registers, 2 for the tensor-core form.
+template <bool kSc, int kDepth, bool kMm>
+__global__ void __launch_bounds__(kMaxBundle, kMm ? 2 : 4)
+walk_occluded_kernel(const WalkArgs a) {
+  extern __shared__ float4 ring[];  // [kDepth][s_pad * kChunks]
+  __shared__ int slot_lanes[kDepth];
+  __shared__ int warp_worst[2][kMaxBundle / 32];
+  for (int q = 0; q < a.mb; ++q) {
+    const int idx = blockIdx.x + q * gridDim.x;
+    if (idx >= a.n_bundles) break;
+    if (q > 0) __syncthreads();  // the last bundle is done with the ring
+    if constexpr (kMm) {
+      occlude_mm<kDepth>(a, a.order[idx], ring, slot_lanes, warp_worst);
+    } else {
+      occlude_lanes<kSc, kDepth>(a, a.order[idx], ring, slot_lanes,
+                                 warp_worst);
+    }
+  }
+}
+
+template <bool kSc, int kDepth, bool kMm>
+struct OccludedWalk {
+  static rt2::WalkKernel get() {
+    return walk_occluded_kernel<kSc, kDepth, kMm>;
+  }
+};
 
 }  // namespace
 
@@ -158,44 +295,35 @@ extern "C" {
 // rays8 [n_bundles*p, 8] f32 (ox oy oz dx dy dz t_min t_max), cand_idx and
 // cand_t [n_bundles, k] (i32 / f32, nearest first), cand_count [n_bundles]
 // i32, coeffs [C, s_pad, 12] f32 and lane_count [C] i32 (WalkLanes),
-// order [n_bundles] i32 scratch, out_blocked [n_bundles*p] i32. Launches
-// the bundle order and the walk on `stream` and returns cudaGetLastError()
-// (0 on success).
+// order [n_bundles] i32 scratch, out [n_bundles*p] i32 (blocked), aux
+// unused (null), steps [n_bundles] i32 (debug_steps; or null). sc_m,
+// n_clusters, depth, mb and mm as rt2_walk_closest's. Launches the bundle
+// order and the walk on `stream` and returns cudaGetLastError() (0 on
+// success).
 int rt2_walk_occluded(const float* rays8, const int* cand_idx,
                       const float* cand_t, const int* cand_count,
                       const float* coeffs, const int* lane_count, int* order,
-                      int* out_blocked, int n_bundles, int p, int k,
-                      int s_pad, int group, void* stream) {
-  return rt2::launch_walk(walk_occluded_kernel<false>, rays8, cand_idx,
-                          cand_t, cand_count, coeffs, lane_count, order,
-                          out_blocked, n_bundles, p, k, s_pad, group, 0, 0,
-                          stream);
+                      int* out, int* aux, int* steps, int n_bundles, int p,
+                      int k, int s_pad, int group, int sc_m, int n_clusters,
+                      int depth, int mb, int mm, void* stream) {
+  if (aux != nullptr) return static_cast<int>(cudaErrorInvalidValue);
+  const WalkArgs a{rays8, cand_idx, cand_t, cand_count,
+                   reinterpret_cast<const float4*>(coeffs), lane_count,
+                   order, out, nullptr, steps, n_bundles, k, s_pad, group,
+                   sc_m, n_clusters, mb};
+  return rt2::launch_walk(
+      rt2::pick_walk<OccludedWalk>(sc_m > 0, depth, mm != 0), depth, a, p,
+      stream);
 }
 
-// The supercluster walk: as rt2_walk_occluded, with cand_idx holding
-// supercluster ids of sc_m clusters each (group == sc_m) and n_clusters
-// the clusters of coeffs and lane_count.
-int rt2_walk_occluded_sc(const float* rays8, const int* cand_idx,
-                         const float* cand_t, const int* cand_count,
-                         const float* coeffs, const int* lane_count,
-                         int* order, int* out_blocked, int n_bundles, int p,
-                         int k, int s_pad, int group, int sc_m,
-                         int n_clusters, void* stream) {
-  return rt2::launch_walk(walk_occluded_kernel<true>, rays8, cand_idx,
-                          cand_t, cand_count, coeffs, lane_count, order,
-                          out_blocked, n_bundles, p, k, s_pad, group, sc_m,
-                          n_clusters, stream);
-}
-
-// out[4]: resident blocks per SM at p threads a block and s_pad lanes a
-// cluster, p, registers per thread, shared bytes per block. Returns a
-// cudaError_t (0 on success).
-int rt2_walk_occluded_occupancy(int p, int s_pad, int* out) {
-  return rt2::walk_occupancy(walk_occluded_kernel<false>, p, s_pad, out);
-}
-
-int rt2_walk_occluded_sc_occupancy(int p, int s_pad, int* out) {
-  return rt2::walk_occupancy(walk_occluded_kernel<true>, p, s_pad, out);
+// out[4]: resident blocks per SM of the instance (sc, depth, mm) at p
+// threads a block and s_pad lanes a cluster, p, registers per thread,
+// shared bytes per block. Returns a cudaError_t (0 on success).
+int rt2_walk_occluded_occupancy(int p, int s_pad, int sc, int depth, int mm,
+                                int* out) {
+  return rt2::walk_occupancy(
+      rt2::pick_walk<OccludedWalk>(sc != 0, depth, mm != 0), depth, p, s_pad,
+      out);
 }
 
 }  // extern "C"

@@ -82,6 +82,32 @@
 // C stage and test nothing (the TPU's zero rows never hit). The member's
 // slot g * S_pad + lane and its cluster s * sc_m + g give JAX's winner
 // code.
+//
+// The function-level knobs of the TPU walk (closest_hit_bundle_pallas's
+// depth, mb, lean, debug_steps, mm), none of which changes a hit:
+// - depth: the ring's slot count, a template parameter (kDepth 1-4; 4 is
+//   the card's default, the TPU's was 2). At depth 1 no copy is in flight
+//   while a cluster is tested, and each cluster takes two barriers;
+// - mb: the bundles one block walks in turn (block i: bundles i, i + B/mb,
+//   ... of the longest-first order, so long walks stay spread over the
+//   blocks); the ring and the exit buffer start afresh for each;
+// - lean: the output is the best key and the winning step (-1 on a miss)
+//   instead of the code; the host recovers the cluster from the step and
+//   the key's slot with one gather into the candidate table;
+// - debug_steps: each bundle's steps (groups started, early exit
+//   included) as one more output;
+// - mm (walk_closest_kernel<false, kDepth, true>): the six affines run on
+//   the tensor cores, 3xTF32 mma.sync tiles of 16 rays by 8 lanes
+//   (walk_common.cuh::wald_tile_mm). A thread then holds 4 rays x 2 lanes
+//   of a tile; it keeps per ray the least key and the candidate that set
+//   it over its own lanes, and the 4 threads of a ray meet in 2 shuffles
+//   where a group starts (the exit) and at the end. The products are not
+//   float32's own roundings, so this form is held to its plain version
+//   (ops/cuda_traverse.py::hit_test_mm) only up to rounding ties. What
+//   bounds it: per (ray, lane) 18/128 of an mma a warp (0.14 issue
+//   slots) beside a divide and ~12 FP32 instructions, against the ~41 of
+//   the lane test; the TF32 splits of the coefficients are made once per
+//   8 lanes for 32 rays.
 
 #include <climits>
 
@@ -93,37 +119,41 @@ using rt2::cp_async_wait;
 using rt2::float_order;
 using rt2::kChunks;
 using rt2::kMaxBundle;
-using rt2::kRing;
+using rt2::WalkArgs;
 
 constexpr int kSlotMask = (1 << 10) - 1;
 constexpr int kMissCode = 0x7FFFFFFF;
-constexpr int kMinBlocks = 4;  // of kMaxBundle threads: <= 64 registers
 
-// kSc: the supercluster walk (cull="sc", group == sc_m): candidate s of
-// the list is the clusters s*sc_m .. s*sc_m + sc_m - 1, the ring walks them
-// as group members (ClusterRing<true>), and the exit test where a group
-// starts reads supercluster s's entry distance. A member's slot is
-// g * S_pad + lane, JAX's SC-mode slot, and its cluster decodes the winner.
-template <bool kSc>
-__global__ void __launch_bounds__(kMaxBundle, kMinBlocks)
-walk_closest_kernel(const float* __restrict__ rays8,
-                    const int* __restrict__ cand_idx,
-                    const float* __restrict__ cand_t,
-                    const int* __restrict__ cand_count,
-                    const float4* __restrict__ coeffs,
-                    const int* __restrict__ lane_count,
-                    const int* __restrict__ order,
-                    int* __restrict__ out_code, int k, int s_pad,
-                    int group, int sc_m, int n_clusters) {
-  extern __shared__ float4 ring[];  // [kRing][s_pad * kChunks]
-  __shared__ int slot_lanes[kRing];
-  __shared__ int warp_worst[2][kMaxBundle / 32];
+// The bundle's result for one ray: under lean (a.aux set) the best key and
+// the winning step, else the code cluster * S_pad + lane (kMissCode on a
+// miss). best_j is the ring entry whose lane set best_key, -1 if none.
+template <bool kSc, int kDepth>
+__device__ __forceinline__ void write_ray(const WalkArgs& a,
+                                          const rt2::ClusterRing<kSc, kDepth>& cr,
+                                          long long ray, int best_key,
+                                          int best_j) {
+  if (a.aux != nullptr) {
+    a.out[ray] = best_key;
+    a.aux[ray] = best_j >= 0 ? best_j / a.group : -1;
+    return;
+  }
+  int code = kMissCode;
+  if (best_j >= 0) {
+    const int lane = (best_key & kSlotMask) - (best_j % a.group) * a.s_pad;
+    code = cr.cluster(best_j) * a.s_pad + lane;
+  }
+  a.out[ray] = code;
+}
 
+// One bundle, one thread per ray (the lane test).
+template <bool kSc, int kDepth>
+__device__ __forceinline__ void walk_lanes(const WalkArgs& a, int bundle,
+                                           float4* ring, int* slot_lanes,
+                                           int (*warp_worst)[kMaxBundle / 32]) {
   const int tid = threadIdx.x;
   const int n_warps = blockDim.x >> 5;
-  const int bundle = order[blockIdx.x];
   const long long ray = static_cast<long long>(bundle) * blockDim.x + tid;
-  const rt2::Ray r = rt2::load_ray(rays8, ray);
+  const rt2::Ray r = rt2::load_ray(a.rays8, ray);
 
   // init from t_max: IEEE bits are monotone for t >= 0, dead rays
   // (t_max < 0) get a negative key no hit can beat; the low bits are set
@@ -132,36 +162,41 @@ walk_closest_kernel(const float* __restrict__ rays8,
   int best_j = -1;  // the candidate whose lane set best_key
 
   // ring entries: candidates, or in supercluster mode their members
-  const int n_cand = kSc ? cand_count[bundle] * sc_m : cand_count[bundle];
-  const int* ci_row = cand_idx + static_cast<long long>(bundle) * k;
-  const float* ct_row = cand_t + static_cast<long long>(bundle) * k;
-  rt2::ClusterRing<kSc> cr{ring, slot_lanes, coeffs, lane_count, ci_row,
-                           n_cand, s_pad, sc_m, n_clusters};
+  const int n_cand =
+      kSc ? a.cand_count[bundle] * a.sc_m : a.cand_count[bundle];
+  const int* ci_row = a.cand_idx + static_cast<long long>(bundle) * a.k;
+  const float* ct_row = a.cand_t + static_cast<long long>(bundle) * a.k;
+  rt2::ClusterRing<kSc, kDepth> cr{ring, slot_lanes, a.coeffs, a.lane_count,
+                                   ci_row, n_cand, a.s_pad, a.sc_m,
+                                   a.n_clusters};
   cr.prime();
 
-  int buf = 0;  // warp_worst half of this group start
-  int g = 0;    // j % group
+  int buf = 0;    // warp_worst half of this group start
+  int g = 0;      // j % group
+  int steps = 0;  // groups started
   for (int j = 0; j < n_cand; ++j) {
     if (g == 0) {
       const int w = __reduce_max_sync(0xffffffffu,
                                       float_order(best_key | kSlotMask));
       if ((tid & 31) == 0) warp_worst[buf][tid >> 5] = w;
     }
-    cp_async_wait<kRing - 2>();  // this thread's copies of cluster j
-    // cluster j is in its slot, every thread is done with cluster j - 1's
-    // slot, and the warps' maxima are written
+    rt2::ring_wait<kDepth>();  // this thread's copies of cluster j
+    // cluster j is in its slot (depth > 1), every thread is done with
+    // cluster j - 1's slot, and the warps' maxima are written
     __syncthreads();
     if (g == 0) {
       const bool on = rt2::walk_goes_on(warp_worst[buf], n_warps,
-                                        ct_row + (kSc ? j / sc_m : j));
+                                        ct_row + (kSc ? j / a.sc_m : j));
       buf ^= 1;  // the next group start writes the other half
       if (!on) break;
+      ++steps;
     }
     cr.refill(j);
+    rt2::ring_ready<kDepth>();
 
     const float4* tile = cr.tile(j);
     const int lanes = cr.lanes(j);
-    const int s0 = g * s_pad;
+    const int s0 = g * a.s_pad;
     const int before = best_key;
 #pragma unroll 4
     for (int l = 0; l < lanes; ++l) {
@@ -173,17 +208,165 @@ walk_closest_kernel(const float* __restrict__ rays8,
       if (hit) best_key = min(best_key, key);
     }
     if (best_key != before) best_j = j;
-    g = g + 1 == group ? 0 : g + 1;
+    g = g + 1 == a.group ? 0 : g + 1;
   }
-  cp_async_wait<0>();  // no copy outlives the block
+  cp_async_wait<0>();  // no copy outlives the bundle
 
-  int code = kMissCode;
-  if (best_j >= 0) {
-    const int lane = (best_key & kSlotMask) - (best_j % group) * s_pad;
-    code = cr.cluster(best_j) * s_pad + lane;
-  }
-  out_code[ray] = code;
+  write_ray(a, cr, ray, best_key, best_j);
+  if (a.steps != nullptr && tid == 0) a.steps[bundle] = steps;
 }
+
+// The least key of ray q over the 4 threads that hold it.
+__device__ __forceinline__ int quad_min(int key) {
+  key = min(key, __shfl_xor_sync(0xffffffffu, key, 1));
+  return min(key, __shfl_xor_sync(0xffffffffu, key, 2));
+}
+
+// One bundle in the tensor-core form (walk_common.cuh::wald_tile_mm): a
+// warp tests its 32 rays against each cluster 8 lanes at a time.
+template <int kDepth>
+__device__ __forceinline__ void walk_mm(const WalkArgs& a, int bundle,
+                                        float4* ring, int* slot_lanes,
+                                        int (*warp_worst)[kMaxBundle / 32]) {
+  const int tid = threadIdx.x;
+  const int n_warps = blockDim.x >> 5;
+  const int tig = tid & 3;
+  const rt2::MmRays m = rt2::load_mm_rays(
+      a.rays8, static_cast<long long>(bundle) * blockDim.x + (tid & ~31));
+  // per ray q: the least key over this thread's lanes and its entry
+  int key_q[4], j_q[4];
+#pragma unroll
+  for (int q = 0; q < 4; ++q) {
+    key_q[q] = (__float_as_int(m.tx[q]) & ~kSlotMask) | kSlotMask;
+    j_q[q] = -1;
+  }
+
+  const int n_cand = a.cand_count[bundle];
+  const int* ci_row = a.cand_idx + static_cast<long long>(bundle) * a.k;
+  const float* ct_row = a.cand_t + static_cast<long long>(bundle) * a.k;
+  rt2::ClusterRing<false, kDepth> cr{ring, slot_lanes, a.coeffs,
+                                     a.lane_count, ci_row, n_cand, a.s_pad,
+                                     0, 0};
+  cr.prime();
+
+  int buf = 0, g = 0, steps = 0;
+  for (int j = 0; j < n_cand; ++j) {
+    if (g == 0) {
+      int w = INT_MIN;
+#pragma unroll
+      for (int q = 0; q < 4; ++q) {
+        w = max(w, float_order(quad_min(key_q[q]) | kSlotMask));
+      }
+      w = __reduce_max_sync(0xffffffffu, w);
+      if ((tid & 31) == 0) warp_worst[buf][tid >> 5] = w;
+    }
+    rt2::ring_wait<kDepth>();
+    __syncthreads();
+    if (g == 0) {
+      const bool on = rt2::walk_goes_on(warp_worst[buf], n_warps, ct_row + j);
+      buf ^= 1;
+      if (!on) break;
+      ++steps;
+    }
+    cr.refill(j);
+    rt2::ring_ready<kDepth>();
+
+    const float4* tile = cr.tile(j);
+    const int lanes = cr.lanes(j);
+    const int s0 = g * a.s_pad;
+    for (int n0 = 0; n0 < lanes; n0 += 8) {
+      rt2::Tf32Pair w[3];
+      rt2::load_mm_lane(tile, n0, w);
+#pragma unroll
+      for (int mt = 0; mt < 2; ++mt) {
+        float acc[6][4];
+        rt2::wald_tile_mm(acc, m.o[2 * mt], m.o[2 * mt + 1], m.d[2 * mt],
+                          m.d[2 * mt + 1], w);
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          const int q = 2 * mt + (i >> 1);
+          const int l = n0 + 2 * tig + (i & 1);
+          float t;
+          const bool hit = rt2::wald_mm_hit(acc[0][i], acc[1][i], acc[2][i],
+                                            acc[3][i], acc[4][i], acc[5][i],
+                                            m.tn[q], t) && l < lanes;
+          const int key = (__float_as_int(t) & ~kSlotMask) | (s0 + l);
+          if (hit && key < key_q[q]) {
+            key_q[q] = key;
+            j_q[q] = j;
+          }
+        }
+      }
+    }
+    g = g + 1 == a.group ? 0 : g + 1;
+  }
+  cp_async_wait<0>();
+
+  // the 4 threads of a ray meet: the least key, and the entry of the
+  // thread that holds it (a lane's slot belongs to one thread, so equal
+  // keys come from one thread)
+#pragma unroll
+  for (int q = 0; q < 4; ++q) {
+#pragma unroll
+    for (int x = 1; x <= 2; x <<= 1) {
+      const int ok = __shfl_xor_sync(0xffffffffu, key_q[q], x);
+      const int oj = __shfl_xor_sync(0xffffffffu, j_q[q], x);
+      if (ok < key_q[q]) {
+        key_q[q] = ok;
+        j_q[q] = oj;
+      }
+    }
+  }
+  // thread 4 g + c writes ray q = c of its four (selects, not an indexed
+  // read, which would put the arrays in local memory)
+  int key = key_q[0], best_j = j_q[0];
+  long long ray = m.ray[0];
+#pragma unroll
+  for (int q = 1; q < 4; ++q) {
+    if (tig == q) {
+      key = key_q[q];
+      best_j = j_q[q];
+      ray = m.ray[q];
+    }
+  }
+  write_ray(a, cr, ray, key, best_j);
+  if (a.steps != nullptr && tid == 0) a.steps[bundle] = steps;
+}
+
+// kSc: the supercluster walk (cull="sc", group == sc_m): candidate s of
+// the list is the clusters s*sc_m .. s*sc_m + sc_m - 1, the ring walks them
+// as group members (ClusterRing<true>), and the exit test where a group
+// starts reads supercluster s's entry distance. A member's slot is
+// g * S_pad + lane, JAX's SC-mode slot, and its cluster decodes the winner.
+// kDepth: the ring's slots; kMm: the tensor-core form (not with kSc).
+// Blocks of kMaxBundle threads per SM: the lane test fits in 64 registers
+// (4), the tensor-core form keeps its A fragments and 24 accumulators in
+// 128 (2).
+template <bool kSc, int kDepth, bool kMm>
+__global__ void __launch_bounds__(kMaxBundle, kMm ? 2 : 4)
+walk_closest_kernel(const WalkArgs a) {
+  extern __shared__ float4 ring[];  // [kDepth][s_pad * kChunks]
+  __shared__ int slot_lanes[kDepth];
+  __shared__ int warp_worst[2][kMaxBundle / 32];
+  for (int q = 0; q < a.mb; ++q) {
+    const int idx = blockIdx.x + q * gridDim.x;
+    if (idx >= a.n_bundles) break;
+    if (q > 0) __syncthreads();  // the last bundle is done with the ring
+    if constexpr (kMm) {
+      walk_mm<kDepth>(a, a.order[idx], ring, slot_lanes, warp_worst);
+    } else {
+      walk_lanes<kSc, kDepth>(a, a.order[idx], ring, slot_lanes,
+                              warp_worst);
+    }
+  }
+}
+
+template <bool kSc, int kDepth, bool kMm>
+struct ClosestWalk {
+  static rt2::WalkKernel get() {
+    return walk_closest_kernel<kSc, kDepth, kMm>;
+  }
+};
 
 }  // namespace
 
@@ -192,43 +375,37 @@ extern "C" {
 // rays8 [n_bundles*p, 8] f32 (ox oy oz dx dy dz t_min t_max), cand_idx and
 // cand_t [n_bundles, k] (i32 / f32, nearest first), cand_count [n_bundles]
 // i32, coeffs [C, s_pad, 12] f32 and lane_count [C] i32 (WalkLanes),
-// order [n_bundles] i32 scratch, out_code [n_bundles*p] i32. Launches the
-// bundle order and the walk on `stream` and returns cudaGetLastError() (0
-// on success).
+// order [n_bundles] i32 scratch, out [n_bundles*p] i32 (the code, or
+// under lean the best key), aux [n_bundles*p] i32 (lean: the winning
+// step; null otherwise), steps [n_bundles] i32 (debug_steps; or null).
+// sc_m > 0: a supercluster walk (cand_idx holds supercluster ids of sc_m
+// clusters each, group == sc_m, n_clusters the clusters of coeffs). depth
+// 1-4: the ring's slots; mb >= 1: bundles a block walks; mm: the
+// tensor-core form (not with sc_m > 0). Launches the bundle order and the
+// walk on `stream` and returns cudaGetLastError() (0 on success).
 int rt2_walk_closest(const float* rays8, const int* cand_idx,
                      const float* cand_t, const int* cand_count,
                      const float* coeffs, const int* lane_count, int* order,
-                     int* out_code, int n_bundles, int p, int k, int s_pad,
-                     int group, void* stream) {
-  return rt2::launch_walk(walk_closest_kernel<false>, rays8, cand_idx, cand_t,
-                          cand_count, coeffs, lane_count, order, out_code,
-                          n_bundles, p, k, s_pad, group, 0, 0, stream);
+                     int* out, int* aux, int* steps, int n_bundles, int p,
+                     int k, int s_pad, int group, int sc_m, int n_clusters,
+                     int depth, int mb, int mm, void* stream) {
+  const WalkArgs a{rays8, cand_idx, cand_t, cand_count,
+                   reinterpret_cast<const float4*>(coeffs), lane_count,
+                   order, out, aux, steps, n_bundles, k, s_pad, group, sc_m,
+                   n_clusters, mb};
+  return rt2::launch_walk(
+      rt2::pick_walk<ClosestWalk>(sc_m > 0, depth, mm != 0), depth, a, p,
+      stream);
 }
 
-// The supercluster walk: as rt2_walk_closest, with cand_idx holding
-// supercluster ids of sc_m clusters each (group == sc_m) and n_clusters
-// the clusters of coeffs and lane_count.
-int rt2_walk_closest_sc(const float* rays8, const int* cand_idx,
-                        const float* cand_t, const int* cand_count,
-                        const float* coeffs, const int* lane_count,
-                        int* order, int* out_code, int n_bundles, int p,
-                        int k, int s_pad, int group, int sc_m, int n_clusters,
-                        void* stream) {
-  return rt2::launch_walk(walk_closest_kernel<true>, rays8, cand_idx, cand_t,
-                          cand_count, coeffs, lane_count, order, out_code,
-                          n_bundles, p, k, s_pad, group, sc_m, n_clusters,
-                          stream);
-}
-
-// out[4]: resident blocks per SM at p threads a block and s_pad lanes a
-// cluster, p, registers per thread, shared bytes per block. Returns a
-// cudaError_t (0 on success).
-int rt2_walk_closest_occupancy(int p, int s_pad, int* out) {
-  return rt2::walk_occupancy(walk_closest_kernel<false>, p, s_pad, out);
-}
-
-int rt2_walk_closest_sc_occupancy(int p, int s_pad, int* out) {
-  return rt2::walk_occupancy(walk_closest_kernel<true>, p, s_pad, out);
+// out[4]: resident blocks per SM of the instance (sc, depth, mm) at p
+// threads a block and s_pad lanes a cluster, p, registers per thread,
+// shared bytes per block. Returns a cudaError_t (0 on success).
+int rt2_walk_closest_occupancy(int p, int s_pad, int sc, int depth, int mm,
+                               int* out) {
+  return rt2::walk_occupancy(
+      rt2::pick_walk<ClosestWalk>(sc != 0, depth, mm != 0), depth, p, s_pad,
+      out);
 }
 
 const char* rt2_error_string(int code) {

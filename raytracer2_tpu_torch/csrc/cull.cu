@@ -104,6 +104,17 @@
 //   whose zero sign would be the instruction's choice.
 // - The rest (a NaN or infinite o or d) run entry() against the same
 //   registers, after the octant lists; entry() gives +0 or more, or +inf.
+// - The cap (t_cap=True, bundle_union_kernel<true>; JAX's
+//   _entry_exact_cap): also, per ray, the farthest exit `far` over the
+//   boxes it overlaps, -inf where it overlaps none. A box tile is one
+//   block's, so the max crosses blocks: each thread folds its boxes' far
+//   for the ray in turn, a warp takes the max (redux.sync over the float
+//   order as ints, with -0 made +0 first, so no zero's sign depends on the
+//   order), one shared atomicMax a warp folds it into the bundle's row,
+//   and the block's rows go out with one global atomicMax a ray into a
+//   buffer the wrapper fills with the order of -inf: the same bits in any
+//   order of blocks. Cost: a max per box test, a redux and an atomic per
+//   ray and warp.
 
 #include <climits>
 
@@ -146,12 +157,16 @@ struct SlabRay {
   float ox, oy, oz, ix, iy, iz, tn, tx;
 };
 
-// The conservative entry distance of a live ray r (t_max >= 0, tested by
-// the caller) into box (lo, hi), in the plain version's order: x, then y,
-// then z.
-__device__ __forceinline__ float entry(const SlabRay& r, float lx, float ly,
-                                       float lz, float hx, float hy,
-                                       float hz) {
+struct Slab {
+  float near, far;
+  bool hit;
+};
+
+// The slab test of a live ray r (t_max >= 0, tested by the caller) against
+// box (lo, hi), in the plain version's order: x, then y, then z.
+__device__ __forceinline__ Slab slab(const SlabRay& r, float lx, float ly,
+                                     float lz, float hx, float hy,
+                                     float hz) {
   const float t0x = (lx - r.ox) * r.ix, t1x = (hx - r.ox) * r.ix;
   float near = nan_min(t0x, t1x), far = nan_max(t0x, t1x);
   const float t0y = (ly - r.oy) * r.iy, t1y = (hy - r.oy) * r.iy;
@@ -160,8 +175,35 @@ __device__ __forceinline__ float entry(const SlabRay& r, float lx, float ly,
   const float t0z = (lz - r.oz) * r.iz, t1z = (hz - r.oz) * r.iz;
   near = nan_max(near, nan_min(t0z, t1z));
   far = nan_min(far, nan_max(t0z, t1z));
-  const bool hit = near <= far && far >= r.tn && near <= r.tx;
-  return hit ? (near > 0.0f ? near : 0.0f) : INFINITY;
+  return Slab{near, far, near <= far && far >= r.tn && near <= r.tx};
+}
+
+// The conservative entry distance of a live ray r into box (lo, hi).
+__device__ __forceinline__ float entry(const SlabRay& r, float lx, float ly,
+                                       float lz, float hx, float hy,
+                                       float hz) {
+  const Slab sl = slab(r, lx, ly, lz, hx, hy, hz);
+  return sl.hit ? (sl.near > 0.0f ? sl.near : 0.0f) : INFINITY;
+}
+
+// The order of -inf under cap_order: where a ray's cap starts.
+constexpr int kNegInfOrder = static_cast<int>(0x807FFFFFu);
+
+// The float order of a far distance (never NaN) as an int, -0 made +0.
+__device__ __forceinline__ int cap_order(float far) {
+  const int bits = __float_as_int(__fadd_rn(far, 0.0f));
+  return bits >= 0 ? bits : bits ^ 0x7FFFFFFF;
+}
+
+// The cap of staged ray `at`: the warp's max of the threads' folds m into
+// the bundle's shared row (cap_row[ray_id[at]]).
+__device__ __forceinline__ void fold_cap(float m, int at,
+                                         const int* __restrict__ ray_id,
+                                         int* cap_row) {
+  const int w = __reduce_max_sync(0xffffffffu, cap_order(m));
+  if ((threadIdx.x & 31) == 0 && w != kNegInfOrder) {
+    atomicMax(&cap_row[ray_id[at]], w);
+  }
 }
 
 // B3's fast path: the slab test of a live ray with finite o and d against a
@@ -268,17 +310,20 @@ nearest_box_kernel(const float* __restrict__ rays8,
 // bits x 1, y 2, z 4; set where inv < 0) against the thread's finite boxes,
 // sorted per axis (lo <= hi): on axis a the near corner is lo where
 // inv_a > 0 and hi where inv_a < 0, so the slab's min and max need no
-// instruction (see the header). Folds each hit's raw near into best.
-template <int kOct>
+// instruction (see the header). Folds each hit's raw near into best and,
+// with kCap, its far into the ray's cap.
+template <int kOct, bool kCap>
 __device__ __forceinline__ void union_octant(
     const float4* __restrict__ ra, const float4* __restrict__ rb, int i0,
     int i1, const float (&lo)[kUnionBoxes][3],
-    const float (&hi)[kUnionBoxes][3], float (&best)[kUnionBoxes]) {
+    const float (&hi)[kUnionBoxes][3], float (&best)[kUnionBoxes],
+    const int* __restrict__ ray_id, int* cap_row, int box_mask) {
   constexpr bool kNegX = kOct & 1, kNegY = kOct & 2, kNegZ = kOct & 4;
 #pragma unroll 2
   for (int i = i0; i < i1; ++i) {
     const float4 a = ra[i];  // ox oy oz t_min
     const float4 b = rb[i];  // ix iy iz t_max
+    float m = -INFINITY;
 #pragma unroll
     for (int k = 0; k < kUnionBoxes; ++k) {
       const float nx = ((kNegX ? hi[k][0] : lo[k][0]) - a.x) * b.x;
@@ -291,52 +336,77 @@ __device__ __forceinline__ void union_octant(
       const float far = fminf(fminf(fx, fy), fz);
       if (near <= far && far >= a.w && near <= b.w) {
         best[k] = fminf(best[k], near);
+        if constexpr (kCap) {
+          if (box_mask >> k & 1) m = fmaxf(m, far);
+        }
       }
     }
+    if constexpr (kCap) fold_cap(m, i, ray_id, cap_row);
   }
 }
 
 // B4's exact loop: entry() of each staged ray in [i0, i1) against the
 // thread's boxes (as given, or sorted where they are finite: entry() is
 // symmetric in lo and hi on each axis, up to the sign of a zero that no
-// compare sees and the clamp erases).
+// compare sees and the clamp erases; far's value is the same too). With
+// kCap, also folds each hit's far into the ray's cap.
+template <bool kCap>
 __device__ __forceinline__ void union_exact(
     const float4* __restrict__ ra, const float4* __restrict__ rb, int i0,
     int i1, const float (&lo)[kUnionBoxes][3],
-    const float (&hi)[kUnionBoxes][3], float (&best)[kUnionBoxes]) {
+    const float (&hi)[kUnionBoxes][3], float (&best)[kUnionBoxes],
+    const int* __restrict__ ray_id, int* cap_row, int box_mask) {
   for (int i = i0; i < i1; ++i) {
     const float4 a = ra[i], b = rb[i];
     const SlabRay r{a.x, a.y, a.z, b.x, b.y, b.z, a.w, b.w};
+    float m = -INFINITY;
 #pragma unroll
     for (int k = 0; k < kUnionBoxes; ++k) {
-      best[k] = fminf(best[k], entry(r, lo[k][0], lo[k][1], lo[k][2],
-                                     hi[k][0], hi[k][1], hi[k][2]));
+      const Slab sl = slab(r, lo[k][0], lo[k][1], lo[k][2], hi[k][0],
+                           hi[k][1], hi[k][2]);
+      best[k] = fminf(best[k], sl.hit ? (sl.near > 0.0f ? sl.near : 0.0f)
+                                      : INFINITY);
+      if constexpr (kCap) {
+        if (sl.hit && (box_mask >> k & 1)) m = fmaxf(m, sl.far);
+      }
     }
+    if constexpr (kCap) fold_cap(m, i, ray_id, cap_row);
   }
 }
 
 // boxes: [6, c] f32, rows lo.x lo.y lo.z hi.x hi.y hi.z. Block x takes
-// bundle x / n_tiles and the kUnionTile boxes of tile x % n_tiles.
+// bundle x / n_tiles and the kUnionTile boxes of tile x % n_tiles. kCap:
+// also each ray's farthest overlapped exit into cap (cap_order ints,
+// atomicMax over the blocks of its bundle).
+template <bool kCap>
 __global__ void __launch_bounds__(kUnionThreads, kUnionMinBlocks)
 bundle_union_kernel(const float* __restrict__ rays8,
                     const float* __restrict__ boxes,
-                    float* __restrict__ out, int p, int c, int n_tiles) {
+                    float* __restrict__ out, int* __restrict__ cap, int p,
+                    int c, int n_tiles) {
   __shared__ float4 ray_a[kMaxBundle];  // ox oy oz t_min, by list
   __shared__ float4 ray_b[kMaxBundle];  // ix iy iz t_max
   __shared__ int list_count[kUnionLists];
   __shared__ int list_start[kUnionLists + 1];
+  __shared__ int ray_id[kCap ? kMaxBundle : 1];   // staged slot -> ray
+  __shared__ int cap_row[kCap ? kMaxBundle : 1];  // the bundle's caps
   const int tid = threadIdx.x;
   const int b = blockIdx.x / n_tiles;
   const int c0 = (blockIdx.x - b * n_tiles) * kUnionTile;
   if (tid < kUnionLists) list_count[tid] = 0;
+  if constexpr (kCap) {
+    for (int i = tid; i < p; i += kUnionThreads) cap_row[i] = kNegInfOrder;
+  }
 
   // the thread's boxes c0 + k * kUnionThreads + tid (coalesced along C);
   // past c a zero box, finite, never stored
   float lo[kUnionBoxes][3], hi[kUnionBoxes][3];
   bool finite = true;
+  int box_mask = 0;  // bit k: box k is a real box (the cap reads only those)
 #pragma unroll
   for (int k = 0; k < kUnionBoxes; ++k) {
     const int j = c0 + k * kUnionThreads + tid;
+    box_mask |= (j < c) << k;
 #pragma unroll
     for (int a = 0; a < 3; ++a) {
       lo[k][a] = j < c ? boxes[a * c + j] : 0.0f;
@@ -387,6 +457,7 @@ bundle_union_kernel(const float* __restrict__ rays8,
       const int at = list_start[list[q]] + slot[q];
       ray_a[at] = sa[q];
       ray_b[at] = sb[q];
+      if constexpr (kCap) ray_id[at] = tid + q * kUnionThreads;
     }
   }
   __syncthreads();
@@ -405,17 +476,27 @@ bundle_union_kernel(const float* __restrict__ rays8,
       }
     }
     const int* st = list_start;
-    union_octant<0>(ray_a, ray_b, st[0], st[1], lo, hi, best);
-    union_octant<1>(ray_a, ray_b, st[1], st[2], lo, hi, best);
-    union_octant<2>(ray_a, ray_b, st[2], st[3], lo, hi, best);
-    union_octant<3>(ray_a, ray_b, st[3], st[4], lo, hi, best);
-    union_octant<4>(ray_a, ray_b, st[4], st[5], lo, hi, best);
-    union_octant<5>(ray_a, ray_b, st[5], st[6], lo, hi, best);
-    union_octant<6>(ray_a, ray_b, st[6], st[7], lo, hi, best);
-    union_octant<7>(ray_a, ray_b, st[7], st[8], lo, hi, best);
-    union_exact(ray_a, ray_b, st[8], st[9], lo, hi, best);
+    union_octant<0, kCap>(ray_a, ray_b, st[0], st[1], lo, hi, best, ray_id,
+                          cap_row, box_mask);
+    union_octant<1, kCap>(ray_a, ray_b, st[1], st[2], lo, hi, best, ray_id,
+                          cap_row, box_mask);
+    union_octant<2, kCap>(ray_a, ray_b, st[2], st[3], lo, hi, best, ray_id,
+                          cap_row, box_mask);
+    union_octant<3, kCap>(ray_a, ray_b, st[3], st[4], lo, hi, best, ray_id,
+                          cap_row, box_mask);
+    union_octant<4, kCap>(ray_a, ray_b, st[4], st[5], lo, hi, best, ray_id,
+                          cap_row, box_mask);
+    union_octant<5, kCap>(ray_a, ray_b, st[5], st[6], lo, hi, best, ray_id,
+                          cap_row, box_mask);
+    union_octant<6, kCap>(ray_a, ray_b, st[6], st[7], lo, hi, best, ray_id,
+                          cap_row, box_mask);
+    union_octant<7, kCap>(ray_a, ray_b, st[7], st[8], lo, hi, best, ray_id,
+                          cap_row, box_mask);
+    union_exact<kCap>(ray_a, ray_b, st[8], st[9], lo, hi, best, ray_id,
+                      cap_row, box_mask);
   } else {
-    union_exact(ray_a, ray_b, 0, list_start[kUnionLists], lo, hi, best);
+    union_exact<kCap>(ray_a, ray_b, 0, list_start[kUnionLists], lo, hi,
+                      best, ray_id, cap_row, box_mask);
   }
   float* row = out + static_cast<long long>(b) * c;
 #pragma unroll
@@ -424,6 +505,13 @@ bundle_union_kernel(const float* __restrict__ rays8,
     // max(min over rays of near, +0) is the min over rays of max(near,
     // +0), and a zero of either sign leaves as +0
     if (j < c) row[j] = best[k] > 0.0f ? best[k] : 0.0f;
+  }
+  if constexpr (kCap) {
+    __syncthreads();  // every warp has folded its caps
+    int* cap_out = cap + static_cast<long long>(b) * p;
+    for (int i = tid; i < p; i += kUnionThreads) {
+      if (cap_row[i] != kNegInfOrder) atomicMax(&cap_out[i], cap_row[i]);
+    }
   }
 }
 
@@ -471,10 +559,13 @@ int rt2_nearest_box_occupancy(int* out) {
   return block_occupancy(nearest_box_kernel, kNearThreads, out);
 }
 
-// rays8 [n_bundles * p, 8] f32, boxes [6, c] f32, out [n_bundles, c] f32.
-// Launches on `stream`; returns cudaGetLastError() (0 on success).
+// rays8 [n_bundles * p, 8] f32, boxes [6, c] f32, out [n_bundles, c] f32,
+// cap [n_bundles * p] i32 filled with the order of -inf (-2139095041) by
+// the caller, or null for no cap: each ray's farthest overlapped exit as a
+// float order (bits >= 0 ? bits : bits ^ 0x7FFFFFFF). Launches on
+// `stream`; returns cudaGetLastError() (0 on success).
 int rt2_bundle_union(const float* rays8, const float* boxes, float* out,
-                     int n_bundles, int p, int c, void* stream) {
+                     int* cap, int n_bundles, int p, int c, void* stream) {
   if (n_bundles <= 0) return 0;
   if (p <= 0 || p > kMaxBundle || c <= 0) {
     return static_cast<int>(cudaErrorInvalidValue);
@@ -482,17 +573,25 @@ int rt2_bundle_union(const float* rays8, const float* boxes, float* out,
   const int n_tiles = (c + kUnionTile - 1) / kUnionTile;
   const long long blocks = static_cast<long long>(n_bundles) * n_tiles;
   if (blocks > INT_MAX) return static_cast<int>(cudaErrorInvalidValue);
-  bundle_union_kernel<<<static_cast<int>(blocks), kUnionThreads, 0,
-                        static_cast<cudaStream_t>(stream)>>>(
-      rays8, boxes, out, p, c, n_tiles);
+  const auto s = static_cast<cudaStream_t>(stream);
+  if (cap != nullptr) {
+    bundle_union_kernel<true><<<static_cast<int>(blocks), kUnionThreads, 0,
+                                s>>>(rays8, boxes, out, cap, p, c, n_tiles);
+  } else {
+    bundle_union_kernel<false><<<static_cast<int>(blocks), kUnionThreads, 0,
+                                 s>>>(rays8, boxes, out, nullptr, p, c,
+                                      n_tiles);
+  }
   return static_cast<int>(cudaGetLastError());
 }
 
-// out[4]: resident blocks per SM of rt2_bundle_union's kernel, threads per
-// block, registers per thread, shared bytes per block. Returns a
-// cudaError_t (0 on success).
-int rt2_bundle_union_occupancy(int* out) {
-  return block_occupancy(bundle_union_kernel, kUnionThreads, out);
+// out[4]: resident blocks per SM of rt2_bundle_union's kernel (cap != 0:
+// the instance with the cap), threads per block, registers per thread,
+// shared bytes per block. Returns a cudaError_t (0 on success).
+int rt2_bundle_union_occupancy(int cap, int* out) {
+  return cap ? block_occupancy(bundle_union_kernel<true>, kUnionThreads, out)
+             : block_occupancy(bundle_union_kernel<false>, kUnionThreads,
+                               out);
 }
 
 }  // extern "C"

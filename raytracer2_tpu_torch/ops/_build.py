@@ -103,35 +103,30 @@ def library() -> ctypes.CDLL:
     """The loaded kernel library with every entry point's signature set."""
     lib = ctypes.CDLL(str(build().path))
     vp, ci = ctypes.c_void_p, ctypes.c_int
-    lib.rt2_walk_closest.restype = ci
-    lib.rt2_walk_closest.argtypes = [
-        vp, vp, vp, vp, vp, vp, vp, vp,  # rays8, cand_idx, cand_t,
-        #   cand_count, lane coeffs, lane count, order scratch, out
-        ci, ci, ci, ci, ci,  # n_bundles, p, k, s_pad, group
-        vp]  # stream
-    lib.rt2_walk_occluded.restype = ci
-    lib.rt2_walk_occluded.argtypes = lib.rt2_walk_closest.argtypes
-    for entry in ("rt2_walk_closest_sc", "rt2_walk_occluded_sc"):
+    for entry in ("rt2_walk_closest", "rt2_walk_occluded"):
         getattr(lib, entry).restype = ci
         getattr(lib, entry).argtypes = [
-            vp, vp, vp, vp, vp, vp, vp, vp,  # as rt2_walk_closest's
+            vp, vp, vp, vp, vp, vp, vp, vp, vp, vp,  # rays8, cand_idx,
+            #   cand_t, cand_count, lane coeffs, lane count, order scratch,
+            #   out, aux (lean) or null, steps or null
             ci, ci, ci, ci, ci, ci, ci,  # n_bundles, p, k, s_pad, group,
-            #   sc_m, n_clusters
+            #   sc_m (0: cluster walk), n_clusters
+            ci, ci, ci,  # depth, mb, mm
             vp]  # stream
-    for entry in ("rt2_walk_closest_occupancy", "rt2_walk_occluded_occupancy",
-                  "rt2_walk_closest_sc_occupancy",
-                  "rt2_walk_occluded_sc_occupancy"):
-        getattr(lib, entry).restype = ci
-        getattr(lib, entry).argtypes = [ci, ci, vp]  # p, s_pad, out
-    for entry in ("rt2_nearest_box_occupancy", "rt2_bundle_union_occupancy"):
-        getattr(lib, entry).restype = ci
-        getattr(lib, entry).argtypes = [vp]  # out
+        getattr(lib, f"{entry}_occupancy").restype = ci
+        getattr(lib, f"{entry}_occupancy").argtypes = [
+            ci, ci, ci, ci, ci, vp]  # p, s_pad, sc, depth, mm, out
+    lib.rt2_nearest_box_occupancy.restype = ci
+    lib.rt2_nearest_box_occupancy.argtypes = [vp]  # out
+    lib.rt2_bundle_union_occupancy.restype = ci
+    lib.rt2_bundle_union_occupancy.argtypes = [ci, vp]  # cap, out
     lib.rt2_nearest_box.restype = ci
     lib.rt2_nearest_box.argtypes = [vp, vp, vp,  # rays8, boxes, out
                                     ci, ci,  # n, c
                                     vp]  # stream
     lib.rt2_bundle_union.restype = ci
-    lib.rt2_bundle_union.argtypes = [vp, vp, vp,  # rays8, boxes, out
+    lib.rt2_bundle_union.argtypes = [vp, vp, vp, vp,  # rays8, boxes, out,
+                                     #   cap or null
                                      ci, ci, ci,  # n_bundles, p, c
                                      vp]  # stream
     lib.rt2_pair_sweep.restype = ci
@@ -159,9 +154,10 @@ def library() -> ctypes.CDLL:
 
 def occupancy(entry: str, *args: int) -> dict:
     """A kernel's residency on the card, from its occupancy entry point
-    (rt2_walk_closest_occupancy(p, s_pad), rt2_walk_occluded_occupancy(p,
-    s_pad) and their _sc twins, rt2_nearest_box_occupancy(),
-    rt2_bundle_union_occupancy(), rt2_pair_sweep_occupancy(s_pad),
+    (rt2_walk_closest_occupancy(p, s_pad, sc, depth, mm) and
+    rt2_walk_occluded_occupancy(...) of an instance, rt2_nearest_box_
+    occupancy(), rt2_bundle_union_occupancy(cap),
+    rt2_pair_sweep_occupancy(s_pad),
     rt2_bin_scatter_occupancy(kernel,
     n_bins) for B6's count (0), scan (1) and scatter (2) kernels):
     resident blocks per SM (cudaOccupancyMaxActiveBlocksPerMultiprocessor),

@@ -92,11 +92,18 @@ def _morton_order(centroid: np.ndarray) -> np.ndarray:
     return np.argsort(codes, kind="stable").astype(np.int32)
 
 
-def cluster_arrays(tri_v0, tri_edge1, tri_edge2, cluster_size: int = 64
-                   ) -> dict:
-    """The host build as numpy arrays: the native binned-SAH builder when
-    its library loads, else a Morton order in numpy
-    (ops.native.available() says which ran)."""
+CLUSTER_METHODS = ("auto", "sah", "morton")
+
+
+def cluster_arrays(tri_v0, tri_edge1, tri_edge2, cluster_size: int = 64,
+                   method: str = "auto") -> dict:
+    """The host build as numpy arrays. method (JAX's): "sah" the native
+    binned-SAH builder (raises where its library does not load), "morton"
+    a Morton order in numpy, "auto" SAH when the library loads, else
+    Morton (ops.native.available() says which ran)."""
+    if method not in CLUSTER_METHODS:
+        raise ValueError(f"method must be one of {CLUSTER_METHODS}, "
+                         f"not {method!r}")
     v0 = np.asarray(tri_v0, np.float64)
     e1 = np.asarray(tri_edge1, np.float64)
     e2 = np.asarray(tri_edge2, np.float64)
@@ -109,7 +116,7 @@ def cluster_arrays(tri_v0, tri_edge1, tri_edge2, cluster_size: int = 64
     centroid = 0.5 * (tmin + tmax)
 
     ranges = None
-    if t > 0:
+    if method != "morton" and t > 0:
         from raytracer2_tpu_torch.ops import native
 
         sah = native.build_sah_clusters(
@@ -118,6 +125,8 @@ def cluster_arrays(tri_v0, tri_edge1, tri_edge2, cluster_size: int = 64
         if sah is not None:
             order, offsets, counts = sah
             ranges = list(zip(offsets.tolist(), counts.tolist()))
+        elif method == "sah":
+            raise RuntimeError("native SAH builder unavailable")
     if ranges is None:
         order = _morton_order(centroid) if t else np.zeros(0, np.int32)
         ranges = [(i, min(cluster_size, t - i))
@@ -167,11 +176,11 @@ def cluster_arrays(tri_v0, tri_edge1, tri_edge2, cluster_size: int = 64
 
 
 def build_clusters(tri_v0, tri_edge1, tri_edge2, cluster_size: int = 64,
-                   *, device) -> Clusters:
+                   method: str = "auto", *, device) -> Clusters:
     """Host-side build (numpy/C++; scenes are static like the reference's
-    one-time BLAS build) onto `device`."""
+    one-time BLAS build) onto `device`; method as cluster_arrays'."""
     return clusters_from_arrays(
-        cluster_arrays(tri_v0, tri_edge1, tri_edge2, cluster_size),
+        cluster_arrays(tri_v0, tri_edge1, tri_edge2, cluster_size, method),
         device=device)
 
 

@@ -39,8 +39,24 @@ A bundle whose union exceeds k_cand (or, under "hier", whose superclusters
 exceed k_sc) overflows. Those bundles re-trace through the same kernel
 with the exact cull and full-length lists (k_cand = C, exact by
 construction); past FALLBACK_BUNDLES of them the whole batch re-traces at
-k_cand = C ("hier" with the exact cull). The function-level TPU knobs mb,
-depth, lean, mm, t_cap and debug_steps are not ported.
+k_cand = C ("hier" with the exact cull).
+
+The function-level knobs of JAX's walks (closest_hit_bundle_pallas,
+occluded_bundle_pallas), none of which changes a hit:
+- depth: the kernels' cluster ring's slots (1-4). None keeps the card's
+  4; JAX's TPU default of 2 was a DMA-slot count.
+- mb: the bundles one block walks in turn. None keeps one a block; JAX's
+  TPU default of 8 was a grid shape.
+- lean (closest hit): the walk returns (best key, winning step) and the
+  host recovers the cluster with one gather into the candidate table.
+- debug_steps: (result, {"steps", "cand_count", "overflowed"}) with each
+  bundle's walk steps, and no fallback.
+- t_cap (the exact cull): each ray's t_max clamped to the farthest exit of
+  the cluster boxes it overlaps (B4's cap output), after the union.
+- mm: the Wald affines as matrix products: the kernels' tensor-core form
+  (3xTF32 mma.sync), whose plain version is hit_test_mm; held to the
+  oracle, not bit for bit.
+"sc" ignores lean and mm, as JAX does.
 
 The exact cull's two dense [rays, C] passes, the cand0 key's nearest box
 and the per-bundle union, are the kernels of ops/cull.py (B3, B4): the
@@ -61,7 +77,7 @@ from raytracer2_tpu_torch.ops.intersect import INVALID_INDEX, HitRecord
 from raytracer2_tpu_torch.ops import traverse_bundle as tb
 from raytracer2_tpu_torch.ops.traverse_bundle import (
     _bundle_bounds, _expand_bits, _pad_rays, _per_ray)
-from raytracer2_tpu_torch.ops.wald import fma, hit_test
+from raytracer2_tpu_torch.ops.wald import fma, hit_test, hit_test_mm
 
 LANE_PAD = 128  # triangles per cluster row, padded to the lane width
 SLOT_BITS = 10  # group * S_pad <= 1024; low key bits carry the winning slot
@@ -73,6 +89,8 @@ NO_HIT_KEY = 0x7FFFFFFF  # above every hit key and every initial key
 REFERENCE_CHUNK_ELEMS = {"cuda": 1 << 25, "cpu": 1 << 22}
 FALLBACK_BUNDLES = 32  # past this many overflowed bundles, re-trace the batch
 MAX_BUNDLE = 256  # rays per bundle a kernel takes (csrc/walk_common.cuh)
+DEPTHS = (1, 2, 3, 4)  # the walk kernels' ring depths (kDepth instances)
+DEPTH = 4  # the card's ring depth (walk_common.cuh::kRing)
 
 
 # ---------------------------------------------------------------------------
@@ -213,12 +231,42 @@ def _check_walk_args(rays8, cand_idx, cand_t, cand_count, wald, group):
     return b, k, p, sp
 
 
+def knob_instance(*, lean: bool = False, debug_steps: bool = False,
+                  depth: int | None = None, mb: int | None = None,
+                  mm: bool = False) -> str:
+    """The name of a walk's instance under these knobs: "" for the default
+    (depth 4, one bundle a block, the code, no steps, the lane test), else
+    its knobs, e.g. "depth=1", "mb=2", "lean", "steps", "mm"."""
+    if depth is not None and depth not in DEPTHS:
+        raise ValueError(f"depth must be one of {DEPTHS} or None, not {depth}")
+    if mb is not None and mb < 1:
+        raise ValueError(f"mb must be >= 1 or None, not {mb}")
+    parts = [f"depth={depth}"] * (depth not in (None, DEPTH))
+    parts += [f"mb={mb}"] * (mb not in (None, 1))
+    parts += ["lean"] * lean + ["steps"] * debug_steps + ["mm"] * mm
+    return ",".join(parts)
+
+
+def count_launch(wrapper, instance: str) -> None:
+    """One launch of a kernel wrapper's instance: the default's in
+    wrapper.launches, the others' in wrapper.knob_launches[instance]."""
+    if instance:
+        wrapper.knob_launches[instance] = (
+            wrapper.knob_launches.get(instance, 0) + 1)
+    else:
+        wrapper.launches += 1
+
+
 def _launch(entry, name, rays8, cand_idx, cand_t, cand_count, wald_rows,
-            lanes, b, p, k, sp, group, *extra):
+            lanes, b, p, k, sp, group, sc_m: int = 0, n_clusters: int = 0,
+            *, lean: bool = False, debug_steps: bool = False,
+            depth: int | None = None, mb: int | None = None,
+            mm: bool = False):
     """Launch one walk kernel of the library (it reads the table as
-    `lanes`; `extra` are the supercluster walks' sc_m and C) on the current
-    stream and return its [B*P] i32 output; raises if the launch is
-    refused."""
+    `lanes`; sc_m > 0 is a supercluster walk over n_clusters) on the
+    current stream; raises if the launch is refused. Returns the output
+    rows: ([B*P] i32 out,), under lean (best key, winning step), then with
+    debug_steps the [B] i32 steps."""
     if p > MAX_BUNDLE or p % 32:
         raise ValueError(f"bundle size {p} must be a multiple of 32, "
                          f"<= {MAX_BUNDLE}")
@@ -226,19 +274,33 @@ def _launch(entry, name, rays8, cand_idx, cand_t, cand_count, wald_rows,
     from raytracer2_tpu_torch.ops import _build
 
     lib = _build.library()
-    order = torch.empty(b, dtype=torch.int32, device=rays8.device)
-    out = torch.empty(b * p, dtype=torch.int32, device=rays8.device)
-    with torch.cuda.device(rays8.device):
+    dev = rays8.device
+    order = torch.empty(b, dtype=torch.int32, device=dev)
+    out = torch.empty(b * p, dtype=torch.int32, device=dev)
+    aux = torch.empty(b * p, dtype=torch.int32, device=dev) if lean else None
+    steps = torch.empty(b, dtype=torch.int32, device=dev) if debug_steps \
+        else None
+    with torch.cuda.device(dev):
         stream = torch.cuda.current_stream().cuda_stream
         err = getattr(lib, entry)(
             rays8.data_ptr(), cand_idx.data_ptr(), cand_t.data_ptr(),
             cand_count.data_ptr(), lanes.coeffs.data_ptr(),
-            lanes.count.data_ptr(), order.data_ptr(), out.data_ptr(), b, p,
-            k, sp, group, *extra, ctypes.c_void_p(stream))
+            lanes.count.data_ptr(), order.data_ptr(), out.data_ptr(),
+            None if aux is None else aux.data_ptr(),
+            None if steps is None else steps.data_ptr(), b, p, k, sp, group,
+            sc_m, n_clusters, DEPTH if depth is None else depth,
+            1 if mb is None else mb, int(mm), ctypes.c_void_p(stream))
     if err != 0:
         raise RuntimeError(f"{name} launch failed: "
                            f"{lib.rt2_error_string(err).decode()} ({err})")
-    return out
+    return tuple(x for x in (out, aux, steps) if x is not None)
+
+
+def _rows(rows: tuple, work=None):
+    """A walk's result: its one output row, or the tuple of its rows (lean,
+    debug_steps), with the WalkWork beside it where one was counted."""
+    out = rows[0] if len(rows) == 1 else rows
+    return out if work is None else (out, work)
 
 
 def _check_lanes(lanes: WalkLanes, wald: torch.Tensor) -> None:
@@ -297,32 +359,45 @@ def _real_lanes(lane_real, ci, live):
 
 
 def walk_closest(rays8, cand_idx, cand_t, cand_count, wald_rows, group, *,
-                 lanes: WalkLanes):
+                 lanes: WalkLanes, lean: bool = False,
+                 debug_steps: bool = False, depth: int | None = None,
+                 mb: int | None = None, mm: bool = False):
     """Closest-hit bundle walk: winner code [B*P] i32 per ray (cluster *
     S_pad + slot, 0x7FFFFFFF on a miss). rays8 [B*P, 8] f32 rows (ox oy oz
     dx dy dz t_min t_max) in bundle order; cand_idx/cand_t [B, K] nearest
     first, cand_count [B]; wald_rows [C, 16, S_pad] and lanes, its
     walk_lanes (WalkTables.lanes).
 
+    The knobs (module docstring): lean returns (best key, winning step,
+    -1 on a miss) instead of the code; debug_steps appends each bundle's
+    steps [B] i32 (a tuple of the rows either way); depth (1-4) and mb
+    shape the launch only; mm tests through the tensor cores.
+
     A CUDA tensor launches csrc/bundle_walk.cu on the current stream (and
-    counts the launch in walk_closest.launches); the kernel reads the
+    counts the launch in walk_closest.launches, or under a knob in
+    walk_closest.knob_launches[knob_instance(...)]); the kernel reads the
     table as `lanes`. A CPU tensor runs walk_closest_reference on
     wald_rows. Anything else raises."""
     b, k, p, sp = _check_walk_args(rays8, cand_idx, cand_t, cand_count,
                                    wald_rows, group)
+    knobs = dict(debug_steps=debug_steps, depth=depth, mb=mb, mm=mm)
+    inst = knob_instance(lean=lean, **knobs)
     if rays8.device.type == "cpu":
         return walk_closest_reference(rays8, cand_idx, cand_t, cand_count,
-                                      wald_rows, group)
+                                      wald_rows, group, lean=lean,
+                                      debug_steps=debug_steps, mm=mm)
     if rays8.device.type != "cuda":
         raise ValueError(f"walk_closest runs on cuda or cpu, "
                          f"not {rays8.device}")
-    out = _launch("rt2_walk_closest", "walk_closest", rays8, cand_idx,
-                  cand_t, cand_count, wald_rows, lanes, b, p, k, sp, group)
-    walk_closest.launches += 1
-    return out
+    rows = _launch("rt2_walk_closest", "walk_closest", rays8, cand_idx,
+                   cand_t, cand_count, wald_rows, lanes, b, p, k, sp, group,
+                   lean=lean, **knobs)
+    count_launch(walk_closest, inst)
+    return _rows(rows)
 
 
 walk_closest.launches = 0
+walk_closest.knob_launches = {}
 
 
 def _sc_walk_args(wald_rows, group, lane_real, sc_m):
@@ -341,15 +416,22 @@ def _sc_walk_args(wald_rows, group, lane_real, sc_m):
 
 
 def walk_closest_reference(rays8, cand_idx, cand_t, cand_count, wald_rows,
-                           group, lane_real=None, sc_m: int = 0):
+                           group, lane_real=None, sc_m: int = 0, *,
+                           lean: bool = False, debug_steps: bool = False,
+                           mm: bool = False):
     """Plain torch version of the walk, batched over the bundles that step
     (those still walking): the same steps, predicates, packed keys, tie
     rule and early exit as the kernel, with the same Wald test (hit_test),
-    so the two agree bit for bit. Given lane_real ([C, S_pad] bool, True on a real triangle's lane), it
-    also returns the WalkWork these inputs need. sc_m > 0 is the
-    supercluster walk of walk_closest_sc (group == sc_m; _sc_walk_args)."""
+    so the two agree bit for bit. Given lane_real ([C, S_pad] bool, True on
+    a real triangle's lane), it also returns the WalkWork these inputs
+    need. sc_m > 0 is the supercluster walk of walk_closest_sc (group ==
+    sc_m; _sc_walk_args). lean and debug_steps give walk_closest's rows;
+    mm tests with hit_test_mm (float32 matrix products, as JAX's
+    _intersect_block_mm), which the kernel's tensor-core form matches only
+    up to rounding ties."""
     b, k, p, sp = _check_walk_args(rays8, cand_idx, cand_t, cand_count,
                                    wald_rows, group)
+    test = hit_test_mm if mm else hit_test
     if sc_m:
         wald_rows, group, lane_real = _sc_walk_args(wald_rows, group,
                                                     lane_real, sc_m)
@@ -364,6 +446,7 @@ def walk_closest_reference(rays8, cand_idx, cand_t, cand_count, wald_rows,
     rays = rays8.reshape(b, p, 8)
     best_key = (rays[..., 7].view(torch.int32) & ~SLOT_MASK) | SLOT_MASK
     best_code = torch.full((b, p), MISS_CODE, dtype=torch.int32, device=dev)
+    best_it = torch.full((b, p), -1, dtype=torch.int32, device=dev)
     alive = torch.ones(b, dtype=torch.bool, device=dev)
     for k0 in range(0, int(cand_count.max()), group):
         worst = (best_key | SLOT_MASK).view(torch.float32).amax(dim=1)
@@ -372,12 +455,11 @@ def walk_closest_reference(rays8, cand_idx, cand_t, cand_count, wald_rows,
         stepping = alive.nonzero().reshape(-1)
         if stepping.numel() == 0:
             break
-        if lane_real is not None:
-            work.steps.add_(alive)
+        work.steps.add_(alive)
         for ids in stepping.split(bc):
             ci, wr = _step_rows(cand_idx[ids, k0:k0 + group], wald_rows, 0,
                                 group)
-            t, hit = hit_test(rays[ids], wr)
+            t, hit = test(rays[ids], wr)
             live = lane[None, :] < (cand_count[ids, None] - k0) * sp
             if lane_real is not None:
                 work.ray_lanes.add_(
@@ -394,39 +476,53 @@ def walk_closest_reference(rays8, cand_idx, cand_t, cand_count, wald_rows,
             best_key[ids] = torch.where(better, step_key, key_was)
             best_code[ids] = torch.where(better, step_code.to(torch.int32),
                                          best_code[ids])
-    out = best_code.reshape(b * p)
-    return out if lane_real is None else (out, work)
+            best_it[ids] = torch.where(better, k0 // group, best_it[ids])
+    rows = ((best_key.reshape(b * p), best_it.reshape(b * p)) if lean
+            else (best_code.reshape(b * p),))
+    if debug_steps:
+        rows += (work.steps.to(torch.int32),)
+    return _rows(rows, None if lane_real is None else work)
 
 
 def walk_occluded(rays8, cand_idx, cand_t, cand_count, wald_rows, group, *,
-                  lanes: WalkLanes):
+                  lanes: WalkLanes, debug_steps: bool = False,
+                  depth: int | None = None, mb: int | None = None,
+                  mm: bool = False):
     """Any-hit bundle walk: [B*P] i32 per ray, 1 where a triangle blocks
     the open segment (t_min, t_max), else 0; rays with t_max <= t_min
-    (padding) report 0. Arguments as walk_closest's.
+    (padding) report 0. Arguments and knobs as walk_closest's
+    (debug_steps: (blocked, steps)).
 
     A CUDA tensor launches csrc/bundle_occlude.cu on the current stream
-    (and counts the launch in walk_occluded.launches); the kernel reads the
-    table as `lanes`. A CPU tensor runs walk_occluded_reference on
-    wald_rows. Anything else raises."""
+    (and counts the launch in walk_occluded.launches, or under a knob in
+    walk_occluded.knob_launches); the kernel reads the table as `lanes`. A
+    CPU tensor runs walk_occluded_reference on wald_rows. Anything else
+    raises."""
     b, k, p, sp = _check_walk_args(rays8, cand_idx, cand_t, cand_count,
                                    wald_rows, group)
+    knobs = dict(debug_steps=debug_steps, depth=depth, mb=mb, mm=mm)
+    inst = knob_instance(**knobs)
     if rays8.device.type == "cpu":
         return walk_occluded_reference(rays8, cand_idx, cand_t, cand_count,
-                                       wald_rows, group)
+                                       wald_rows, group,
+                                       debug_steps=debug_steps, mm=mm)
     if rays8.device.type != "cuda":
         raise ValueError(f"walk_occluded runs on cuda or cpu, "
                          f"not {rays8.device}")
-    out = _launch("rt2_walk_occluded", "walk_occluded", rays8, cand_idx,
-                  cand_t, cand_count, wald_rows, lanes, b, p, k, sp, group)
-    walk_occluded.launches += 1
-    return out
+    rows = _launch("rt2_walk_occluded", "walk_occluded", rays8, cand_idx,
+                   cand_t, cand_count, wald_rows, lanes, b, p, k, sp, group,
+                   **knobs)
+    count_launch(walk_occluded, inst)
+    return _rows(rows)
 
 
 walk_occluded.launches = 0
+walk_occluded.knob_launches = {}
 
 
 def walk_occluded_reference(rays8, cand_idx, cand_t, cand_count, wald_rows,
-                            group, lane_real=None, sc_m: int = 0):
+                            group, lane_real=None, sc_m: int = 0, *,
+                            debug_steps: bool = False, mm: bool = False):
     """Plain torch version of the any-hit walk, batched over the bundles
     that step: the same steps, predicates and exits as the kernel (a ray
     is done at its first hit; a bundle stops when every ray is done, its
@@ -434,9 +530,10 @@ def walk_occluded_reference(rays8, cand_idx, cand_t, cand_count, wald_rows,
     t_max of its live rays, NaN ending the walk), with the kernel's Wald
     test, so the two agree bit for bit. Given lane_real, it also returns the WalkWork, as
     walk_closest_reference does; sc_m > 0 is the supercluster walk of
-    walk_occluded_sc."""
+    walk_occluded_sc; debug_steps and mm as walk_closest_reference's."""
     b, k, p, sp = _check_walk_args(rays8, cand_idx, cand_t, cand_count,
                                    wald_rows, group)
+    test = hit_test_mm if mm else hit_test
     if sc_m:
         wald_rows, group, lane_real = _sc_walk_args(wald_rows, group,
                                                     lane_real, sc_m)
@@ -456,13 +553,12 @@ def walk_occluded_reference(rays8, cand_idx, cand_t, cand_count, wald_rows,
         stepping = alive.nonzero().reshape(-1)
         if stepping.numel() == 0:
             break
-        if lane_real is not None:
-            work.steps.add_(alive)
+        work.steps.add_(alive)
         for ids in stepping.split(bc):
             r = rays[ids]
             ci, wr = _step_rows(cand_idx[ids, k0:k0 + group], wald_rows, 0,
                                 group)
-            t, hit = hit_test(r, wr)
+            t, hit = test(r, wr)
             live = lane[None, :] < (cand_count[ids, None] - k0) * sp
             hit &= (t < r[..., 7:8]) & live[:, None, :]
             step_hit = hit.any(dim=-1)
@@ -476,62 +572,75 @@ def walk_occluded_reference(rays8, cand_idx, cand_t, cand_count, wald_rows,
                                      upto[:, -1:])
                 work.ray_lanes.add_((tested * ~done_was).sum())
             done[ids] = done_was | step_hit
-    out = (done & (rays[..., 7] > rays[..., 6])).to(torch.int32).reshape(b * p)
-    return out if lane_real is None else (out, work)
+    rows = ((done & (rays[..., 7] > rays[..., 6])).to(torch.int32)
+            .reshape(b * p),)
+    if debug_steps:
+        rows += (work.steps.to(torch.int32),)
+    return _rows(rows, None if lane_real is None else work)
 
 
 def _walk_sc(wrapper, entry: str, reference, rays8, cand_idx, cand_t,
-             cand_count, wald_rows, group, lanes):
+             cand_count, wald_rows, group, lanes, **knobs):
     """A supercluster walk: the plain version on a CPU tensor, else the
-    library's `entry` (sc_m = group), counted in wrapper.launches."""
+    library's `entry` (sc_m = group), counted in wrapper.launches (or
+    under a knob, debug_steps, depth or mb, in wrapper.knob_launches)."""
     b, k, p, sp = _check_walk_args(rays8, cand_idx, cand_t, cand_count,
                                    wald_rows, group)
+    inst = knob_instance(**knobs)
     if rays8.device.type == "cpu":
         return reference(rays8, cand_idx, cand_t, cand_count, wald_rows,
-                         group, sc_m=group)
+                         group, sc_m=group, debug_steps=knobs["debug_steps"])
     name = wrapper.__name__
     if rays8.device.type != "cuda":
         raise ValueError(f"{name} runs on cuda or cpu, not {rays8.device}")
-    out = _launch(entry, name, rays8, cand_idx, cand_t, cand_count,
-                  wald_rows, lanes, b, p, k, sp, group, group,
-                  wald_rows.shape[0])
-    wrapper.launches += 1
-    return out
+    rows = _launch(entry, name, rays8, cand_idx, cand_t, cand_count,
+                   wald_rows, lanes, b, p, k, sp, group, group,
+                   wald_rows.shape[0], **knobs)
+    count_launch(wrapper, inst)
+    return _rows(rows)
 
 
 def walk_closest_sc(rays8, cand_idx, cand_t, cand_count, wald_rows, group,
-                    *, lanes: WalkLanes):
+                    *, lanes: WalkLanes, debug_steps: bool = False,
+                    depth: int | None = None, mb: int | None = None):
     """Closest-hit walk of supercluster candidates (cull="sc"; JAX's
     _walk_kernel with sc_m = group): candidate s stands for the clusters
     s*group .. s*group + group - 1 (those past C hold nothing), all walked
     in one step, and the early exit is tested before each candidate. The
     winner code is cluster * S_pad + slot, as walk_closest's. Arguments as
-    walk_closest's (wald_rows and lanes are the cluster tables).
+    walk_closest's (wald_rows and lanes are the cluster tables), and the
+    knobs debug_steps, depth and mb (lean and mm have no supercluster
+    form, as in JAX).
 
     A CUDA tensor launches csrc/bundle_walk.cu's supercluster kernel (and
     counts the launch in walk_closest_sc.launches); a CPU tensor runs
     walk_closest_reference(..., sc_m=group). Anything else raises."""
-    return _walk_sc(walk_closest_sc, "rt2_walk_closest_sc",
+    return _walk_sc(walk_closest_sc, "rt2_walk_closest",
                     walk_closest_reference, rays8, cand_idx, cand_t,
-                    cand_count, wald_rows, group, lanes)
+                    cand_count, wald_rows, group, lanes,
+                    debug_steps=debug_steps, depth=depth, mb=mb)
 
 
 walk_closest_sc.launches = 0
+walk_closest_sc.knob_launches = {}
 
 
 def walk_occluded_sc(rays8, cand_idx, cand_t, cand_count, wald_rows, group,
-                     *, lanes: WalkLanes):
+                     *, lanes: WalkLanes, debug_steps: bool = False,
+                     depth: int | None = None, mb: int | None = None):
     """Any-hit walk of supercluster candidates (JAX's _occlude_kernel with
     sc_m = group), as walk_closest_sc is the closest-hit one. A CUDA tensor
     launches csrc/bundle_occlude.cu's supercluster kernel (counted in
     walk_occluded_sc.launches); a CPU tensor runs
-    walk_occluded_reference(..., sc_m=group)."""
-    return _walk_sc(walk_occluded_sc, "rt2_walk_occluded_sc",
+    walk_occluded_reference(..., sc_m=group). Knobs as walk_closest_sc's."""
+    return _walk_sc(walk_occluded_sc, "rt2_walk_occluded",
                     walk_occluded_reference, rays8, cand_idx, cand_t,
-                    cand_count, wald_rows, group, lanes)
+                    cand_count, wald_rows, group, lanes,
+                    debug_steps=debug_steps, depth=depth, mb=mb)
 
 
 walk_occluded_sc.launches = 0
+walk_occluded_sc.knob_launches = {}
 
 
 # ---------------------------------------------------------------------------
@@ -804,13 +913,28 @@ def _rank_chunks(entry: torch.Tensor, k: int):
     return [_rank(entry[b0:b0 + cb], k) for b0 in range(0, entry.shape[0], cb)]
 
 
+def apply_t_cap(tx: torch.Tensor, cap: torch.Tensor) -> torch.Tensor:
+    """min(t_max, max(cap * 1.0001 + 1e-6, -1)) (JAX _apply_t_cap): the
+    cap inflated by a relative epsilon so boundary hits survive, and rays
+    that overlap nothing (cap -inf) clamped to the dead-ray -1, not to a
+    NaN key. XLA's CPU backend contracts the multiply-add into one fused
+    rounding (checked on the jitted function), so it is fma here."""
+    inflated = fma(cap, torch.full_like(cap, 1.0001),
+                   torch.full_like(cap, 1e-6))
+    return torch.minimum(tx, torch.maximum(inflated,
+                                           torch.full_like(cap, -1.0)))
+
+
 def prepare_bundles_exact(clusters: Clusters, origins, directions, t_min,
                           t_max, scene_min, scene_max, bundle_size: int,
                           presorted: bool, k_cand: int,
-                          sort_key: str = "cand0") -> Prep:
+                          sort_key: str = "cand0",
+                          t_cap: bool = False) -> Prep:
     """Exact-cull prep (JAX _prepare_bundles_exact): per-ray slab tests,
     the rays sorted by `sort_key` (unless presorted), per-bundle union
-    candidate lists ranked nearest first."""
+    candidate lists ranked nearest first. t_cap: each ray's t_max is then
+    clamped to the farthest exit of the boxes it overlaps (B4's cap,
+    apply_t_cap); the union and the sort key read the t_max given."""
     p = bundle_size
     c = clusters.num_clusters
     if presorted:
@@ -820,7 +944,10 @@ def prepare_bundles_exact(clusters: Clusters, origins, directions, t_min,
                                      t_max, scene_min, scene_max, sort_key)
     o, d, tn, tx, _ = _pad_rays(o, d, tn, tx, p)
     union = cull_mod.bundle_union(_pack8(o, d, tn, tx), clusters.aabb_min,
-                                  clusters.aabb_max, p)
+                                  clusters.aabb_max, p, cap=t_cap)
+    if t_cap:
+        union, cap = union
+        tx = apply_t_cap(tx, cap)
     return _finish(perm, o, d, tn, tx, _rank_chunks(union, min(k_cand, c)))
 
 
@@ -984,10 +1111,10 @@ K_SC = 12  # JAX's k_sc: superclusters each bundle refines under "hier"
 def _prepare(clusters: Clusters, origins, directions, tn_o, tx_o,
              scene_min, scene_max, p: int, presorted: bool, cull: str,
              k_cand: int, sort_key: str = "cand0", m_super: int = M_SUPER,
-             k_sc: int = K_SC) -> Prep:
+             k_sc: int = K_SC, t_cap: bool = False) -> Prep:
     """JAX's _prep dispatch over the culls (module docstring); "auto" is
     "exact". For "sc" m_super is the caller's, clamped to the walk's
-    slot field."""
+    slot field. t_cap applies to the exact cull only, as in JAX."""
     if cull == "auto":
         cull = "exact"
     if cull == "sc":
@@ -1001,7 +1128,8 @@ def _prepare(clusters: Clusters, origins, directions, tn_o, tx_o,
     if cull == "exact":
         return prepare_bundles_exact(clusters, origins, directions, tn_o,
                                      tx_o, scene_min, scene_max, p,
-                                     presorted, k_cand, sort_key=sort_key)
+                                     presorted, k_cand, sort_key=sort_key,
+                                     t_cap=t_cap)
     if cull in ("interval", "exact_iv"):
         return prepare_bundles_interval(
             clusters, origins, directions, tn_o, tx_o, p, k_cand,
@@ -1053,6 +1181,28 @@ def _full_cull(cull: str) -> str:
     return "exact" if cull == "hier" else cull
 
 
+def _lean_code(key, it, prep: Prep, group: int, sp: int, p: int):
+    """lean's winner code in bundle order (JAX's sorted-space decode): the
+    slot rides the key's low bits, the step gives the candidate, and one
+    gather into the candidate table the cluster; -1 steps miss. The
+    gather index is clamped into the table, as JAX's jnp.clip (a torch
+    gather out of range would raise, or assert on CUDA)."""
+    slot = key & SLOT_MASK
+    k = prep.cand_idx.shape[1]
+    row = torch.arange(key.shape[0], device=key.device) // p
+    flat = torch.clamp(row * k + it * group + slot // sp, 0,
+                       prep.cand_idx.numel() - 1)
+    ci = prep.cand_idx.reshape(-1)[flat]
+    return torch.where(it < 0, MISS_CODE, ci * sp + slot % sp)
+
+
+def _debug_info(steps, prep: Prep) -> dict:
+    """debug_steps's telemetry (JAX's): each bundle's walk steps, its
+    candidate count and whether any bundle overflowed."""
+    return {"steps": steps, "cand_count": prep.cand_count,
+            "overflowed": prep.overflowed.any()}
+
+
 def closest_hit_bundle(clusters: Clusters, tables: WalkTables,
                        origins: torch.Tensor, directions: torch.Tensor,
                        t_min, t_max, scene_min: torch.Tensor,
@@ -1060,40 +1210,66 @@ def closest_hit_bundle(clusters: Clusters, tables: WalkTables,
                        presorted: bool = False, cull: str = "exact",
                        group: int = 4, k_cand: int = 256,
                        sort_key: str = "cand0", m_super: int = M_SUPER,
-                       k_sc: int = K_SC, overflow_fallback: bool = True
-                       ) -> tuple[HitRecord, int]:
+                       k_sc: int = K_SC, overflow_fallback: bool = True,
+                       depth: int | None = None, mb: int | None = None,
+                       mm: bool = False, t_cap: bool = False,
+                       debug_steps: bool = False, lean: bool = False):
     """Closest hit through the bundle walk. Returns (HitRecord, number of
     bundles that overflowed k_cand and took the fallback).
 
     cull is one of CULLS (module docstring); sort_key (SORT_KEYS) orders
     unsorted rays under "exact" (and "octz" the interval cull's); m_super
     and k_sc shape "hier" and "sc". Under "sc" the walk is walk_closest_sc
-    and nothing overflows."""
+    and nothing overflows. The knobs depth, mb, mm, t_cap, lean and
+    debug_steps are JAX's (module docstring): depth=None is the card's
+    ring of 4 slots (JAX's TPU default is 2 DMA slots), mb=None one bundle
+    a block (JAX's TPU default of 8 bundles a grid step is a grid shape).
+    debug_steps returns (HitRecord, {"steps", "cand_count",
+    "overflowed"}) and takes no fallback. The partial fallback takes
+    depth, mb and lean, not mm or t_cap, as JAX's."""
     n_orig = origins.shape[0]
     p = bundle_size
     group, m_super = _walk_shape(tables, cull, group, m_super)
+    if cull == "sc":  # no supercluster form, as in JAX
+        mm = lean = False
     tn_o = _per_ray(t_min, n_orig, origins)
     tx_o = _per_ray(t_max, n_orig, origins)
     prep = _prepare(clusters, origins, directions, tn_o, tx_o, scene_min,
                     scene_max, p, presorted, cull, k_cand, sort_key, m_super,
-                    k_sc)
-    walk = walk_closest_sc if prep.sc_m else walk_closest
-    code = walk(_rays8(prep), prep.cand_idx, prep.cand_t, prep.cand_count,
-                tables.wald_rows, group, lanes=tables.lanes)[:n_orig]
-    # un-sort the codes, then decode in caller order
-    rec = _decode(_unsort(code, prep), tables.meta_rows, origins,
+                    k_sc, t_cap=t_cap)
+    knobs = dict(debug_steps=debug_steps, depth=depth, mb=mb)
+    if prep.sc_m:
+        rows = walk_closest_sc(_rays8(prep), prep.cand_idx, prep.cand_t,
+                               prep.cand_count, tables.wald_rows, group,
+                               lanes=tables.lanes, **knobs)
+    else:
+        rows = walk_closest(_rays8(prep), prep.cand_idx, prep.cand_t,
+                            prep.cand_count, tables.wald_rows, group,
+                            lanes=tables.lanes, lean=lean, mm=mm, **knobs)
+    rows = rows if isinstance(rows, tuple) else (rows,)
+    if lean:
+        code = _lean_code(rows[0], rows[1], prep, group,
+                          tables.wald_rows.shape[-1], p)
+    else:
+        code = rows[0]
+    # un-sort the codes, then decode in caller order (the miss t is the
+    # caller's t_max, not the capped one)
+    rec = _decode(_unsort(code[:n_orig], prep), tables.meta_rows, origins,
                   directions, tx_o)
+    if debug_steps:
+        return rec, _debug_info(rows[-1], prep)
 
     n_ovf = int(prep.overflowed.sum())
     if not overflow_fallback or n_ovf == 0:
         return rec, n_ovf
     full_k = clusters.num_clusters
+    knobs = dict(depth=depth, mb=mb, lean=lean)
     if n_ovf > FALLBACK_BUNDLES:
         rec, _ = closest_hit_bundle(
             clusters, tables, origins, directions, tn_o, tx_o, scene_min,
             scene_max, bundle_size=p, presorted=presorted,
             cull=_full_cull(cull), group=group, k_cand=full_k,
-            sort_key=sort_key, overflow_fallback=False)
+            sort_key=sort_key, overflow_fallback=False, **knobs)
         return rec, n_ovf
     # re-trace only the overflowed bundles' rays, in their bundle order,
     # with full-length candidate lists (cannot truncate => exact)
@@ -1101,7 +1277,7 @@ def closest_hit_bundle(clusters: Clusters, tables: WalkTables,
     sub, _ = closest_hit_bundle(
         clusters, tables, origins[oi], directions[oi], tn_o[oi], tx_o[oi],
         scene_min, scene_max, bundle_size=p, presorted=True, cull="exact",
-        group=group, k_cand=full_k, overflow_fallback=False)
+        group=group, k_cand=full_k, overflow_fallback=False, **knobs)
     rec = HitRecord(*(field.index_put((oi,), sub_field)
                       for field, sub_field in zip(rec, sub)))
     return rec, n_ovf
@@ -1118,42 +1294,59 @@ def occluded_bundle(clusters: Clusters, tables: WalkTables,
                     presorted: bool = False, cull: str = "exact",
                     group: int = 4, k_cand: int = 256,
                     sort_key: str = "cand0", m_super: int = M_SUPER,
-                    k_sc: int = K_SC, overflow_fallback: bool = True
-                    ) -> tuple[torch.Tensor, int]:
+                    k_sc: int = K_SC, overflow_fallback: bool = True,
+                    depth: int | None = None, mb: int | None = None,
+                    mm: bool = False, t_cap: bool = False,
+                    debug_steps: bool = False):
     """Any-hit visibility batch through the bundle walk: (blocked bool
     [N], number of bundles that overflowed k_cand and took the fallback).
-    The culls, keys and fallback are closest_hit_bundle's: the overflowed
-    bundles' rays re-trace through the same kernel at k_cand = C, or the
-    whole batch does past FALLBACK_BUNDLES."""
+    The culls, keys, knobs (but lean) and fallback are
+    closest_hit_bundle's: the overflowed bundles' rays re-trace through
+    the same kernel at k_cand = C (with depth and mb, not mm or t_cap), or
+    the whole batch does past FALLBACK_BUNDLES; debug_steps returns
+    (blocked, {"steps", "cand_count", "overflowed"}) and takes no
+    fallback."""
     n_orig = origins.shape[0]
     p = bundle_size
     group, m_super = _walk_shape(tables, cull, group, m_super)
+    if cull == "sc":
+        mm = False
     tn_o = _per_ray(t_min, n_orig, origins)
     tx_o = _per_ray(t_max, n_orig, origins)
     prep = _prepare(clusters, origins, directions, tn_o, tx_o, scene_min,
                     scene_max, p, presorted, cull, k_cand, sort_key, m_super,
-                    k_sc)
-    walk = walk_occluded_sc if prep.sc_m else walk_occluded
-    hit = walk(_rays8(prep), prep.cand_idx, prep.cand_t, prep.cand_count,
-               tables.wald_rows, group, lanes=tables.lanes)[:n_orig]
-    blocked = _unsort(hit, prep) != 0
+                    k_sc, t_cap=t_cap)
+    knobs = dict(debug_steps=debug_steps, depth=depth, mb=mb)
+    if prep.sc_m:
+        rows = walk_occluded_sc(_rays8(prep), prep.cand_idx, prep.cand_t,
+                                prep.cand_count, tables.wald_rows, group,
+                                lanes=tables.lanes, **knobs)
+    else:
+        rows = walk_occluded(_rays8(prep), prep.cand_idx, prep.cand_t,
+                             prep.cand_count, tables.wald_rows, group,
+                             lanes=tables.lanes, mm=mm, **knobs)
+    rows = rows if isinstance(rows, tuple) else (rows,)
+    blocked = _unsort(rows[0][:n_orig], prep) != 0
+    if debug_steps:
+        return blocked, _debug_info(rows[-1], prep)
 
     n_ovf = int(prep.overflowed.sum())
     if not overflow_fallback or n_ovf == 0:
         return blocked, n_ovf
     full_k = clusters.num_clusters
+    knobs = dict(depth=depth, mb=mb)
     if n_ovf > FALLBACK_BUNDLES:
         blocked, _ = occluded_bundle(
             clusters, tables, origins, directions, tn_o, tx_o, scene_min,
             scene_max, bundle_size=p, presorted=presorted,
             cull=_full_cull(cull), group=group, k_cand=full_k,
-            sort_key=sort_key, overflow_fallback=False)
+            sort_key=sort_key, overflow_fallback=False, **knobs)
         return blocked, n_ovf
     oi = _overflowed_rays(prep, p, n_orig)
     sub, _ = occluded_bundle(
         clusters, tables, origins[oi], directions[oi], tn_o[oi], tx_o[oi],
         scene_min, scene_max, bundle_size=p, presorted=True, cull="exact",
-        group=group, k_cand=full_k, overflow_fallback=False)
+        group=group, k_cand=full_k, overflow_fallback=False, **knobs)
     return blocked.index_put((oi,), sub), n_ovf
 
 

@@ -7,7 +7,9 @@ its Pallas kernels (csrc/cull.cu) and their plain torch versions.
   ray's segment overlaps no box. The dense pass of the cand0 sort key.
 - bundle_union (B4, _union_kernel): per bundle of P consecutive rays and
   per box, the least entry distance over the bundle's rays, +inf where
-  none overlaps. The [B, C] table the candidate ranking sorts.
+  none overlaps. The [B, C] table the candidate ranking sorts. With
+  cap=True (t_cap, JAX's _entry_exact_cap) also per ray the farthest exit
+  distance over the boxes it overlaps, -inf where it overlaps none.
 
 Rays are [N, 8] f32 rows (ox oy oz dx dy dz t_min t_max); boxes are the
 clusters' [C, 3] corners. On a CUDA tensor a wrapper launches its kernel
@@ -42,6 +44,23 @@ def _entry_exact(o, d, tn, tx, amin, amax):
     entry distance, +inf where the ray's [tn, tx] segment misses the box;
     dead rays (tx < 0) get all-inf rows. torch.minimum/maximum propagate
     NaN, so a NaN ray misses every box."""
+    near, _, hit = _slab(o, d, tn, tx, amin, amax)
+    # max(near, +0) with a +0 result for near = -0 on every device
+    return torch.where(hit, torch.where(near > 0.0, near, 0.0), torch.inf)
+
+
+def _entry_exact_cap(o, d, tn, tx, amin, amax):
+    """_entry_exact and, per ray, the farthest exit over the boxes it
+    overlaps ([n]; -inf where none), with -0 made +0 (far + 0.0): the max
+    is then one value whatever the order, as the kernel's integer max."""
+    near, far, hit = _slab(o, d, tn, tx, amin, amax)
+    entry = torch.where(hit, torch.where(near > 0.0, near, 0.0), torch.inf)
+    cap = torch.where(hit, far + 0.0, -torch.inf).amax(dim=1)
+    return entry, cap
+
+
+def _slab(o, d, tn, tx, amin, amax):
+    """The [n, C] slab test: (near, far, hit)."""
     eps = 1e-12
     ds = torch.where(torch.abs(d) < eps, torch.where(d >= 0, eps, -eps), d)
     inv = 1.0 / ds  # [n, 3]
@@ -57,8 +76,7 @@ def _entry_exact(o, d, tn, tx, amin, amax):
         far = hi if far is None else torch.minimum(far, hi)
     hit = ((near <= far) & (far >= tn[:, None]) & (near <= tx[:, None])
            & (tx >= 0.0)[:, None])
-    # max(near, +0) with a +0 result for near = -0 on every device
-    return torch.where(hit, torch.where(near > 0.0, near, 0.0), torch.inf)
+    return near, far, hit
 
 
 def _check(rays8, amin, amax):
@@ -79,9 +97,11 @@ def _check(rays8, amin, amax):
         raise ValueError(f"the cull runs on cuda or cpu, not {rays8.device}")
 
 
-def _launch(entry: str, name: str, rays8, amin, amax, out, *counts):
+def _launch(entry: str, name: str, rays8, amin, amax, *outs_counts):
     """Launch one cull kernel of the library on the current stream; raises
-    if the launch is refused. Boxes go to the kernel as [6, C] rows."""
+    if the launch is refused. Boxes go to the kernel as [6, C] rows;
+    outs_counts are its outputs' pointers (None a null pointer) and
+    counts."""
     from raytracer2_tpu_torch.ops import _build
 
     lib = _build.library()
@@ -89,13 +109,13 @@ def _launch(entry: str, name: str, rays8, amin, amax, out, *counts):
     boxes = torch.cat([amin.T, amax.T]).contiguous()
     with torch.cuda.device(rays8.device):
         stream = torch.cuda.current_stream().cuda_stream
-        err = getattr(lib, entry)(rays8.data_ptr(), boxes.data_ptr(),
-                                  out.data_ptr(), *counts,
-                                  ctypes.c_void_p(stream))
+        err = getattr(lib, entry)(
+            rays8.data_ptr(), boxes.data_ptr(),
+            *(x.data_ptr() if isinstance(x, torch.Tensor) else x
+              for x in outs_counts), ctypes.c_void_p(stream))
     if err != 0:
         raise RuntimeError(f"{name} launch failed: "
                            f"{lib.rt2_error_string(err).decode()} ({err})")
-    return out
 
 
 def nearest_box(rays8: torch.Tensor, amin: torch.Tensor,
@@ -138,38 +158,60 @@ def _bundles(rays8: torch.Tensor, p: int) -> int:
     return rays8.shape[0] // p
 
 
+# the float order (bits >= 0 ? bits : bits ^ 0x7FFFFFFF) of -inf: where the
+# kernel's per-ray cap starts
+NEG_INF_ORDER = -2139095041
+
+
 def bundle_union(rays8: torch.Tensor, amin: torch.Tensor, amax: torch.Tensor,
-                 p: int) -> torch.Tensor:
+                 p: int, cap: bool = False):
     """[B, C] f32: per bundle of p consecutive rays and per box, the least
-    entry distance over the bundle's rays, +inf where none overlaps. A CUDA
-    tensor launches csrc/cull.cu::rt2_bundle_union; a CPU tensor runs the
-    plain version."""
+    entry distance over the bundle's rays, +inf where none overlaps. With
+    cap=True, (that table, [N] f32 per ray the farthest exit over the boxes
+    it overlaps, -inf where none). A CUDA tensor launches
+    csrc/cull.cu::rt2_bundle_union (counted in bundle_union.launches, or
+    with the cap in bundle_union.knob_launches["cap"]); a CPU tensor runs
+    the plain version."""
     _check(rays8, amin, amax)
     b = _bundles(rays8, p)
     if rays8.device.type == "cpu":
-        return bundle_union_reference(rays8, amin, amax, p)
+        return bundle_union_reference(rays8, amin, amax, p, cap=cap)
     if p > MAX_BUNDLE:
         raise ValueError(f"bundle size {p} exceeds {MAX_BUNDLE}")
     out = torch.empty((b, amin.shape[0]), dtype=torch.float32,
                       device=rays8.device)
-    _launch("rt2_bundle_union", "bundle_union", rays8, amin, amax, out, b, p,
-            amin.shape[0])
-    bundle_union.launches += 1
-    return out
+    order = (torch.full((rays8.shape[0],), NEG_INF_ORDER, dtype=torch.int32,
+                        device=rays8.device) if cap else None)
+    _launch("rt2_bundle_union", "bundle_union", rays8, amin, amax, out,
+            order, b, p, amin.shape[0])
+    if not cap:
+        bundle_union.launches += 1
+        return out
+    bundle_union.knob_launches["cap"] = (
+        bundle_union.knob_launches.get("cap", 0) + 1)
+    # float order -> float bits
+    return out, torch.where(order >= 0, order, order ^ 0x7FFFFFFF).view(
+        torch.float32)
 
 
 bundle_union.launches = 0
+bundle_union.knob_launches = {}
 
 
 def bundle_union_reference(rays8: torch.Tensor, amin: torch.Tensor,
-                           amax: torch.Tensor, p: int) -> torch.Tensor:
+                           amax: torch.Tensor, p: int, cap: bool = False):
     """Plain torch version of bundle_union, in chunks of whole bundles."""
     _check(rays8, amin, amax)
     b, c = _bundles(rays8, p), amin.shape[0]
     cb = max(1, chunk_bytes(rays8.device) // (4 * c * p))
     out = torch.empty((b, c), dtype=torch.float32, device=rays8.device)
+    caps = torch.empty(b * p, dtype=torch.float32, device=rays8.device)
     for b0 in range(0, b, cb):
         r = rays8[b0 * p:(b0 + cb) * p]
-        e = _entry_exact(r[:, 0:3], r[:, 3:6], r[:, 6], r[:, 7], amin, amax)
+        args = (r[:, 0:3], r[:, 3:6], r[:, 6], r[:, 7], amin, amax)
+        if cap:
+            e, caps[b0 * p:(b0 + cb) * p] = _entry_exact_cap(*args)
+        else:
+            e = _entry_exact(*args)
         out[b0:b0 + cb] = e.reshape(-1, p, c).amin(dim=1)
-    return out
+    return (out, caps) if cap else out

@@ -159,3 +159,37 @@ def hit_test(r, wr):
         t.index_put_(lanes, t_f)
         hit.index_put_(lanes, hit_f)
     return t, hit
+
+
+def hit_test_mm(r, wr):
+    """The Wald test as JAX's _intersect_block_mm writes it (mm=True): the
+    six affines of rays r [nb, P, 8] against rows wr [nb, 12, 1, W] as
+    float32 matrix products [o | 1 ; d | 0] @ W_c, t = -o'_z / d'_z, u =
+    o'_u + t d'_u and v alike rounded twice (unfused). (t, hit) [nb, P, W]
+    with hit = |d'_z| > 1e-12, u >= 0, v >= 0, u + v <= 1, t > t_min.
+
+    The plain version of the walks' tensor-core form: the products' sums
+    round in the matmul's own order, so the kernel (3xTF32) agrees with it
+    only up to rounding ties. Raises unless float32 matmuls on the rays'
+    device are IEEE float32, as hit_test does."""
+    if not ieee_fp32_matmul(r.device):
+        raise RuntimeError(
+            "the mm Wald test needs IEEE float32 matmuls on "
+            f"{r.device.type}; set torch.backends.cuda.matmul.fp32_precision "
+            "or torch.backends.mkldnn.matmul.fp32_precision to 'ieee'")
+    nb, p, wd = r.shape[0], r.shape[1], wr.shape[-1]
+    # [nb, 4, 3W]: input k of the u, v and z outputs side by side
+    coef = wr.reshape(nb, 4, 3 * wd)
+    ray_mat = torch.cat([
+        torch.cat([r[..., 0:3], torch.ones_like(r[..., 0:1])], dim=-1),
+        torch.cat([r[..., 3:6], torch.zeros_like(r[..., 0:1])], dim=-1)],
+        dim=1)  # [nb, 2P, 4]
+    out = torch.bmm(ray_mat, coef)
+    op_u, op_v, op_z = out[:, :p].split(wd, dim=-1)
+    dp_u, dp_v, dp_z = out[:, p:].split(wd, dim=-1)
+    t = -op_z / dp_z
+    uu = op_u + t * dp_u
+    vv = op_v + t * dp_v
+    hit = ((torch.abs(dp_z) > 1e-12) & (uu >= 0.0) & (vv >= 0.0)
+           & (uu + vv <= 1.0) & (t > r[..., 6:7]))
+    return t, hit

@@ -9,7 +9,8 @@ Pixels run in Z-order chunks of `chunk_pixels`, so every trace sees
 screen-tile-coherent batches; the camera ray is traced once per chunk
 (presorted, it is the same for every sample) and reused across samples;
 bounce batches give terminated lanes t_max = -1 so they never hit and
-never widen a bundle.
+never widen a bundle; with compact_dead_lanes a bounce batch of at least
+2,048 lanes, at most half of them live, traces only its live half.
 """
 
 from __future__ import annotations
@@ -18,7 +19,8 @@ from typing import Callable
 
 import torch
 
-from raytracer2_tpu_torch.ops.intersect import HitRecord, intersect_brute_force
+from raytracer2_tpu_torch.ops.intersect import (
+    INVALID_INDEX, HitRecord, intersect_brute_force)
 from raytracer2_tpu_torch.params import BACKGROUND_DEPTH, GConst
 from raytracer2_tpu_torch.render import rays as raysmod
 from raytracer2_tpu_torch.render.surface import (
@@ -29,6 +31,7 @@ from raytracer2_tpu_torch.utils.brdf import dot3
 
 MAX_BOUNCES = 5  # (ref: refrence.rgen:16)
 MAX_SAMPLES = 12  # (ref: refrence.rgen:17)
+COMPACT_MIN_LANES = 2048  # smaller bounce batches never compact
 
 # (origins, directions, t_min, t_max, presorted=False) -> HitRecord
 TraceFn = Callable[..., HitRecord]
@@ -47,6 +50,34 @@ def make_brute_force_tracer(scene: Scene, chunk: int = 512) -> TraceFn:
     return trace
 
 
+def _trace_compact(trace_fn: TraceFn, o, d, tn, tx) -> HitRecord:
+    """A bounce batch with its dead lanes (t_max < 0) compacted away (JAX's
+    tf_compact): where at most half of n >= COMPACT_MIN_LANES lanes are
+    live, the first n // 2 lanes of a stable live-first order are traced
+    and scattered back, the rest filled as a miss at t 0; else the whole
+    batch is traced. Dead lanes take no part in the frame, so the image is
+    the uncompacted one's bit for bit."""
+    n = o.shape[0]
+    h = n // 2
+    dead = tx < 0.0
+    if n < COMPACT_MIN_LANES or int((~dead).sum()) > h:
+        return trace_fn(o, d, tn, tx)
+    perm = torch.argsort(dead.to(torch.uint8), stable=True)[:h]
+    rec = trace_fn(o[perm], d[perm], tn[perm], tx[perm])
+
+    def back(leaf, fill):
+        out = torch.full((n,) + leaf.shape[1:], fill, dtype=leaf.dtype,
+                         device=leaf.device)
+        out[perm] = leaf
+        return out
+
+    return HitRecord(t=back(rec.t, 0.0), u=back(rec.u, 0.0),
+                     v=back(rec.v, 0.0),
+                     geometry_index=back(rec.geometry_index, INVALID_INDEX),
+                     primitive_id=back(rec.primitive_id, 0),
+                     triangle_index=back(rec.triangle_index, -1))
+
+
 def render_reference(
     scene: Scene,
     g_const: GConst,
@@ -55,20 +86,25 @@ def render_reference(
     max_bounces: int = MAX_BOUNCES,
     max_samples: int = MAX_SAMPLES,
     trace_fn: TraceFn | None = None,
+    textures_enabled: bool | None = None,
     with_ray_count: bool = False,
     chunk_pixels: int = 1 << 18,
     emission_facing: str = "double",
+    compact_dead_lanes: bool = False,
 ):
     """Render the reference image on the scene's device; returns linear
     radiance [H, W, 3] (and, with with_ray_count=True, the number of live
     rays traced as a Python int; the nominal count is W*H*spp*bounces).
 
-    emission_facing: "double" adds hit emission regardless of facing
-    (refrence.rgen:38); "front" only on front-face hits (the RMSE gate's
-    matched-transport oracle)."""
+    textures_enabled: None reads g_const.textures. emission_facing:
+    "double" adds hit emission regardless of facing (refrence.rgen:38);
+    "front" only on front-face hits (the RMSE gate's matched-transport
+    oracle). compact_dead_lanes traces each bounce batch through
+    _trace_compact (the same image bit for bit)."""
     if trace_fn is None:
         trace_fn = make_brute_force_tracer(scene)
-    textures_enabled = bool(g_const.textures)
+    if textures_enabled is None:
+        textures_enabled = bool(g_const.textures)
     environment = g_const.environment
     dev = scene.device
 
@@ -115,8 +151,11 @@ def render_reference(
                 if bounce == 0:
                     hit, surface, emission = hit0, surface0, emission0
                 else:
-                    hit = trace_fn(origin, direction, t_min,
-                                   torch.where(active, t_max, -1.0))
+                    lane_tmax = torch.where(active, t_max, -1.0)
+                    hit = (_trace_compact(trace_fn, origin, direction,
+                                          t_min, lane_tmax)
+                           if compact_dead_lanes else
+                           trace_fn(origin, direction, t_min, lane_tmax))
                     surface, emission = surface_from_hit(
                         scene, origin, direction, hit,
                         textures_enabled=textures_enabled)
@@ -156,3 +195,13 @@ def render_reference(
     if with_ray_count:
         return img, int(live_rays)
     return img
+
+
+def render_reference_jit(scene: Scene, g_const: GConst, width: int,
+                         height: int, max_bounces: int = MAX_BOUNCES,
+                         max_samples: int = MAX_SAMPLES):
+    """JAX's jitted entry point, the same signature: the reference image
+    through the brute-force tracer. The port has no trace step to compile
+    (torch runs eagerly), so this is one call of render_reference."""
+    return render_reference(scene, g_const, width, height, max_bounces,
+                            max_samples)

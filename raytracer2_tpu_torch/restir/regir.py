@@ -53,6 +53,12 @@ class OnionLayout:
     linear_factor: float
     num_cells: int
 
+    @property
+    def outer_radius(self) -> tuple:
+        """Each layer group's outermost shell radius."""
+        return tuple(r * s ** c for r, s, c in zip(
+            self.inner_radius, self.layer_scale, self.layer_count))
+
 
 def build_onion_layout(cell_size: float, detail_layers: int = 5,
                        coverage_layers: int = 10, detail_scale: float = 1.26,

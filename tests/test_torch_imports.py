@@ -26,9 +26,9 @@ print(len(names), jax_free, ",".join(names), ",".join(old))
 
 # the modules of the GI slice, the dense cull, the pair engine, the
 # environment slice, the app slice (app, viewer, lbvh, PNG), the
-# multi-device slice and the tracer-configuration slice (the XLA bundle and
-# scatter engines, the candidate preps of every cull), named so that a
-# missing one fails here rather than go unprobed
+# multi-device slice, the tracer-configuration slice (the XLA bundle and
+# scatter engines, the candidate preps of every cull) and the build cache,
+# named so that a missing one fails here rather than go unprobed
 SLICE_MODULES = {
     "raytracer2_tpu_torch.ops.cull",
     "raytracer2_tpu_torch.ops.cuda_pairs",
@@ -55,6 +55,7 @@ SLICE_MODULES = {
     "raytracer2_tpu_torch.ops.cluster",
     "raytracer2_tpu_torch.ops.wald",
     "raytracer2_tpu_torch.render.app_bridge",
+    "raytracer2_tpu_torch.compile_cache",
 }
 
 # the JAX package's modules the port may load: none (the port keeps its own
@@ -71,7 +72,7 @@ def test_every_submodule_imports_without_jax():
                          check=True).stdout.split()
     n_modules, jax_free = int(out[0]), out[1]
     old = set(out[3].split(",")) if len(out) > 3 else set()
-    assert n_modules >= 63
+    assert n_modules >= 64
     assert SLICE_MODULES <= set(out[2].split(","))
     assert jax_free == "True"
     assert old <= SHARED, old - SHARED

@@ -311,18 +311,18 @@ class _Recorder:
 
         def prepare(clusters, o, d, tn, tx, smin, smax, p, presorted, cull,
                     k_cand, sort_key="cand0", m_super=ct.M_SUPER,
-                    k_sc=ct.K_SC):
+                    k_sc=ct.K_SC, **knobs):
             self.preps.append((p, presorted, cull, k_cand, sort_key, m_super,
                                k_sc))
             return inner(clusters, o, d, tn, tx, smin, smax, p, presorted,
-                         cull, k_cand, sort_key, m_super, k_sc)
+                         cull, k_cand, sort_key, m_super, k_sc, **knobs)
 
         monkeypatch.setattr(ct, "_prepare", prepare)
 
     def _walk(self, inner):
-        def walk(*args, lanes):
+        def walk(*args, lanes, **knobs):
             self.groups.append(args[5])
-            return inner(*args, lanes=lanes)
+            return inner(*args, lanes=lanes, **knobs)
         return walk
 
 
