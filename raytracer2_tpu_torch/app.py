@@ -140,7 +140,9 @@ def build_arg_parser() -> argparse.ArgumentParser:
                         "live parameter edits (main.rs:522-627)")
     p.add_argument("--profile", default=None,
                    help="write a torch.profiler Chrome trace of the frames "
-                        "into this directory")
+                        "into this directory, with the program's spans "
+                        "(rt2:pass.*, rt2:trace.*, rt2:readback.*) on; "
+                        "their times and counts go to spans.json there")
     p.add_argument("--checkpoint", default=None,
                    help="save final frame state to this .npz for resume")
     p.add_argument("--resume", default=None,
@@ -311,6 +313,7 @@ def main(argv=None) -> int:
     from raytracer2_tpu_torch.render.postprocess import to_srgb_u8
     from raytracer2_tpu_torch.scene.camera import default_camera
     from raytracer2_tpu_torch.utils.png import write_png
+    from raytracer2_tpu_torch.utils import profiler
     from raytracer2_tpu_torch.utils.profiler import (
         PassTimer, count_frame_rays)
 
@@ -403,6 +406,9 @@ def main(argv=None) -> int:
                 activities.append(torch.profiler.ProfilerActivity.CUDA)
             prof = profiling.enter_context(
                 torch.profiler.profile(activities=activities))
+            spans = PassTimer(dev)
+            profiler.enable(spans)
+            profiling.callback(profiler.disable)
         for f in range(start_frame, start_frame + args.frames):
             if args.orbit:
                 angle = 2.0 * np.pi * (f / max(args.frames, 1)) * 0.25
@@ -445,7 +451,9 @@ def main(argv=None) -> int:
         trace = Path(args.profile) / "trace.json"
         trace.parent.mkdir(parents=True, exist_ok=True)
         prof.export_chrome_trace(str(trace))
-        logger.info("profiler trace written to %s", trace)
+        (trace.parent / "spans.json").write_text(spans.report())
+        logger.info("profiler trace and spans.json written to %s",
+                    trace.parent)
     if args.checkpoint:
         save_checkpoint(args.checkpoint, state, start_frame + args.frames)
         logger.info("checkpoint written to %s", args.checkpoint)

@@ -78,6 +78,8 @@ from raytracer2_tpu_torch.ops import traverse_bundle as tb
 from raytracer2_tpu_torch.ops.traverse_bundle import (
     _bundle_bounds, _expand_bits, _pad_rays, _per_ray)
 from raytracer2_tpu_torch.ops.wald import fma, hit_test, hit_test_mm
+from raytracer2_tpu_torch.utils import readback
+from raytracer2_tpu_torch.utils.profiler import span
 
 LANE_PAD = 128  # triangles per cluster row, padded to the lane width
 SLOT_BITS = 10  # group * S_pad <= 1024; low key bits carry the winning slot
@@ -1157,10 +1159,11 @@ def _unsort(x: torch.Tensor, prep: Prep) -> torch.Tensor:
 
 def _overflowed_rays(prep: Prep, p: int, n_orig: int) -> torch.Tensor:
     """Caller rows of the rays of the bundles whose union overflowed, in
-    their bundle order."""
-    bidx = torch.nonzero(prep.overflowed).reshape(-1)
+    their bundle order: two host reads (the bundles, then the rows short
+    of the padding)."""
+    bidx = readback.nonzero(prep.overflowed, "overflow_rays")
     j = (bidx[:, None] * p + torch.arange(p, device=bidx.device)).reshape(-1)
-    j = j[j < n_orig]
+    j = readback.masked(j, j < n_orig, "overflow_rays")
     return prep.perm[j] if prep.perm is not None else j
 
 
@@ -1226,60 +1229,74 @@ def closest_hit_bundle(clusters: Clusters, tables: WalkTables,
     a block (JAX's TPU default of 8 bundles a grid step is a grid shape).
     debug_steps returns (HitRecord, {"steps", "cand_count",
     "overflowed"}) and takes no fallback. The partial fallback takes
-    depth, mb and lean, not mm or t_cap, as JAX's."""
+    depth, mb and lean, not mm or t_cap, as JAX's.
+
+    The parts run inside utils/profiler spans: trace.prep (_prepare and
+    the walk's ray rows), trace.walk, trace.decode (_unsort, _decode) and
+    trace.fallback (the whole re-trace, whose own spans nest in it). The
+    overflow count is one counted host read (utils/readback.py, site
+    overflow_count), the partial fallback's rows two more
+    (overflow_rays)."""
     n_orig = origins.shape[0]
     p = bundle_size
     group, m_super = _walk_shape(tables, cull, group, m_super)
     if cull == "sc":  # no supercluster form, as in JAX
         mm = lean = False
-    tn_o = _per_ray(t_min, n_orig, origins)
-    tx_o = _per_ray(t_max, n_orig, origins)
-    prep = _prepare(clusters, origins, directions, tn_o, tx_o, scene_min,
-                    scene_max, p, presorted, cull, k_cand, sort_key, m_super,
-                    k_sc, t_cap=t_cap)
+    with span("trace.prep"):
+        tn_o = _per_ray(t_min, n_orig, origins)
+        tx_o = _per_ray(t_max, n_orig, origins)
+        prep = _prepare(clusters, origins, directions, tn_o, tx_o, scene_min,
+                        scene_max, p, presorted, cull, k_cand, sort_key,
+                        m_super, k_sc, t_cap=t_cap)
+        rays8 = _rays8(prep)
     knobs = dict(debug_steps=debug_steps, depth=depth, mb=mb)
-    if prep.sc_m:
-        rows = walk_closest_sc(_rays8(prep), prep.cand_idx, prep.cand_t,
-                               prep.cand_count, tables.wald_rows, group,
-                               lanes=tables.lanes, **knobs)
-    else:
-        rows = walk_closest(_rays8(prep), prep.cand_idx, prep.cand_t,
-                            prep.cand_count, tables.wald_rows, group,
-                            lanes=tables.lanes, lean=lean, mm=mm, **knobs)
+    with span("trace.walk"):
+        if prep.sc_m:
+            rows = walk_closest_sc(rays8, prep.cand_idx, prep.cand_t,
+                                   prep.cand_count, tables.wald_rows, group,
+                                   lanes=tables.lanes, **knobs)
+        else:
+            rows = walk_closest(rays8, prep.cand_idx, prep.cand_t,
+                                prep.cand_count, tables.wald_rows, group,
+                                lanes=tables.lanes, lean=lean, mm=mm,
+                                **knobs)
     rows = rows if isinstance(rows, tuple) else (rows,)
-    if lean:
-        code = _lean_code(rows[0], rows[1], prep, group,
-                          tables.wald_rows.shape[-1], p)
-    else:
-        code = rows[0]
-    # un-sort the codes, then decode in caller order (the miss t is the
-    # caller's t_max, not the capped one)
-    rec = _decode(_unsort(code[:n_orig], prep), tables.meta_rows, origins,
-                  directions, tx_o)
+    with span("trace.decode"):
+        if lean:
+            code = _lean_code(rows[0], rows[1], prep, group,
+                              tables.wald_rows.shape[-1], p)
+        else:
+            code = rows[0]
+        # un-sort the codes, then decode in caller order (the miss t is the
+        # caller's t_max, not the capped one)
+        rec = _decode(_unsort(code[:n_orig], prep), tables.meta_rows,
+                      origins, directions, tx_o)
     if debug_steps:
         return rec, _debug_info(rows[-1], prep)
 
-    n_ovf = int(prep.overflowed.sum())
+    n_ovf = readback.item(prep.overflowed.sum(), "overflow_count")
     if not overflow_fallback or n_ovf == 0:
         return rec, n_ovf
-    full_k = clusters.num_clusters
-    knobs = dict(depth=depth, mb=mb, lean=lean)
-    if n_ovf > FALLBACK_BUNDLES:
-        rec, _ = closest_hit_bundle(
-            clusters, tables, origins, directions, tn_o, tx_o, scene_min,
-            scene_max, bundle_size=p, presorted=presorted,
-            cull=_full_cull(cull), group=group, k_cand=full_k,
-            sort_key=sort_key, overflow_fallback=False, **knobs)
-        return rec, n_ovf
-    # re-trace only the overflowed bundles' rays, in their bundle order,
-    # with full-length candidate lists (cannot truncate => exact)
-    oi = _overflowed_rays(prep, p, n_orig)
-    sub, _ = closest_hit_bundle(
-        clusters, tables, origins[oi], directions[oi], tn_o[oi], tx_o[oi],
-        scene_min, scene_max, bundle_size=p, presorted=True, cull="exact",
-        group=group, k_cand=full_k, overflow_fallback=False, **knobs)
-    rec = HitRecord(*(field.index_put((oi,), sub_field)
-                      for field, sub_field in zip(rec, sub)))
+    with span("trace.fallback"):
+        full_k = clusters.num_clusters
+        knobs = dict(depth=depth, mb=mb, lean=lean)
+        if n_ovf > FALLBACK_BUNDLES:
+            rec, _ = closest_hit_bundle(
+                clusters, tables, origins, directions, tn_o, tx_o, scene_min,
+                scene_max, bundle_size=p, presorted=presorted,
+                cull=_full_cull(cull), group=group, k_cand=full_k,
+                sort_key=sort_key, overflow_fallback=False, **knobs)
+            return rec, n_ovf
+        # re-trace only the overflowed bundles' rays, in their bundle order,
+        # with full-length candidate lists (cannot truncate => exact)
+        oi = _overflowed_rays(prep, p, n_orig)
+        sub, _ = closest_hit_bundle(
+            clusters, tables, origins[oi], directions[oi], tn_o[oi],
+            tx_o[oi], scene_min, scene_max, bundle_size=p, presorted=True,
+            cull="exact", group=group, k_cand=full_k,
+            overflow_fallback=False, **knobs)
+        rec = HitRecord(*(field.index_put((oi,), sub_field)
+                          for field, sub_field in zip(rec, sub)))
     return rec, n_ovf
 
 
@@ -1311,43 +1328,50 @@ def occluded_bundle(clusters: Clusters, tables: WalkTables,
     group, m_super = _walk_shape(tables, cull, group, m_super)
     if cull == "sc":
         mm = False
-    tn_o = _per_ray(t_min, n_orig, origins)
-    tx_o = _per_ray(t_max, n_orig, origins)
-    prep = _prepare(clusters, origins, directions, tn_o, tx_o, scene_min,
-                    scene_max, p, presorted, cull, k_cand, sort_key, m_super,
-                    k_sc, t_cap=t_cap)
+    with span("trace.prep"):
+        tn_o = _per_ray(t_min, n_orig, origins)
+        tx_o = _per_ray(t_max, n_orig, origins)
+        prep = _prepare(clusters, origins, directions, tn_o, tx_o, scene_min,
+                        scene_max, p, presorted, cull, k_cand, sort_key,
+                        m_super, k_sc, t_cap=t_cap)
+        rays8 = _rays8(prep)
     knobs = dict(debug_steps=debug_steps, depth=depth, mb=mb)
-    if prep.sc_m:
-        rows = walk_occluded_sc(_rays8(prep), prep.cand_idx, prep.cand_t,
-                                prep.cand_count, tables.wald_rows, group,
-                                lanes=tables.lanes, **knobs)
-    else:
-        rows = walk_occluded(_rays8(prep), prep.cand_idx, prep.cand_t,
-                             prep.cand_count, tables.wald_rows, group,
-                             lanes=tables.lanes, mm=mm, **knobs)
+    with span("trace.walk"):
+        if prep.sc_m:
+            rows = walk_occluded_sc(rays8, prep.cand_idx, prep.cand_t,
+                                    prep.cand_count, tables.wald_rows, group,
+                                    lanes=tables.lanes, **knobs)
+        else:
+            rows = walk_occluded(rays8, prep.cand_idx, prep.cand_t,
+                                 prep.cand_count, tables.wald_rows, group,
+                                 lanes=tables.lanes, mm=mm, **knobs)
     rows = rows if isinstance(rows, tuple) else (rows,)
-    blocked = _unsort(rows[0][:n_orig], prep) != 0
+    with span("trace.decode"):
+        blocked = _unsort(rows[0][:n_orig], prep) != 0
     if debug_steps:
         return blocked, _debug_info(rows[-1], prep)
 
-    n_ovf = int(prep.overflowed.sum())
+    n_ovf = readback.item(prep.overflowed.sum(), "overflow_count")
     if not overflow_fallback or n_ovf == 0:
         return blocked, n_ovf
-    full_k = clusters.num_clusters
-    knobs = dict(depth=depth, mb=mb)
-    if n_ovf > FALLBACK_BUNDLES:
-        blocked, _ = occluded_bundle(
-            clusters, tables, origins, directions, tn_o, tx_o, scene_min,
-            scene_max, bundle_size=p, presorted=presorted,
-            cull=_full_cull(cull), group=group, k_cand=full_k,
-            sort_key=sort_key, overflow_fallback=False, **knobs)
-        return blocked, n_ovf
-    oi = _overflowed_rays(prep, p, n_orig)
-    sub, _ = occluded_bundle(
-        clusters, tables, origins[oi], directions[oi], tn_o[oi], tx_o[oi],
-        scene_min, scene_max, bundle_size=p, presorted=True, cull="exact",
-        group=group, k_cand=full_k, overflow_fallback=False, **knobs)
-    return blocked.index_put((oi,), sub), n_ovf
+    with span("trace.fallback"):
+        full_k = clusters.num_clusters
+        knobs = dict(depth=depth, mb=mb)
+        if n_ovf > FALLBACK_BUNDLES:
+            blocked, _ = occluded_bundle(
+                clusters, tables, origins, directions, tn_o, tx_o, scene_min,
+                scene_max, bundle_size=p, presorted=presorted,
+                cull=_full_cull(cull), group=group, k_cand=full_k,
+                sort_key=sort_key, overflow_fallback=False, **knobs)
+            return blocked, n_ovf
+        oi = _overflowed_rays(prep, p, n_orig)
+        sub, _ = occluded_bundle(
+            clusters, tables, origins[oi], directions[oi], tn_o[oi],
+            tx_o[oi], scene_min, scene_max, bundle_size=p, presorted=True,
+            cull="exact", group=group, k_cand=full_k,
+            overflow_fallback=False, **knobs)
+        blocked = blocked.index_put((oi,), sub)
+    return blocked, n_ovf
 
 
 # ---------------------------------------------------------------------------

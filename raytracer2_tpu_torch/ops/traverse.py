@@ -25,6 +25,7 @@ import torch
 from raytracer2_tpu_torch.ops.bvh import BVH
 from raytracer2_tpu_torch.ops.intersect import (
     INVALID_INDEX, HitRecord, _per_ray, moller_trumbore, safe_inv_dir)
+from raytracer2_tpu_torch.utils import readback
 
 STACK_SIZE = 64  # checked against max_depth(bvh) when the tracers are made
 CHECK_EVERY = 8  # walk steps between the host's looks at the live set
@@ -142,7 +143,7 @@ def _walk(bvh: BVH, tri_v0, tri_edge1, tri_edge2, origins, directions,
             out_leaf[ids] = best_leaf
         else:
             out_blocked[ids] = blocked
-        keep = torch.nonzero((sp > 0) & ~blocked).reshape(-1)
+        keep = readback.nonzero((sp > 0) & ~blocked, "lbvh_check")
         ids, o, d, tn, tx, inv, stack, sp = (
             x[keep] for x in (ids, o, d, tn, tx, inv, stack, sp))
         best_t, best_u, best_v, best_leaf, blocked = (

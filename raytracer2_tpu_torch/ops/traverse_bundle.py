@@ -37,6 +37,7 @@ from raytracer2_tpu_torch.ops.cluster import Clusters, bundle_cluster_overlap
 from raytracer2_tpu_torch.ops.intersect import INVALID_INDEX, HitRecord
 from raytracer2_tpu_torch.ops.traverse import WalkStats
 from raytracer2_tpu_torch.ops.wald import fused_tuv, hit_test
+from raytracer2_tpu_torch.utils import readback
 
 BUNDLE_SIZE = 128
 RAY_BATCH = 65536  # rays per dispatch slice (bounds all-pairs intermediates)
@@ -55,8 +56,8 @@ def _pad_rays(origins, directions, t_min, t_max, multiple: int):
         origins = torch.cat(
             [origins, torch.zeros((pad, 3), dtype=origins.dtype, device=dev)])
         directions = torch.cat(
-            [directions, torch.tensor([[0.0, 0.0, 1.0]], dtype=directions.dtype,
-                                      device=dev).expand(pad, 3)])
+            [directions, readback.constant(((0.0, 0.0, 1.0),), dev,
+                                           directions.dtype).expand(pad, 3)])
         t_min = torch.cat(
             [t_min, torch.zeros((pad,), dtype=t_min.dtype, device=dev)])
         t_max = torch.cat(
@@ -226,7 +227,7 @@ def _trace_bundles(origins, directions, t_min, t_max, clusters: Clusters,
         else:
             # early out: the next chunk enters beyond the worst live hit
             active &= next_t <= best_t.amax(dim=-1)
-        live = torch.nonzero(active).reshape(-1)
+        live = readback.nonzero(active, "bundle_engine_check")
         checks += 1
         if live.numel() == 0:
             break

@@ -37,7 +37,8 @@ from raytracer2_tpu_torch.restir.bridge import Bridge
 from raytracer2_tpu_torch.scene.scene import Scene
 from raytracer2_tpu_torch.utils import brdf as brdfm
 from raytracer2_tpu_torch.utils.packing import linear_to_zcurve
-from raytracer2_tpu_torch.utils.readback import guarded_scalar
+from raytracer2_tpu_torch.utils.profiler import span
+from raytracer2_tpu_torch.utils.readback import guarded_scalar, upload
 
 
 @dataclasses.dataclass
@@ -244,17 +245,19 @@ def make_tracers(scene: Scene, bvh: BVH | None = None, use_bvh: bool = True,
 
     def closest(o, d, tmin, tmax, presorted=False):
         cls, sorted_in = classed(presorted)
-        rec, n_fallback = ct.closest_hit_bundle(
-            clusters, tables, o, d, tmin, tmax, scene_min, scene_max,
-            presorted=sorted_in, **by_sort[cls])
+        with span("trace.closest"):
+            rec, n_fallback = ct.closest_hit_bundle(
+                clusters, tables, o, d, tmin, tmax, scene_min, scene_max,
+                presorted=sorted_in, **by_sort[cls])
         tracers._count(cls, n_fallback)
         return rec
 
     def occl(o, d, tmin, tmax, presorted=False):
         cls, sorted_in = classed(presorted)
-        blocked, n_fallback = ct.occluded_bundle(
-            clusters, tables, o, d, tmin, tmax, scene_min, scene_max,
-            presorted=sorted_in, **by_sort[cls])
+        with span("trace.occluded"):
+            blocked, n_fallback = ct.occluded_bundle(
+                clusters, tables, o, d, tmin, tmax, scene_min, scene_max,
+                presorted=sorted_in, **by_sort[cls])
         tracers._count(cls, n_fallback)
         return blocked
 
@@ -456,14 +459,14 @@ def make_bridge(scene: Scene, tracers: Tracers, gbuffer: GBuffer,
             else:
                 zidx, zinv = raysmod.zorder_permutation(w, h)
                 packed = packed.reshape(-1, 8)[
-                    torch.from_numpy(zidx).long().to(packed.device)]
+                    upload(zidx, packed.device, torch.long)]
             blocked = tracers.occluded(
                 packed[:, 0:3], packed[:, 3:6], packed[:, 6], packed[:, 7],
                 presorted="shadow")
             if tiles is not None:
                 return ~raysmod.tile_unflatten(blocked, h, w, tw, th)
-            return ~blocked[torch.from_numpy(zinv).long().to(
-                blocked.device)].reshape(batch)
+            return ~blocked[upload(zinv, blocked.device,
+                                   torch.long)].reshape(batch)
         blocked = tracers.occluded(o.reshape(-1, 3), d.reshape(-1, 3),
                                    tmin.reshape(-1), tmax.reshape(-1))
         return ~blocked.reshape(batch)

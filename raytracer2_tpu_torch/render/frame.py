@@ -51,6 +51,7 @@ from raytracer2_tpu_torch.restir.regir import (
     ReGIRGridParameters, presample_regir_grid)
 from raytracer2_tpu_torch.scene.scene import Scene
 from raytracer2_tpu_torch.utils import packing as pk
+from raytracer2_tpu_torch.utils.profiler import span
 
 
 class FrameState(NamedTuple):
@@ -216,7 +217,15 @@ def render_frame(renderer: Renderer, g_const: GConst, state: FrameState,
     (parallel/halo.py). The stencil passes (temporal reprojection, the
     spatial neighbours) read through the halo; pixel RNG and the view
     math stay global, so a tile's image equals those rows of the whole
-    frame wherever no read leaves its halo. The image is the tile's."""
+    frame wherever no read leaves its halo. The image is the tile's.
+
+    Each pass runs inside a utils/profiler.span, a no-op until spans are
+    enabled: pass.gbuffer; pass.bridge (the active field's gathers, the
+    bridge, the light context, the primary surface); pass.di;
+    pass.gi.brdf_rays, pass.gi.shade_secondary, pass.gi.temporal,
+    pass.gi.spatial, pass.gi.final; pass.post (the field's scatter, the
+    post inputs' unpacking, post_process); pass.reference in reference
+    mode, then pass.post."""
     if stop_after is not None and stop_after not in FRAME_PASSES:
         raise ValueError(f"stop_after must be one of {FRAME_PASSES}, "
                          f"not {stop_after!r}")
@@ -226,24 +235,26 @@ def render_frame(renderer: Renderer, g_const: GConst, state: FrameState,
     prev_gbuffer = state.gbuffer
 
     if g_const.refrence_mode:
-        radiance = render_reference(scene, g_const, width, height,
-                                    trace_fn=renderer.tracers.closest_hit)
-        diffuse, specular = store_shading_output(
-            state.diffuse_lighting, state.specular_lighting,
-            radiance, torch.zeros_like(radiance), is_first_pass=True,
-            enable_accumulation=g_const.enable_accumulation,
-            blend_factor=g_const.blend_factor,
-            correct_specular_accumulation=bool(
-                g_const.correct_specular_accumulation))
+        with span("pass.reference"):
+            radiance = render_reference(scene, g_const, width, height,
+                                        trace_fn=renderer.tracers.closest_hit)
+            diffuse, specular = store_shading_output(
+                state.diffuse_lighting, state.specular_lighting,
+                radiance, torch.zeros_like(radiance), is_first_pass=True,
+                enable_accumulation=g_const.enable_accumulation,
+                blend_factor=g_const.blend_factor,
+                correct_specular_accumulation=bool(
+                    g_const.correct_specular_accumulation))
         new_state = state._replace(prev_gbuffer=prev_gbuffer,
                                    diffuse_lighting=diffuse,
                                    specular_lighting=specular)
-        zeros3 = torch.zeros_like(radiance)
-        inputs = PostProcessInputs(
-            depth=torch.zeros((height, width), device=radiance.device),
-            diffuse_albedo=zeros3, specular_f0=zeros3, emissive=zeros3,
-            diffuse=diffuse, specular=specular)
-        output, _ = post_process(scene, g_const, inputs)
+        with span("pass.post"):
+            zeros3 = torch.zeros_like(radiance)
+            inputs = PostProcessInputs(
+                depth=torch.zeros((height, width), device=radiance.device),
+                diffuse_albedo=zeros3, specular_f0=zeros3, emissive=zeros3,
+                diffuse=diffuse, specular=specular)
+            output, _ = post_process(scene, g_const, inputs)
         return new_state, output
 
     # checkerboard rendering (RtxdiHelpers.hlsli:16-61): field 1 or 2
@@ -258,52 +269,54 @@ def render_frame(renderer: Renderer, g_const: GConst, state: FrameState,
             f"{list(state.secondary.pdf.shape)}")
 
     # 1. G-buffer pass (light_passes.rs:598-606)
-    gbuffer, motion = gbuffer_pass(scene, g_const,
-                                   renderer.tracers.closest_hit, width,
-                                   height_local, row0=row0)
+    with span("pass.gbuffer"):
+        gbuffer, motion = gbuffer_pass(scene, g_const,
+                                       renderer.tracers.closest_hit, width,
+                                       height_local, row0=row0)
     if stop_after == "gbuffer":
         return state, (gbuffer, motion)
-    # the passes read and write the active field of the persistent
-    # lighting images, scattered back after the GI chain
-    diffuse = raysmod.gather_field(state.diffuse_lighting, field)
-    specular = raysmod.gather_field(state.specular_lighting, field)
-    motion_act = raysmod.gather_field(motion, field)
     gi_slots = list(state.gi_reservoirs)
     di_slots = list(state.di_reservoirs)
     secondary = state.secondary
-
-    if g_const.enable_restir_di or g_const.enable_restir_gi:
-        lights = renderer.scene_lights
-        # under sharding the bridge reads halo-padded G-buffer tiles, so
-        # the neighbours' surface reads stay on the tile
-        bridge_gbuffer, bridge_prev, row_base = gbuffer, prev_gbuffer, 0
-        if halo_fn is not None:
-            bridge_gbuffer = halo_fn(gbuffer, halo_rows)
-            bridge_prev = halo_fn(prev_gbuffer, halo_rows)
-            row_base = row0 - halo_rows
-        bridge = make_bridge(
-            scene, renderer.tracers, bridge_gbuffer, bridge_prev, g_const,
-            lights.lights, lights.geometry_to_light, lights.local_pdf_mips,
-            lights.env_pdf_mips, renderer.neighbor_offsets, width, height,
-            row_base=row_base)
-        light_ctx = renderer.light_ctx(g_const)
-        # every lighting pass reads the primary surface at the launch grid:
-        # reconstructed once, from whole planes
-        primary = surface_from_gbuffer_grid(gbuffer, g_const.view, field,
-                                            row0=row0)
+    with span("pass.bridge"):
+        # the passes read and write the active field of the persistent
+        # lighting images, scattered back after the GI chain
+        diffuse = raysmod.gather_field(state.diffuse_lighting, field)
+        specular = raysmod.gather_field(state.specular_lighting, field)
+        motion_act = raysmod.gather_field(motion, field)
+        if g_const.enable_restir_di or g_const.enable_restir_gi:
+            lights = renderer.scene_lights
+            # under sharding the bridge reads halo-padded G-buffer tiles, so
+            # the neighbours' surface reads stay on the tile
+            bridge_gbuffer, bridge_prev, row_base = gbuffer, prev_gbuffer, 0
+            if halo_fn is not None:
+                bridge_gbuffer = halo_fn(gbuffer, halo_rows)
+                bridge_prev = halo_fn(prev_gbuffer, halo_rows)
+                row_base = row0 - halo_rows
+            bridge = make_bridge(
+                scene, renderer.tracers, bridge_gbuffer, bridge_prev,
+                g_const, lights.lights, lights.geometry_to_light,
+                lights.local_pdf_mips, lights.env_pdf_mips,
+                renderer.neighbor_offsets, width, height, row_base=row_base)
+            light_ctx = renderer.light_ctx(g_const)
+            # every lighting pass reads the primary surface at the launch
+            # grid: reconstructed once, from whole planes
+            primary = surface_from_gbuffer_grid(gbuffer, g_const.view, field,
+                                                row0=row0)
 
     # 2. DI fused resampling (light_passes.rs:608-619); with
     # enable_di_resampling != 0 the shaded reservoir also goes to the
     # temporal input slot for the next frame (main.rs:649-651)
     if g_const.enable_restir_di:
         di_idx = g_const.restir_di.buffer_indices
-        di_res, diffuse, specular = di_fused_resampling_pass(
-            g_const, bridge, light_ctx, diffuse, specular, width,
-            height_local, field=field, primary_surface=primary,
-            motion=motion_act,
-            prev_di_reservoirs=state.di_reservoirs[
-                di_idx.temporal_resampling_input_buffer_index],
-            row0=row0, halo_fn=halo_fn, halo_rows=halo_rows)
+        with span("pass.di"):
+            di_res, diffuse, specular = di_fused_resampling_pass(
+                g_const, bridge, light_ctx, diffuse, specular, width,
+                height_local, field=field, primary_surface=primary,
+                motion=motion_act,
+                prev_di_reservoirs=state.di_reservoirs[
+                    di_idx.temporal_resampling_input_buffer_index],
+                row0=row0, halo_fn=halo_fn, halo_rows=halo_rows)
         di_slots[di_idx.shading_input_buffer_index] = di_res
         if g_const.enable_di_resampling:
             di_slots[di_idx.temporal_resampling_input_buffer_index] = di_res
@@ -313,16 +326,19 @@ def render_frame(renderer: Renderer, g_const: GConst, state: FrameState,
     # 3. ReSTIR GI chain (light_passes.rs:621-660)
     if g_const.enable_restir_gi:
         gi_idx = g_const.restir_gi.buffer_indices
-        secondary, diffuse, specular = brdf_rays_pass(
-            scene, g_const, renderer.tracers, bridge, diffuse, specular,
-            width, height_local, field=field, primary_surface=primary,
-            row0=row0)
+        with span("pass.gi.brdf_rays"):
+            secondary, diffuse, specular = brdf_rays_pass(
+                scene, g_const, renderer.tracers, bridge, diffuse, specular,
+                width, height_local, field=field, primary_surface=primary,
+                row0=row0)
         if stop_after == "brdf_rays":
             return state, (secondary, diffuse, specular)
-        current, secondary, diffuse, specular = shade_secondary_surfaces_pass(
-            scene, g_const, renderer.tracers, bridge, light_ctx, secondary,
-            diffuse, specular, width, height_local, field=field,
-            primary_surface=primary, row0=row0)
+        with span("pass.gi.shade_secondary"):
+            current, secondary, diffuse, specular = (
+                shade_secondary_surfaces_pass(
+                    scene, g_const, renderer.tracers, bridge, light_ctx,
+                    secondary, diffuse, specular, width, height_local,
+                    field=field, primary_surface=primary, row0=row0))
         gi_slots[gi_idx.secondary_surface_restir_di_output_buffer_index] = \
             current
         if stop_after == "shade_secondary":
@@ -330,42 +346,49 @@ def render_frame(renderer: Renderer, g_const: GConst, state: FrameState,
         if g_const.enable_temporal_resampling:
             prev_src = state.gi_reservoirs[
                 gi_idx.temporal_resampling_input_buffer_index]
-            current = gi_temporal_pass(g_const, bridge, current, prev_src,
-                                       motion_act, width, height_local,
-                                       field=field, primary_surface=primary,
-                                       row0=row0, halo_fn=halo_fn,
-                                       halo_rows=halo_rows)
+            with span("pass.gi.temporal"):
+                current = gi_temporal_pass(
+                    g_const, bridge, current, prev_src, motion_act, width,
+                    height_local, field=field, primary_surface=primary,
+                    row0=row0, halo_fn=halo_fn, halo_rows=halo_rows)
             gi_slots[gi_idx.temporal_resampling_output_buffer_index] = current
         if stop_after == "gi_temporal":
             return state, (current, diffuse, specular)
         if g_const.enable_spatial_resampling:
-            current = gi_spatial_pass(g_const, bridge, current, width,
-                                      height_local, field=field,
-                                      primary_surface=primary, row0=row0,
-                                      halo_fn=halo_fn)
+            with span("pass.gi.spatial"):
+                current = gi_spatial_pass(g_const, bridge, current, width,
+                                          height_local, field=field,
+                                          primary_surface=primary, row0=row0,
+                                          halo_fn=halo_fn)
             gi_slots[gi_idx.spatial_resampling_output_buffer_index] = current
         if stop_after == "gi_spatial":
             return state, (current, diffuse, specular)
-        diffuse, specular = gi_final_shading_pass(
-            g_const, bridge, current, secondary, diffuse, specular, width,
-            height_local, field=field, primary_surface=primary, row0=row0)
+        with span("pass.gi.final"):
+            diffuse, specular = gi_final_shading_pass(
+                g_const, bridge, current, secondary, diffuse, specular,
+                width, height_local, field=field, primary_surface=primary,
+                row0=row0)
     if stop_after == "gi_final":
         return state, (diffuse, specular)
-    diffuse = raysmod.scatter_field(state.diffuse_lighting, diffuse, field)
-    specular = raysmod.scatter_field(state.specular_lighting, specular,
-                                     field)
 
-    # 4. post-process (post_processing.comp)
-    inputs = PostProcessInputs(
-        depth=gbuffer.depth,
-        diffuse_albedo=pk.unpack_r11g11b10_ufloat(gbuffer.diffuse_albedo),
-        specular_f0=pk.unpack_rgba8_gamma_ufloat(
-            gbuffer.specular_rough)[..., :3],
-        emissive=gbuffer.emissive, diffuse=diffuse, specular=specular)
-    output, env_motion = post_process(scene, g_const, inputs, row0=row0)
-    background = (gbuffer.depth == BACKGROUND_DEPTH)[..., None]
-    motion = torch.cat([torch.where(background, env_motion, motion[..., :2]),
-                        motion[..., 2:]], dim=-1)
+    # 4. post-process (post_processing.comp), after the active field's
+    # lighting is scattered back into the persistent images
+    with span("pass.post"):
+        diffuse = raysmod.scatter_field(state.diffuse_lighting, diffuse,
+                                        field)
+        specular = raysmod.scatter_field(state.specular_lighting, specular,
+                                         field)
+        inputs = PostProcessInputs(
+            depth=gbuffer.depth,
+            diffuse_albedo=pk.unpack_r11g11b10_ufloat(gbuffer.diffuse_albedo),
+            specular_f0=pk.unpack_rgba8_gamma_ufloat(
+                gbuffer.specular_rough)[..., :3],
+            emissive=gbuffer.emissive, diffuse=diffuse, specular=specular)
+        output, env_motion = post_process(scene, g_const, inputs, row0=row0)
+        background = (gbuffer.depth == BACKGROUND_DEPTH)[..., None]
+        motion = torch.cat([torch.where(background, env_motion,
+                                        motion[..., :2]),
+                            motion[..., 2:]], dim=-1)
     new_state = FrameState(
         gbuffer=gbuffer, prev_gbuffer=prev_gbuffer, motion=motion,
         diffuse_lighting=diffuse, specular_lighting=specular,

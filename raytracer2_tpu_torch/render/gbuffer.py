@@ -15,6 +15,7 @@ order, as one [N, 10] int32 block (floats ride as their bits).
 
 from __future__ import annotations
 
+from functools import lru_cache
 from typing import NamedTuple
 
 import numpy as np
@@ -28,6 +29,7 @@ from raytracer2_tpu_torch.render.surface import (
 from raytracer2_tpu_torch.scene.scene import Scene, get_geometry_from_hit
 from raytracer2_tpu_torch.utils import packing as pk
 from raytracer2_tpu_torch.utils.brdf import normalize
+from raytracer2_tpu_torch.utils.readback import upload
 
 FETCH_CHUNK = 1 << 21  # pixels per material fetch + pack step
 
@@ -90,6 +92,22 @@ def _fetch_pack(scene: Scene, g_const: GConst, hit, origin, direction
     return torch.cat([packed, _bits(em_mo)], dim=1)
 
 
+@lru_cache(maxsize=8)
+def _pixels_in_order(width: int, height: int, row0: int, device):
+    """(px, py) int32 of every pixel in the primary rays' order (8x16
+    tiles where the shape divides, else the Z-curve), on `device`: built
+    and uploaded once per shape, not every frame."""
+    tiles = raysmod.tile_shape(width, height)
+    if tiles is not None:
+        th, tw = tiles
+        zidx = raysmod.tile_permutation(width, height, tw, th)
+    else:
+        zidx, _ = raysmod.zorder_permutation(width, height)
+    lin = np.arange(width * height)
+    return (upload((lin % width).astype(np.int32)[zidx], device),
+            upload((lin // width + row0).astype(np.int32)[zidx], device))
+
+
 def gbuffer_pass(scene: Scene, g_const: GConst, trace_fn, width: int,
                  height: int, row0: int = 0) -> tuple[GBuffer, torch.Tensor]:
     """Trace primary rays and fill the G-buffer + motion vectors
@@ -102,15 +120,7 @@ def gbuffer_pass(scene: Scene, g_const: GConst, trace_fn, width: int,
     rays' order differs, which changes a hit only on a tie."""
     dev = scene.device
     tiles = raysmod.tile_shape(width, height)
-    if tiles is not None:
-        th, tw = tiles
-        zidx = raysmod.tile_permutation(width, height, tw, th)
-    else:
-        zidx, zinv = raysmod.zorder_permutation(width, height)
-    lin = np.arange(width * height)
-    px_z = torch.from_numpy((lin % width).astype(np.int32)[zidx]).to(dev)
-    py_z = torch.from_numpy(
-        (lin // width + row0).astype(np.int32)[zidx]).to(dev)
+    px_z, py_z = _pixels_in_order(width, height, row0, dev)
 
     rays_z = raysmod.setup_primary_ray(px_z, py_z, g_const.view)
     hit = trace_fn(rays_z.origin, rays_z.direction, rays_z.t_min,
@@ -124,10 +134,12 @@ def gbuffer_pass(scene: Scene, g_const: GConst, trace_fn, width: int,
                     rays_z.direction[s:s + FETCH_CHUNK])
         for s in range(0, n, FETCH_CHUNK)])
     if tiles is not None:
+        th, tw = tiles
         packed = raysmod.tile_unflatten(packed, height, width, tw, th) \
             .reshape(n, -1)
     else:
-        packed = packed[torch.from_numpy(zinv).long().to(dev)]
+        _, zinv = raysmod.zorder_permutation(width, height)
+        packed = packed[upload(zinv, dev, torch.long)]
 
     def u32(col):
         return (packed[:, col].to(torch.int64) & pk.M32).reshape(height,

@@ -15,6 +15,7 @@ import torch
 from raytracer2_tpu_torch.params import BACKGROUND_DEPTH, GConst
 from raytracer2_tpu_torch.render import rays as raysmod
 from raytracer2_tpu_torch.scene.scene import Scene, get_environment_radiance
+from raytracer2_tpu_torch.utils.readback import constant
 
 # GLSL mat3 constructor is column-major; `agx_mat * val` therefore applies
 # the matrix whose ROWS are the listed triples (post_processing.comp:61-64)
@@ -34,7 +35,7 @@ _MAX_EV = 4.026069
 
 
 def _apply(mat, val: torch.Tensor) -> torch.Tensor:
-    m = torch.tensor(mat, dtype=torch.float32, device=val.device)
+    m = constant(mat, val.device, torch.float32)
     return raysmod.matvec(m, val)
 
 
@@ -65,7 +66,7 @@ def agx_look(val: torch.Tensor, look: int = 0) -> torch.Tensor:
     """ASC CDL grade (post_processing.comp:99-124). look: 0 default,
     1 golden, 2 punchy (compile-time AGX_LOOK in the reference)."""
     def vec(x):
-        return torch.tensor(x, dtype=val.dtype, device=val.device)
+        return constant(tuple(x), val.device, val.dtype)
 
     luma = (val * vec([0.2126, 0.7152, 0.0722])).sum(dim=-1, keepdim=True)
     if look == 1:
@@ -85,8 +86,7 @@ def tonemap(col: torch.Tensor, look: int = 0) -> torch.Tensor:
     col = agx_eotf(col)
     col = torch.clamp_min(col, 0.000001)
     nan = torch.isnan(col).any(dim=-1, keepdim=True)
-    red = torch.tensor([1.0, 0.0, 0.0], dtype=col.dtype,
-                       device=col.device).expand(col.shape)
+    red = constant((1.0, 0.0, 0.0), col.device, col.dtype).expand(col.shape)
     # the rgba8-unorm swapchain store clamps (post_processing.comp:190);
     # the AgX sigmoid fit can overshoot 1.0 by ~6e-4
     return torch.clamp(torch.where(nan, red, col), 0.0, 1.0)

@@ -18,6 +18,7 @@ import torch
 
 from raytracer2_tpu_torch.params import BACKGROUND_DEPTH, PlanarViewConstants
 from raytracer2_tpu_torch.utils.brdf import normalize
+from raytracer2_tpu_torch.utils.readback import upload
 
 
 class Rays(NamedTuple):
@@ -30,8 +31,17 @@ class Rays(NamedTuple):
 
 
 def view_tensor(x, device) -> torch.Tensor:
-    """A PlanarViewConstants member as a float32 tensor on `device`."""
-    return torch.as_tensor(np.asarray(x, np.float32), device=device)
+    """A PlanarViewConstants member as a float32 tensor on `device` (one
+    upload per value: a frame reads each member many times)."""
+    a = np.asarray(x, np.float32)
+    return _view_constant(a.tobytes(), a.shape, device)
+
+
+@lru_cache(maxsize=256)
+def _view_constant(data: bytes, shape: tuple, device) -> torch.Tensor:
+    # keyed by the bytes, so -0.0 and 0.0 stay apart
+    return upload(np.frombuffer(data, np.float32).reshape(shape).copy(),
+                  device)
 
 
 def matvec(m: torch.Tensor, v: torch.Tensor) -> torch.Tensor:

@@ -15,6 +15,7 @@ never widen a bundle; with compact_dead_lanes a bounce batch of at least
 
 from __future__ import annotations
 
+from functools import lru_cache
 from typing import Callable
 
 import torch
@@ -26,6 +27,7 @@ from raytracer2_tpu_torch.render import rays as raysmod
 from raytracer2_tpu_torch.render.surface import (
     get_surface_brdf_sample, surface_from_hit)
 from raytracer2_tpu_torch.scene.scene import Scene, get_environment_radiance
+from raytracer2_tpu_torch.utils import readback
 from raytracer2_tpu_torch.utils import rng as rtrng
 from raytracer2_tpu_torch.utils.brdf import dot3
 
@@ -60,7 +62,8 @@ def _trace_compact(trace_fn: TraceFn, o, d, tn, tx) -> HitRecord:
     n = o.shape[0]
     h = n // 2
     dead = tx < 0.0
-    if n < COMPACT_MIN_LANES or int((~dead).sum()) > h:
+    if n < COMPACT_MIN_LANES or readback.item((~dead).sum(),
+                                              "live_lanes") > h:
         return trace_fn(o, d, tn, tx)
     perm = torch.argsort(dead.to(torch.uint8), stable=True)[:h]
     rec = trace_fn(o[perm], d[perm], tn[perm], tx[perm])
@@ -76,6 +79,15 @@ def _trace_compact(trace_fn: TraceFn, o, d, tn, tx) -> HitRecord:
                      geometry_index=back(rec.geometry_index, INVALID_INDEX),
                      primitive_id=back(rec.primitive_id, 0),
                      triangle_index=back(rec.triangle_index, -1))
+
+
+@lru_cache(maxsize=8)
+def _zorder_on(width: int, height: int, device):
+    """The Z-curve permutation and its inverse as int64 tensors on
+    `device`, uploaded once per shape, not every frame."""
+    zidx, zinv = raysmod.zorder_permutation(width, height)
+    return (readback.upload(zidx, device, torch.long),
+            readback.upload(zinv, device, torch.long))
 
 
 def render_reference(
@@ -108,8 +120,7 @@ def render_reference(
     environment = g_const.environment
     dev = scene.device
 
-    zidx, zinv = raysmod.zorder_permutation(width, height)
-    zidx_t = torch.from_numpy(zidx).long().to(dev)
+    zidx_t, zinv_t = _zorder_on(width, height, dev)
     px_img, py_img = raysmod.pixel_grid(width, height, device=dev)
     px_all = px_img.reshape(-1)[zidx_t]
     py_all = py_img.reshape(-1)[zidx_t]
@@ -190,7 +201,6 @@ def render_reference(
         chunks.append(radiance)
 
     radiance = torch.cat(chunks)[:n_img]
-    zinv_t = torch.from_numpy(zinv).long().to(dev)
     img = (radiance[zinv_t] / max_samples).reshape(height, width, 3)
     if with_ray_count:
         return img, int(live_rays)

@@ -12,6 +12,8 @@ from __future__ import annotations
 
 import torch
 
+from raytracer2_tpu_torch.utils.readback import constant
+
 PI = 3.1415926535  # RTXDI_PI (rtxdi/RtxdiMath.hlsli:14)
 K_MIN_ROUGHNESS = 0.05  # kMinRoughness (common.glsl:3)
 
@@ -49,15 +51,13 @@ def cross(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
 
 def luminance(color: torch.Tensor) -> torch.Tensor:
     """Rec.601 luminance used by app shaders (ref: Helpers.glsl:94-97)."""
-    w = torch.tensor([0.299, 0.587, 0.114], dtype=color.dtype,
-                     device=color.device)
+    w = constant((0.299, 0.587, 0.114), color.device, color.dtype)
     return (color * w).sum(dim=-1)
 
 
 def luminance_rec709(color: torch.Tensor) -> torch.Tensor:
     """Rec.709 luminance of the resampling library (RtxdiMath.hlsli:120-123)."""
-    w = torch.tensor([0.2126, 0.7152, 0.0722], dtype=color.dtype,
-                     device=color.device)
+    w = constant((0.2126, 0.7152, 0.0722), color.device, color.dtype)
     return (color * w).sum(dim=-1)
 
 
@@ -178,8 +178,8 @@ def importance_sample_ggx_vndf(random: torch.Tensor, roughness: torch.Tensor,
     t1_safe = (torch.stack([-vh[..., 1], vh[..., 0],
                             torch.zeros_like(lensq)], dim=-1)
                / torch.sqrt(torch.clamp_min(lensq, 1e-30))[..., None])
-    t1_fallback = torch.tensor([1.0, 0.0, 0.0], dtype=vh.dtype,
-                               device=vh.device).expand(vh.shape)
+    t1_fallback = constant((1.0, 0.0, 0.0), vh.device,
+                           vh.dtype).expand(vh.shape)
     t1 = torch.where((lensq > 0.0)[..., None], t1_safe, t1_fallback)
     t2 = cross(vh, t1)
 

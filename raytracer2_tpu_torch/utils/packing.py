@@ -13,6 +13,8 @@ from __future__ import annotations
 
 import torch
 
+from raytracer2_tpu_torch.utils.readback import constant
+
 M32 = 0xFFFFFFFF
 
 
@@ -269,7 +271,7 @@ _XYZ_TO_RGB = (
 
 def _mat3(m, v: torch.Tensor) -> torch.Tensor:
     """[3, 3] float32 matrix m times [..., 3] vectors, as a matrix product."""
-    return v @ torch.tensor(m, dtype=torch.float32, device=v.device).T
+    return v @ constant(m, v.device, torch.float32).T
 
 
 def encode_rgb_to_logluv(color: torch.Tensor) -> torch.Tensor:
