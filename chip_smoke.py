@@ -20,11 +20,12 @@ walk's tracer configurations (every cull, sort key and shadow order, and a
 DI frame through create_renderer(tracer_opts={"cull": "sc"})); the JAX
 package's XLA bundle and scatter engines as torch ops
 (create_renderer(..., backend="bundle" / "scatter")); and the frame
-row-sharded over torch.distributed ranks (parallel/mesh.py). Eight
+row-sharded over torch.distributed ranks (parallel/mesh.py). Nine
 hand-written CUDA kernels carry them: the closest-hit and any-hit walks
 (B1, B2) and their supercluster forms (B1-sc, B2-sc), the exact cull's
-nearest box and bundle union (B3, B4), and the pair engine's sweep (B5)
-and stable counting sort (B6). The phases, each of which raises on
+nearest box and bundle union (B3, B4), the pair engine's sweep (B5) and
+stable counting sort (B6), and the closest-hit trace's winner decode (D1,
+which replaces no TPU kernel). The phases, each of which raises on
 failure:
 
 1. device             - a CUDA device is required; no CPU run.
@@ -36,8 +37,8 @@ failure:
                         walk_closest at each closest-hit class's bundle
                         size, of walk_occluded at the visibility class's, of
                         nearest_box and bundle_union, of pair_sweep at the
-                        pair scene's S_pad and of bin_scatter's count, scan
-                        and scatter kernels at its bins.
+                        pair scene's S_pad, of bin_scatter's count, scan
+                        and scatter kernels at its bins and of hit_decode.
 4. kernel             - walk_closest against its plain torch version on the
                         reference path's 262,144-ray batch of each
                         closest-hit class (pixel tiles, BRDF bounces), winner
@@ -63,9 +64,15 @@ failure:
                         each B3 and B4 launch of its three bounce-class
                         traces (the DI BRDF candidate, the GI BRDF rays, the
                         secondary surfaces' BRDF candidate), and of the
-                        first B1 launch of those and of its G-buffer; then
-                        kernel: walk_closest against its plain version on
-                        those four batches, bit for bit.
+                        first B1 launch of those and of its G-buffer, and
+                        the arguments of each of those four traces' first
+                        hit_decode call; then kernel: walk_closest against
+                        its plain version on those four batches, and
+                        kernel-decode: hit_decode against
+                        hit_decode_reference on those four decodes (the
+                        G-buffer's 2,073,600 pixel tiles, no permutation,
+                        and the cand0-sorted bounces), all six fields bit
+                        for bit, timed, with its byte bound.
 11. kernel-cull       - on those inputs (and B4 on the DI frame's visibility
                         batch), nearest_box and bundle_union against their
                         plain versions, bit for bit, with NaN rays and the
@@ -105,9 +112,9 @@ failure:
                         t), B4 with the cap against its plain version on
                         both batches; each timed, with its bound share and
                         occupancy.
-12. flagship-frames   - three flagship frames; all four kernels but the
-                        any-hit walk (the flagship frame casts no visibility
-                        ray) must have launched. Then flagship-breakdown: one
+12. flagship-frames   - three flagship frames; B1, B3, B4 and the decode
+                        (not the any-hit walk: the flagship frame casts no
+                        visibility ray) must have launched. Then flagship-breakdown: one
                         more with each trace split into B3, the cand0 sort,
                         B4, the ranking, the walk and the decode, and one
                         under torch.profiler (busy/idle).
@@ -320,6 +327,7 @@ from raytracer2_tpu_torch.restir.regir import (  # noqa: E402
 from raytracer2_tpu_torch.scene import exr, gltf  # noqa: E402
 from raytracer2_tpu_torch.scene.camera import default_camera  # noqa: E402
 from raytracer2_tpu_torch.scene.scene import build_scene  # noqa: E402
+from raytracer2_tpu_torch.utils import profiler  # noqa: E402
 from raytracer2_tpu_torch.utils import rng as rtrng  # noqa: E402
 from raytracer2_tpu_torch.utils.png import read_png  # noqa: E402
 from raytracer2_tpu_torch.utils.profiler import (  # noqa: E402
@@ -450,6 +458,11 @@ KERNELS = {
     "bin_scatter": dict(
         source="raytracer2_tpu_torch/csrc/binning.cu",
         replaces="raytracer2_tpu/ops/pallas_binning.py:56"),
+    # D1: no TPU kernel; JAX decodes the winner with XLA ops
+    "hit_decode": dict(
+        source="raytracer2_tpu_torch/csrc/hit_decode.cu",
+        replaces="none (XLA ops, raytracer2_tpu/ops/pallas_traverse.py:"
+                 "1846-1884)"),
     **{name: dict(KERNELS_BASE[name.partition("[")[0]])
        for name in KNOB_KERNELS},
 }
@@ -460,7 +473,13 @@ PAIR_KERNELS = ("pair_sweep", "bin_scatter")
 KERNEL_MODULES = {"walk_closest": ct, "walk_occluded": ct,
                   "walk_closest_sc": ct, "walk_occluded_sc": ct,
                   "nearest_box": cull, "bundle_union": cull,
-                  "pair_sweep": cp, "bin_scatter": binning}
+                  "pair_sweep": cp, "bin_scatter": binning,
+                  "hit_decode": ct}
+# kernels whose wrapper counts its launches in a utils/profiler counter
+# (process-wide) rather than in a `launches` attribute: a count reset is a
+# new base
+PROFILER_COUNTED = {"hit_decode": "trace.decode.kernel"}
+_COUNT_BASE = dict.fromkeys(PROFILER_COUNTED, 0)
 
 
 def _wrapper(name: str):
@@ -472,6 +491,9 @@ def _wrapper(name: str):
 
 
 def launch_count(name: str) -> int:
+    if name in PROFILER_COUNTED:
+        return (profiler.counters().get(PROFILER_COUNTED[name], 0)
+                - _COUNT_BASE[name])
     fn, inst = _wrapper(name)
     return fn.knob_launches.get(inst, 0) if inst else fn.launches
 
@@ -838,6 +860,61 @@ def check_cull(kernel: str, cls: str, args) -> dict:
             "max_abs_err": max_abs, **bound}
 
 
+def decode_bound(args) -> dict:
+    """The least time the card could take for one hit_decode call on these
+    inputs: its bytes over the HBM rate (a ray's 8 FMAs, 9 multiplies and
+    adds and one division are far below it). Bytes: each input read once
+    (the code, the permutation if any, the ray and its t_max, each
+    distinct meta row however many rays gather it) and each output written
+    once (t, u, v, geometry, primitive, triangle)."""
+    code, perm = args[0], args[1]
+    rows = int(torch.where(code == ct.MISS_CODE, 0, code).unique().numel())
+    per_ray = (4 + (8 if perm is not None else 0) + 6 * 4 + 4
+               + 3 * 4 + 2 * 8 + 4)
+    nbytes = code.shape[0] * per_ray + rows * 16 * 4
+    return {"bound_ms": nbytes / HBM_BYTES_PER_S * 1e3, "bound_by": "bytes",
+            "bytes": nbytes, "meta_rows_read": rows}
+
+
+def check_decode(cls: str, args) -> dict:
+    """hit_decode against hit_decode_reference on one trace's decode
+    arguments: all six HitRecord fields bit for bit (floats as int32
+    bits), both times (CUDA events: the kernel's median of 5, the plain
+    version's one call after the call that gives the outputs) and the
+    byte bound. Raises on any mismatch or on a batch that hits nothing."""
+    got = ct.hit_decode(*args)
+    want = ct.hit_decode_reference(*args)
+    plain_ms = _plain_ms(lambda: ct.hit_decode_reference(*args))
+    ms = _median_ms(lambda: ct.hit_decode(*args))
+    bound = decode_bound(args)
+
+    def bits(x):
+        return x.view(torch.int32) if x.is_floating_point() else x
+
+    mismatches = sum(int((bits(g) != bits(w)).sum())
+                     for g, w in zip(got, want))
+    max_abs = max(float(torch.nan_to_num((g - w).abs()).max())
+                  for g, w in zip(got[:3], want[:3]))
+    n = args[0].shape[0]
+    hits = int((~want.missed).sum())
+    share = _bound_share("hit_decode", cls, bound["bound_ms"], ms)
+    log("kernel-decode", kernel="hit_decode", cls=cls, rays=n,
+        permuted=args[1] is not None, hits=hits, misses=n - hits,
+        mismatches=mismatches, kernel_ms=f"{ms:.4f}",
+        plain_ms=f"{plain_ms:.3f}", bound_ms=f"{bound['bound_ms']:.4f}",
+        bound_by=bound["bound_by"], bound_share=f"{share:.3f}",
+        mbytes=f"{bound['bytes'] / 1e6:.2f}",
+        meta_rows_read=bound["meta_rows_read"])
+    if mismatches:
+        raise RuntimeError(f"hit_decode ({cls}): kernel and plain version "
+                           f"disagree on {mismatches} fields of {n} rays")
+    if hits == 0:
+        raise RuntimeError(f"hit_decode ({cls}): the batch hits nothing, "
+                           "it tests nothing")
+    return {"ms": ms, "plain_ms": plain_ms, "mismatches": mismatches,
+            "max_abs_err": max_abs, **bound}
+
+
 def phase_kernel(renderer, batches) -> dict:
     tracers = renderer.tracers
     real = lane_real(tracers)
@@ -870,7 +947,8 @@ def phase_occupancy(renderer, renderer_p) -> dict:
         "bin_scatter": {
             name: _build.occupancy("rt2_bin_scatter_occupancy", i,
                                    ps.num_superclusters + 1)
-            for i, name in enumerate(("count", "scan", "scatter"))}}
+            for i, name in enumerate(("count", "scan", "scatter"))},
+        "hit_decode": {"all": _build.occupancy("rt2_hit_decode_occupancy")}}
     for cls, cfg in tracers.shapes_by_class.items():
         p = cfg["bundle_size"]
         walk = "walk_occluded" if cls == "shadow" else "walk_closest"
@@ -945,8 +1023,8 @@ class _Patch:
 
 class TraceLog:
     """Hooks the tracers' two queries and, for the bundle backend, the two
-    walks and the two cull passes, or with pairs=True the pair engine's
-    sweep and binning. It counts the visibility rays (the "shadow" class)
+    walks, the two cull passes and the closest-hit decode, or with
+    pairs=True the pair engine's sweep and binning. It counts the visibility rays (the "shadow" class)
     and how many are blocked. Between start() and stop() it names each
     trace call (prefix + "gbuffer", the bounce names in call order, prefix
     + "visibility") and keeps, by name, a copy of the inputs of the first
@@ -966,6 +1044,7 @@ class TraceLog:
         self.keep = False
         self.walks = {}  # name -> (walk name, args, group)
         self.culls = {}  # (name, cull kernel) -> args
+        self.decodes = {}  # name -> hit_decode's args
         self.pair_kernels = {}  # (name, kernel) -> (args, kwargs)
         self.checked = {}  # (name, kernel) -> [batches, mismatches, hits]
         self.traces = {}  # name -> (o, d, t_min, t_max, presorted)
@@ -987,7 +1066,8 @@ class TraceLog:
             self.patches += [_Patch(ct, "walk_closest", self._walk),
                              _Patch(ct, "walk_occluded", self._walk),
                              _Patch(cull, "nearest_box", self._cull),
-                             _Patch(cull, "bundle_union", self._cull)]
+                             _Patch(cull, "bundle_union", self._cull),
+                             _Patch(ct, "hit_decode", self._decode)]
 
     def restore(self) -> None:
         for patch in reversed(self.patches):
@@ -1063,6 +1143,16 @@ class TraceLog:
         if self.keep and self._cls is not None and key not in self.culls:
             self.culls[key] = (args[0].clone(),) + tuple(args[1:])
         return inner(*args, **kwargs)
+
+    def _decode(self, inner, *args):
+        # (code, perm, meta_rows, origins, directions, t_max); the meta rows
+        # are the tables' own tensor
+        if (self.keep and self._cls is not None
+                and self._cls not in self.decodes):
+            self.decodes[self._cls] = tuple(
+                a if a is None or i == 2 else a.clone()
+                for i, a in enumerate(args))
+        return inner(*args)
 
     def _pair_kernel(self, inner, *args, **kwargs):
         out = inner(*args, **kwargs)
@@ -1230,7 +1320,9 @@ def phase_oracle_occlude(scene, renderer, batch,
 
 
 def _reset_counts(tracers) -> None:
-    for name in KERNELS:
+    for name, counter in PROFILER_COUNTED.items():
+        _COUNT_BASE[name] = profiler.counters().get(counter, 0)
+    for name in KERNELS.keys() - PROFILER_COUNTED.keys():
         fn, _ = _wrapper(name)
         fn.launches = 0
         getattr(fn, "knob_launches", {}).clear()
@@ -1363,8 +1455,9 @@ def _profile_frame(phase: str, renderer, g, state) -> None:
 def phase_flagship_capture(scene, renderer, g_flag,
                            trace_log: TraceLog) -> None:
     """One flagship DI+GI frame that keeps the inputs of each cull launch
-    of its bounce-class traces and of the first walk launch of its
-    G-buffer and bounce traces (it also warms the path up)."""
+    of its bounce-class traces and of the first walk launch and the first
+    decode of its G-buffer and bounce traces (it also warms the path
+    up)."""
     trace_log.start("flagship_", tuple(f"flagship_{b}"
                                        for b in FLAGSHIP_BOUNCES))
     state = fr.init_frame_state(WIDTH, HEIGHT, device=scene.device)
@@ -1374,10 +1467,12 @@ def phase_flagship_capture(scene, renderer, g_flag,
     trace_log.stop()
     want = {(f"flagship_{b}", k) for b in FLAGSHIP_BOUNCES for k in CULLS}
     missing = (want - set(trace_log.culls)) | (
-        set(FLAGSHIP_WALKS) - set(trace_log.walks))
+        set(FLAGSHIP_WALKS) - set(trace_log.walks)) | {
+        (c, "hit_decode") for c in set(FLAGSHIP_WALKS) - set(
+            trace_log.decodes)}
     if missing:
-        raise RuntimeError(f"the flagship frame launched no cull or walk "
-                           f"for {sorted(missing, key=str)}")
+        raise RuntimeError(f"the flagship frame launched no cull, walk or "
+                           f"decode for {sorted(missing, key=str)}")
     log("flagship-capture", seconds=f"{time.perf_counter() - t0:.3f}",
         kept=json.dumps({f"{c}:{k}": v[0].shape[0]
                          for (c, k), v in sorted(trace_log.culls.items())
@@ -1398,6 +1493,13 @@ def phase_kernel_flagship(renderer, trace_log: TraceLog) -> dict:
     return out
 
 
+def phase_kernel_decode(trace_log: TraceLog) -> dict:
+    """hit_decode against its plain version on the flagship frame's own
+    decodes (its G-buffer and its three bounce traces): {class: result}."""
+    return {cls: check_decode(cls, trace_log.decodes[cls])
+            for cls in FLAGSHIP_WALKS}
+
+
 def phase_kernel_cull(trace_log: TraceLog) -> dict:
     """Both cull kernels against their plain versions on the flagship
     frame's three bounce batches, and bundle_union on the DI frame's
@@ -1414,7 +1516,7 @@ def phase_kernel_cull(trace_log: TraceLog) -> dict:
 def phase_flagship_frames(scene, renderer, g_flag):
     """FLAGSHIP_FRAMES flagship frames from a fresh state; every count is
     reset just before them. The frame casts no visibility ray, so the
-    any-hit walk does not launch; the other three kernels must. Returns
+    any-hit walk does not launch; B1, B3, B4 and the decode must. Returns
     the launches, the displays and each frame's seconds."""
     tracers = renderer.tracers
     state = fr.init_frame_state(WIDTH, HEIGHT, device=scene.device)
@@ -1443,7 +1545,8 @@ def phase_flagship_frames(scene, renderer, g_flag):
     _check_image("flagship specular_lighting", state.specular_lighting,
                  display=False)
     launches = _launches()
-    for name in ("walk_closest", "nearest_box", "bundle_union"):
+    for name in ("walk_closest", "nearest_box", "bundle_union",
+                 "hit_decode"):
         if launches[name] <= 0:
             raise RuntimeError(f"the flagship frames never launched {name}")
     return launches, imgs, seconds
@@ -1463,7 +1566,7 @@ def phase_flagship_breakdown(scene, renderer, g_flag) -> None:
         (ct, "_rank", "rank"),
         (ct, "walk_closest", "walk"),
         (ct, "walk_occluded", "walk"),
-        (ct, "_decode", "decode")], nested=("b3_nearest_box",))
+        (ct, "hit_decode", "decode")], nested=("b3_nearest_box",))
 
 
 def _breakdown(phase: str, scene, renderer, g, parts, nested) -> None:
@@ -2150,7 +2253,7 @@ MODE_PARTS = (
     (ct, "_rank", "rank"), (ct, "_prepare", "prep"),
     (ct, "walk_closest", "walk"), (ct, "walk_occluded", "walk"),
     (ct, "walk_closest_sc", "walk"), (ct, "walk_occluded_sc", "walk"),
-    (ct, "_decode", "decode"))
+    (ct, "hit_decode", "decode"))
 MODE_BATCHES = {"flagship_di_brdf_candidate": (False, MODES_CLOSEST),
                 "di_visibility": ("shadow", MODES_VISIBILITY)}
 
@@ -3471,7 +3574,7 @@ def phase_pairs_breakdown(scene, renderer, g_flag) -> None:
         (cp, "_slab_entry", "slab"),
         (binning, "bin_scatter", "b6_bin_scatter"),
         (cp, "pair_sweep", "b5_pair_sweep"),
-        (ct, "_decode", "decode")], nested=("slab", "b6_bin_scatter"))
+        (ct, "hit_decode", "decode")], nested=("slab", "b6_bin_scatter"))
 
 
 def phase_sharded(renderer) -> None:
@@ -3545,7 +3648,8 @@ def kernel_entry(name: str, classes: dict, launches: int,
             "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
             # torch.argsort(stable=True) on the same ids for the binning;
             # no single PyTorch call computes a bundle walk, a slab-test
-            # argmin over boxes, a per-bundle slab-test union or a pair sweep
+            # argmin over boxes, a per-bundle slab-test union, a pair sweep
+            # or a winner decode
             "library_ms": (sum(library) if None not in library else None),
             "classes": t["classes"]}
 
@@ -3596,12 +3700,15 @@ def run(dev: torch.device, smi: str, pool, sky_job,
     phase_oracle_occlude(scene, renderer_p, trace_log.oracle_rays,
                          phase="oracle-pairs")
     trace_log.walks.clear()
+    trace_log.decodes.clear()
     oracle_rays, trace_log.oracle_rays = trace_log.oracle_rays, None
     g_flag = flagship_gconst(renderer, view)
     phase_flagship_capture(scene, renderer, g_flag, trace_log)
     classes["walk_closest"].update(phase_kernel_flagship(renderer,
                                                          trace_log))
     trace_log.walks.clear()
+    classes["hit_decode"] = phase_kernel_decode(trace_log)
+    trace_log.decodes.clear()
     classes.update(phase_kernel_cull(trace_log))
     trace_log.culls.clear()
     sky = phase_skybox_exr(pool, sky_job)

@@ -9,9 +9,10 @@ declared c_void_p (an undeclared pointer would be cut to 32 bits).
 
 --fmad=false keeps every multiply and add separately rounded, in the order
 the source writes them, and fuses only the explicit __fmaf_rn of the Wald
-test (csrc/walk_common.cuh): the kernel then computes the same bits as the
-plain torch version of each kernel (ops/cuda_traverse.py, ops/cull.py,
-ops/cuda_pairs.py; ops/binning.py's kernel is integer work).
+test (csrc/walk_common.cuh, csrc/hit_decode.cu): the kernel then computes
+the same bits as the plain torch version of each kernel
+(ops/cuda_traverse.py, ops/cull.py, ops/cuda_pairs.py; ops/binning.py's
+kernel is integer work).
 """
 
 from __future__ import annotations
@@ -147,6 +148,16 @@ def library() -> ctypes.CDLL:
         vp, vp, vp, vp, vp,  # ids, scratch, counts, out, ranks
         ll, ci, ci, ci, ci, ll,  # n, n_bins, n_write, pad, div, out_size
         vp]  # stream
+    lib.rt2_hit_decode.restype = ci
+    lib.rt2_hit_decode.argtypes = [
+        vp, vp, vp,  # code, perm or null, meta rows
+        ll,  # n_rows
+        vp, vp, vp,  # origins, directions, t_max
+        vp, vp, vp, vp, vp, vp,  # t, u, v, geometry, primitive, triangle
+        ci,  # n
+        vp]  # stream
+    lib.rt2_hit_decode_occupancy.restype = ci
+    lib.rt2_hit_decode_occupancy.argtypes = [vp]  # out
     lib.rt2_error_string.restype = ctypes.c_char_p
     lib.rt2_error_string.argtypes = [ci]
     return lib
@@ -159,7 +170,8 @@ def occupancy(entry: str, *args: int) -> dict:
     occupancy(), rt2_bundle_union_occupancy(cap),
     rt2_pair_sweep_occupancy(s_pad),
     rt2_bin_scatter_occupancy(kernel,
-    n_bins) for B6's count (0), scan (1) and scatter (2) kernels):
+    n_bins) for B6's count (0), scan (1) and scatter (2) kernels,
+    rt2_hit_decode_occupancy()):
     resident blocks per SM (cudaOccupancyMaxActiveBlocksPerMultiprocessor),
     threads per block, registers per thread and shared bytes per block."""
     lib = library()

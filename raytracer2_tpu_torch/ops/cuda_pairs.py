@@ -18,7 +18,7 @@ Per batch of rays:
    s * group + m) and tests each cluster's real lanes only.
 3. A scatter-min per ray picks the best key, then the winning pair's code
    supercluster * W + lane, which is cluster * S_pad + lane, decodes
-   through the bundle engine's meta rows (cuda_traverse._decode).
+   through the bundle engine's meta rows (cuda_traverse.hit_decode).
 
 A ray that overlaps more than k_cand superclusters would lose candidates:
 then the whole input re-traces through the bundle engine
@@ -383,7 +383,7 @@ def closest_hit_pairs(ps: PairScene, clusters: Clusters,
     tx = ct._per_ray(t_max, n, origins)
     code, _, overflowed = _trace_batches(ps, tables.lanes, origins,
                                          directions, tn, tx, k_cand)
-    rec = ct._decode(code, ps.meta_rows, origins, directions, tx)
+    rec = ct.hit_decode(code, None, ps.meta_rows, origins, directions, tx)
     if fallback and overflowed:
         rec, _ = ct.closest_hit_bundle(clusters, tables, origins, directions,
                                        tn, tx, scene_min, scene_max,

@@ -3,8 +3,9 @@
 Port of the host side of raytracer2_tpu/ops/pallas_traverse.py
 (closest_hit_bundle_pallas, occluded_bundle_pallas, _prep and its culls
 and sort keys), plus the wrappers of the kernels that replace its Pallas
-walks (csrc/bundle_walk.cu, csrc/bundle_occlude.cu) and those kernels'
-plain torch versions.
+walks (csrc/bundle_walk.cu, csrc/bundle_occlude.cu) and of the closest-hit
+winner decode's kernel (csrc/hit_decode.cu; JAX decodes with XLA ops), and
+those kernels' plain torch versions.
 
 The culls (JAX's _prep dispatch; "auto" is "exact"):
 - "interval": each bundle's candidates come from the conservative interval
@@ -76,10 +77,10 @@ from raytracer2_tpu_torch.ops.cluster import Clusters, bundle_cluster_overlap
 from raytracer2_tpu_torch.ops.intersect import INVALID_INDEX, HitRecord
 from raytracer2_tpu_torch.ops import traverse_bundle as tb
 from raytracer2_tpu_torch.ops.traverse_bundle import (
-    _bundle_bounds, _expand_bits, _pad_rays, _per_ray)
+    _bundle_bounds, _expand_bits, _pad_rays, _per_ray, _unsort)
 from raytracer2_tpu_torch.ops.wald import fma, hit_test, hit_test_mm
 from raytracer2_tpu_torch.utils import readback
-from raytracer2_tpu_torch.utils.profiler import span
+from raytracer2_tpu_torch.utils.profiler import count, span
 
 LANE_PAD = 128  # triangles per cluster row, padded to the lane width
 SLOT_BITS = 10  # group * S_pad <= 1024; low key bits carry the winning slot
@@ -1106,6 +1107,85 @@ def _decode(code, meta_rows, on, dn, t_max_orig) -> HitRecord:
         triangle_index=tri_r)
 
 
+def _check_decode_args(code, perm, meta_rows, origins, directions,
+                       t_max_orig) -> int:
+    if code.dim() != 1:
+        raise ValueError(f"code must be [N], got {tuple(code.shape)}")
+    n = code.shape[0]
+    specs = (("code", code, torch.int32, (n,)),
+             ("perm", perm, torch.int64, (n,)),
+             ("meta_rows", meta_rows, torch.int32, (meta_rows.shape[0], 16)),
+             ("origins", origins, torch.float32, (n, 3)),
+             ("directions", directions, torch.float32, (n, 3)),
+             ("t_max_orig", t_max_orig, torch.float32, (n,)))
+    for name, x, dtype, shape in specs:
+        if x is None:
+            continue
+        if x.dtype != dtype:
+            raise TypeError(f"{name} must be {dtype}, got {x.dtype}")
+        if tuple(x.shape) != shape:
+            raise ValueError(f"{name} must be {shape}, got {tuple(x.shape)}")
+        if x.device != code.device:
+            raise ValueError(f"{name} is on {x.device}, code on {code.device}")
+    if not meta_rows.is_contiguous() or meta_rows.data_ptr() % 16:
+        raise ValueError("meta_rows must be contiguous and 16-byte aligned")
+    return n
+
+
+def hit_decode(code, perm, meta_rows, origins, directions,
+               t_max_orig) -> HitRecord:
+    """The walk's winner codes [N] i32 (bundle order) -> HitRecord in the
+    caller's order: perm [N] i64 maps bundle row -> caller row (None: the
+    same order); meta_rows is WalkTables.meta_rows (or the pair scene's);
+    origins, directions [N, 3], and t_max_orig [N] (a miss's t) are the
+    caller's.
+
+    A CUDA tensor launches csrc/hit_decode.cu on the current stream (one
+    launch, counted in the profiler counter trace.decode.kernel); a CPU
+    tensor runs hit_decode_reference (counted in trace.decode.plain).
+    Anything else raises. Both give the same bits. An empty batch returns
+    an empty record and counts nothing."""
+    n = _check_decode_args(code, perm, meta_rows, origins, directions,
+                           t_max_orig)
+    if code.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"hit_decode runs on cuda or cpu, not {code.device}")
+    if n == 0 or code.device.type == "cpu":
+        if n:
+            count("trace.decode.plain")
+        return hit_decode_reference(code, perm, meta_rows, origins,
+                                    directions, t_max_orig)
+    from raytracer2_tpu_torch.ops import _build
+
+    lib = _build.library()
+    dev = code.device
+    ins = [x.contiguous() for x in (code, origins, directions, t_max_orig)]
+    perm = None if perm is None else perm.contiguous()
+    f32 = [torch.empty(n, dtype=torch.float32, device=dev) for _ in range(3)]
+    i64 = [torch.empty(n, dtype=torch.int64, device=dev) for _ in range(2)]
+    tri = torch.empty(n, dtype=torch.int32, device=dev)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = lib.rt2_hit_decode(
+            ins[0].data_ptr(), None if perm is None else perm.data_ptr(),
+            meta_rows.data_ptr(), meta_rows.shape[0],
+            *(x.data_ptr() for x in ins[1:]),
+            *(x.data_ptr() for x in (*f32, *i64, tri)), n,
+            ctypes.c_void_p(stream))
+    if err != 0:
+        raise RuntimeError(f"hit_decode launch failed: "
+                           f"{lib.rt2_error_string(err).decode()} ({err})")
+    count("trace.decode.kernel")
+    return HitRecord(*f32, *i64, tri)
+
+
+def hit_decode_reference(code, perm, meta_rows, origins, directions,
+                         t_max_orig) -> HitRecord:
+    """Plain torch version of hit_decode: the codes un-sorted with one
+    scatter, then _decode in the caller's order."""
+    return _decode(_unsort(code, perm), meta_rows, origins, directions,
+                   t_max_orig)
+
+
 M_SUPER = 32  # JAX's m_super: clusters per supercluster of "hier" / "sc"
 K_SC = 12  # JAX's k_sc: superclusters each bundle refines under "hier"
 
@@ -1147,14 +1227,6 @@ def _pack8(o, d, tn, tx) -> torch.Tensor:
 
 def _rays8(prep: Prep) -> torch.Tensor:
     return _pack8(prep.o, prep.d, prep.tn, prep.tx)
-
-
-def _unsort(x: torch.Tensor, prep: Prep) -> torch.Tensor:
-    """Bundle order -> caller order with one scatter (identity when the
-    rays were presorted)."""
-    if prep.perm is None:
-        return x
-    return torch.empty_like(x).index_put_((prep.perm,), x)
 
 
 def _overflowed_rays(prep: Prep, p: int, n_orig: int) -> torch.Tensor:
@@ -1232,11 +1304,11 @@ def closest_hit_bundle(clusters: Clusters, tables: WalkTables,
     depth, mb and lean, not mm or t_cap, as JAX's.
 
     The parts run inside utils/profiler spans: trace.prep (_prepare and
-    the walk's ray rows), trace.walk, trace.decode (_unsort, _decode) and
+    the walk's ray rows), trace.walk, trace.decode (hit_decode) and
     trace.fallback (the whole re-trace, whose own spans nest in it). The
     overflow count is one counted host read (utils/readback.py, site
-    overflow_count), the partial fallback's rows two more
-    (overflow_rays)."""
+    overflow_count) between the prep and the walk, the partial fallback's
+    rows two more (overflow_rays)."""
     n_orig = origins.shape[0]
     p = bundle_size
     group, m_super = _walk_shape(tables, cull, group, m_super)
@@ -1249,6 +1321,11 @@ def closest_hit_bundle(clusters: Clusters, tables: WalkTables,
                         scene_max, p, presorted, cull, k_cand, sort_key,
                         m_super, k_sc, t_cap=t_cap)
         rays8 = _rays8(prep)
+    # the overflow count is read before the walk is queued: the host waits
+    # for the prep alone, and the walk and the decode run on the card while
+    # the host goes on to what follows the trace
+    n_ovf = None if debug_steps else readback.item(prep.overflowed.sum(),
+                                                   "overflow_count")
     knobs = dict(debug_steps=debug_steps, depth=depth, mb=mb)
     with span("trace.walk"):
         if prep.sc_m:
@@ -1267,14 +1344,12 @@ def closest_hit_bundle(clusters: Clusters, tables: WalkTables,
                               tables.wald_rows.shape[-1], p)
         else:
             code = rows[0]
-        # un-sort the codes, then decode in caller order (the miss t is the
+        # the codes to caller order, decoded there (the miss t is the
         # caller's t_max, not the capped one)
-        rec = _decode(_unsort(code[:n_orig], prep), tables.meta_rows,
-                      origins, directions, tx_o)
+        rec = hit_decode(code[:n_orig], prep.perm, tables.meta_rows,
+                         origins, directions, tx_o)
     if debug_steps:
         return rec, _debug_info(rows[-1], prep)
-
-    n_ovf = readback.item(prep.overflowed.sum(), "overflow_count")
     if not overflow_fallback or n_ovf == 0:
         return rec, n_ovf
     with span("trace.fallback"):
@@ -1347,7 +1422,7 @@ def occluded_bundle(clusters: Clusters, tables: WalkTables,
                                  lanes=tables.lanes, mm=mm, **knobs)
     rows = rows if isinstance(rows, tuple) else (rows,)
     with span("trace.decode"):
-        blocked = _unsort(rows[0][:n_orig], prep) != 0
+        blocked = _unsort(rows[0][:n_orig], prep.perm) != 0
     if debug_steps:
         return blocked, _debug_info(rows[-1], prep)
 
