@@ -38,9 +38,30 @@ checks a mix names (its "checks" object) then compare:
 
 control=True puts the reference, computed in bfloat16, in the program's
 place: the limits' upper readings.
+
+A check that CHECKS does not hold is the module checks/<name>.py, found
+by the name the mix gives it (as harness.load_reader finds
+metrics/<name>.py), so a new check is a new file. It gives:
+
+- numbers(ev, scene, spec, seed, control) -> dict (required): its
+  compared numbers, by name, as the functions in CHECKS do; spec is its
+  entry in the mix's "checks", scene the reference's (reference.glb);
+- install(sampler, spec) (optional): called from Sampler.install once the
+  renderer exists, before the warm-up. It observes or wraps the program's
+  functions through sampler.run.observe and sampler.run.wrap, and, as
+  the trace sample does, keeps nothing of the profiled frames
+  (sampler.run.profiling);
+- evidence(sampler, state, prior, img, g_const, pose, frame, spec) -> dict
+  (optional): called from Sampler.evidence after the window, before the
+  program's state is freed, with Sampler.evidence's arguments. It returns
+  tensors gathered small, which numbers() finds as ev[<name>].
 """
 
 from __future__ import annotations
+
+import functools
+import importlib.util
+from pathlib import Path
 
 import torch
 
@@ -133,6 +154,17 @@ class Sampler:
             self.run.wrap("tracers:closest_hit", closest)
         if per_vis:
             self.run.wrap("tracers:occluded", occluded)
+        for name, mod in self._found("install"):
+            mod.install(self, self.checks[name])
+
+    def _found(self, hook: str):
+        """(name, module) of each of the mix's checks that CHECKS does not
+        hold and whose module gives `hook`."""
+        for name in self.checks:
+            if name not in CHECKS:
+                mod = load_check(name)
+                if hasattr(mod, hook):
+                    yield name, mod
 
     def _pixels(self, n: int, width: int, height: int, device, salt: int = 0):
         g = torch.Generator(device=device)
@@ -211,6 +243,9 @@ class Sampler:
                 blend=float(g_const.blend_factor),
                 final_visibility=bool(
                     di.shading_params.enable_final_visibility))
+        for name, mod in self._found("evidence"):
+            ev[name] = mod.evidence(self, state, prior, img, g_const, pose,
+                                    frame, self.checks[name])
         return ev
 
 
@@ -431,6 +466,17 @@ CHECKS = {"trace": _trace, "occluded": _occluded, "gbuffer": _gbuffer,
           "di_energy": _di_energy}
 
 
+@functools.cache
+def load_check(name: str):
+    """checks/<name>.py as a module (a name may hold dots)."""
+    path = Path(__file__).resolve().parent / "checks" / f"{name}.py"
+    spec = importlib.util.spec_from_file_location(
+        "portbench_check_" + name.replace(".", "__"), path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
 def numbers(ev: dict, glb: bytes, cell, device, control: bool = False
             ) -> dict:
     """Every number the cell's mix asks for, from the run's evidence."""
@@ -444,7 +490,8 @@ def numbers(ev: dict, glb: bytes, cell, device, control: bool = False
             if name == "trace":
                 out["frames_untraced"] = ev["frames"] - ev["traced"]
             continue
-        out.update(CHECKS[name](ev, scene, spec, seed, control))
+        fn = CHECKS[name] if name in CHECKS else load_check(name).numbers
+        out.update(fn(ev, scene, spec, seed, control))
     return out
 
 

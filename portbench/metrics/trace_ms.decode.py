@@ -1,7 +1,9 @@
 """trace_ms.decode: device ms between the CUDA events of the program's
-top-level trace.decode spans (ops/cuda_traverse.py: _unsort and _decode,
-the winner's re-evaluation in float64-emulated fma), a window frame. A
-fallback re-trace's own decode, inside trace.fallback, is left out."""
+top-level trace.decode spans (ops/cuda_traverse.py: a closest-hit trace's
+hit_decode, one launch of csrc/hit_decode.cu on the card that un-sorts the
+winners, gathers their triangle rows and re-evaluates t, u, v; an any-hit
+trace's un-sort), a window frame. A fallback re-trace's own decode, inside
+trace.fallback, is left out."""
 
 from portbench import program
 

@@ -1,6 +1,7 @@
-"""Shared fixtures of the benchmark's CPU tests: a cell of BENCHMARK.json
-cut to a tiny size (64x32, a 4-segment corridor or 16 lights, small
-samples) that runs through the whole harness on the CPU in seconds."""
+"""Shared fixtures of the benchmark's CPU tests: the cells of
+BENCHMARK.json, and a cell cut to a tiny size (64x32, a 4-segment corridor
+or 16 lights, small samples) that runs through the whole harness on the
+CPU in seconds."""
 
 import sys
 import time
@@ -12,9 +13,10 @@ ROOT = Path(__file__).resolve().parents[2]
 sys.path.insert(0, str(ROOT))
 
 from portbench import harness  # noqa: E402
+from portbench.scenes import GENERATORS  # noqa: E402
 
-CELLS = ("ladder-1080p.restir", "emissive-1080p.di-vis",
-         "ladder-1080p.refmode")
+# every cell BENCHMARK.json lists: a new cell is a new entry there
+CELLS = tuple(w["name"] for w in harness.load_spec()["workloads"])
 SEED = 2**31 + 12345  # a seed past 32 signed bits, as the driver draws
 
 
@@ -23,6 +25,10 @@ def tiny_cell(name: str):
     the limits' least counts scaled to what such a run compares."""
     cell = harness.load_cell(name, harness.load_spec())
     cfg = cell.config
+    if cfg["generator"] not in GENERATORS:
+        raise ValueError(
+            f"{name}: no scene generator {cfg['generator']!r} in "
+            f"portbench/scenes.py (it has {sorted(GENERATORS)})")
     if cfg["generator"] == "corridor_glb":
         cfg["args"] = dict(segments=4, pillars_per_side=4, lat=12, lon=16)
         cfg["camera"]["position"] = [0.0, 4.0, 15.0]

@@ -2,24 +2,29 @@
 a new one is new files plus new entries: no file that is there changes."""
 
 import json
+import os
 import re
 import shutil
+import subprocess
+import sys
 
 import pytest
 
-from portbench import harness
+from portbench import check, harness
 
-from .conftest import CELLS, ROOT
+from .conftest import CELLS, ROOT, tiny_cell
 
 
 def test_every_cell_loads_from_its_own_files():
     spec = harness.load_spec()
-    assert sorted(w["name"] for w in spec["workloads"]) == sorted(CELLS)
     for w in spec["workloads"]:
         cell = harness.load_cell(w["name"], spec)
         assert cell.config["name"] == w["config"]
         assert cell.mix["checks"], w["name"]
         assert cell.limits, w["name"]
+        for name in cell.mix["checks"]:
+            assert name in check.CHECKS or callable(
+                check.load_check(name).numbers), (w["name"], name)
         for m in cell.metrics_e2e + cell.metrics_layer:
             reader = harness.load_reader(m["name"])
             assert reader.UNIT == m["unit"]
@@ -35,6 +40,19 @@ def test_each_cell_reports_what_the_contract_asks(name):
     assert cell.metrics_layer
     for m in cell.metrics_layer:
         assert m["moves"] in e2e
+
+
+def test_tiny_cell_refuses_an_unknown_generator(monkeypatch):
+    real = harness.load_cell
+
+    def elsewhere(*args, **kwargs):
+        cell = real(*args, **kwargs)
+        cell.config["generator"] = "sponza_glb"
+        return cell
+
+    monkeypatch.setattr(harness, "load_cell", elsewhere)
+    with pytest.raises(ValueError, match="no scene generator 'sponza_glb'"):
+        tiny_cell(CELLS[0])
 
 
 NAME = re.compile(r"[A-Za-z0-9_][A-Za-z0-9_.\-]{0,63}")
@@ -127,13 +145,41 @@ def test_benchmark_json_keeps_the_contract():
             moved[0].get("workloads", cell_names)), m["name"]
 
 
+# a check that check.py does not hold: the window's closest-hit calls, seen
+# through an observed call, and the last frame's depth at a few pixels
+PROBE = '''"""probe: closest-hit calls in the window and a finite depth."""
+
+import torch
+
+
+def install(sampler, spec):
+    sampler.run.observe("probe", "tracers:closest_hit",
+                        lambda args, kwargs, out: int(args[0].shape[0]))
+
+
+def evidence(sampler, state, prior, img, g_const, pose, frame, spec):
+    depth = state.gbuffer.depth.flatten()[:spec["pixels"]].clone()
+    return {"calls": len(sampler.run.observed["probe"]), "depth": depth}
+
+
+def numbers(ev, scene, spec, seed, control):
+    p = ev["probe"]
+    return {"probe_calls": p["calls"],
+            "probe_nonfinite": int((~torch.isfinite(p["depth"])).sum())}
+'''
+
+
 def test_a_new_cell_mix_and_metric_need_no_edit(tmp_path):
-    """Copy the benchmark, add a configuration, a mix, a limits file and a
-    metric reader as new files and new entries, and see the harness find
-    them while every file that was there stays byte for byte."""
+    """Copy the benchmark, add a configuration, a mix whose check is a new
+    file, that check, a limits file and a metric reader as new files and
+    new entries; see the copy's harness find them, run the new cell on the
+    CPU and come out correct, and the copy's own tests of its files pass,
+    while every file that was there stays byte for byte."""
     root = tmp_path / "checkout"
     shutil.copytree(ROOT / "portbench", root / "portbench",
                     ignore=shutil.ignore_patterns("__pycache__"))
+    shutil.copy(ROOT / "pytest.ini", root / "pytest.ini")
+    (root / "raytracer2_tpu_torch").symlink_to(ROOT / "raytracer2_tpu_torch")
     before = {p: p.read_bytes() for p in (root / "portbench").rglob("*")
               if p.is_file()}
     spec = harness.load_spec()
@@ -143,9 +189,14 @@ def test_a_new_cell_mix_and_metric_need_no_edit(tmp_path):
     (bench / "configs" / "ladder-720p.json").write_text(json.dumps(conf))
     mix = json.loads((bench / "traffic" / "restir.json").read_text())
     mix["camera_velocity"] = [0.0, 0.0, 0.0]
+    mix["checks"]["probe"] = {"pixels": 64}
     (bench / "traffic" / "restir-static.json").write_text(json.dumps(mix))
+    (bench / "checks" / "probe.py").write_text(PROBE)
+    limits = json.loads((bench / "limits" / "ladder-1080p.restir.json")
+                        .read_text())
+    limits.update(probe_calls={"min": 1}, probe_nonfinite={"max": 0})
     (bench / "limits" / "ladder-720p.restir-static.json").write_text(
-        (bench / "limits" / "ladder-1080p.restir.json").read_text())
+        json.dumps(limits))
     (bench / "metrics" / "frames_per_s.py").write_text(
         'UNIT = "frames/s"\n\n\ndef read(run):\n'
         '    return run.frames / run.window_s\n')
@@ -160,6 +211,8 @@ def test_a_new_cell_mix_and_metric_need_no_edit(tmp_path):
                                "better": "higher", "bound": 0.03,
                                "source": "host_clock",
                                "workloads": ["ladder-720p.restir-static"]})
+    post = [m for m in spec["per_layer"] if m["name"] == "pass_ms.post"][0]
+    post["workloads"].append("ladder-720p.restir-static")
     (root / "BENCHMARK.json").write_text(json.dumps(spec))
 
     cell = harness.load_cell("ladder-720p.restir-static",
@@ -167,11 +220,42 @@ def test_a_new_cell_mix_and_metric_need_no_edit(tmp_path):
     assert (cell.config["width"], cell.mix["camera_velocity"]) == (
         1280, [0.0, 0.0, 0.0])
     assert "frames_per_s" in {m["name"] for m in cell.metrics_e2e}
+    assert "pass_ms.post" in {m["name"] for m in cell.metrics_layer}
     reader = harness.load_reader("frames_per_s", root)
 
     class Done:
         frames, window_s = 30, 10.0
 
     assert reader.read(Done) == pytest.approx(3.0)
+
+    # the copy's own code, in processes that find nothing of this checkout
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    env["PYTHONDONTWRITEBYTECODE"] = "1"
+    run = (
+        "import json, sys\n"
+        "sys.path.insert(0, 'portbench/tests')\n"
+        "import conftest\n"
+        "assert 'ladder-720p.restir-static' in conftest.CELLS\n"
+        "out = conftest.run_tiny(conftest.tiny_cell("
+        "'ladder-720p.restir-static'))\n"
+        "print(json.dumps({'correct': out['correct'], 'metrics': "
+        "sorted(out['metrics']), 'checks': out['checks']}))\n")
+    res = subprocess.run([sys.executable, "-c", run], cwd=root, env=env,
+                         capture_output=True, text=True, timeout=600)
+    assert res.returncode == 0, res.stderr[-3000:]
+    out = json.loads(res.stdout.strip().splitlines()[-1])
+    assert out["correct"], out["checks"]
+    assert out["checks"]["probe_calls"]["value"] >= 1
+    assert out["checks"]["probe_nonfinite"]["value"] == 0
+    assert "frames_per_s" in out["metrics"]
+    res = subprocess.run(
+        [sys.executable, "-m", "pytest", "-v", "-p", "no:cacheprovider",
+         "portbench/tests/test_portbench_files.py", "-k",
+         "not need_no_edit"], cwd=root, env=env, capture_output=True,
+        text=True, timeout=600)
+    assert res.returncode == 0, res.stdout[-3000:]
+    assert ("test_each_cell_reports_what_the_contract_asks["
+            "ladder-720p.restir-static] PASSED") in res.stdout
+
     for p, data in before.items():
         assert p.read_bytes() == data, p

@@ -10,7 +10,8 @@ import sys
 import pytest
 import torch
 
-from portbench import harness
+from portbench import check, harness
+from portbench.reference.glb import load_glb
 
 from .conftest import CELLS, ROOT, run_tiny, tiny_cell
 
@@ -32,6 +33,49 @@ def test_sound_run_is_correct(name):
 def test_control_is_not_correct(name):
     out = run_tiny(tiny_cell(name), control=True)
     assert not out["correct"], out["checks"]
+
+
+def _direct_numbers(ev, glb, cell, control=False):
+    """check.numbers as it read while every check was one of CHECKS."""
+    scene = load_glb(glb, torch.device("cpu"))
+    out = {}
+    for name, spec in cell.mix["checks"].items():
+        if name in check.SAMPLED and check.SAMPLED[name] not in ev:
+            out[f"{name}_rays"] = 0
+            if name == "trace":
+                out["frames_untraced"] = ev["frames"] - ev["traced"]
+            continue
+        out.update(check.CHECKS[name](ev, scene, spec, ev["seed"], control))
+    return out
+
+
+def _builtin_checks_only(name: str) -> bool:
+    cell = harness.load_cell(name, harness.load_spec())
+    return set(cell.mix["checks"]) <= set(check.CHECKS)
+
+
+@pytest.mark.parametrize("name", [n for n in CELLS
+                                  if _builtin_checks_only(n)])
+def test_builtin_checks_read_as_through_checks_directly(name, monkeypatch):
+    """A cell whose checks are all check.py's own loads nothing of checks/,
+    and a run's compared numbers are, bit for bit, those of CHECKS called
+    by name on the same evidence."""
+    seen, real = {}, check.numbers
+
+    def keep(ev, glb, cell, device, control=False):
+        seen.update(ev=ev, glb=glb)
+        return real(ev, glb, cell, device, control)
+
+    def refuse(name):
+        raise AssertionError(f"loaded checks/{name}.py")
+
+    monkeypatch.setattr(check, "numbers", keep)
+    monkeypatch.setattr(check, "load_check", refuse)
+    cell = tiny_cell(name)
+    out = run_tiny(cell, seconds=0.0)  # one window frame
+    assert out["correct"], out["checks"]
+    got = {k: c["value"] for k, c in out["checks"].items()}
+    assert got == _direct_numbers(seen["ev"], seen["glb"], cell)
 
 
 def _frozen_frame(monkeypatch):
@@ -108,10 +152,14 @@ def _stale_light(monkeypatch):
     monkeypatch.setattr(fr, "di_fused_resampling_pass", stale)
 
 
+def _sees_di(name: str) -> bool:
+    return "di" in harness.load_cell(name, harness.load_spec()).mix["checks"]
+
+
 # every fault a cell can have: the DI faults where the check sees DI
 FAULTS = [(name, fault) for name in CELLS
           for fault in (_frozen_frame, _half_batch, _altered_answer)] + [
-    ("emissive-1080p.di-vis", fault)
+    (name, fault) for name in CELLS if _sees_di(name)
     for fault in (_brighter_light, _stale_light)]
 
 
