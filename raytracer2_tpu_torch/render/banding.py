@@ -1,11 +1,14 @@
 """Row banding of whole-image passes: above a lane threshold a pass body
 runs on row bands of the [H, W] grid, which bounds its temporaries. Every
 RNG stream of the passes is seeded by pixel coordinates, so banding a pass
-that reads no neighbour changes no value."""
+that reads no neighbour changes no value. Each band run counts once on
+the program's counter "band" (utils/profiler.py)."""
 
 from __future__ import annotations
 
 import torch
+
+from raytracer2_tpu_torch.utils.profiler import count
 
 BAND_LANES = 1 << 21  # most lanes of one band
 
@@ -34,5 +37,8 @@ def banded(body, height: int, width: int, threshold: int, *grids):
     if height * width <= threshold:
         return body(*grids)
     hb = max(1, min(BAND_LANES, threshold // 2) // max(width, 1))
-    return _cat_rows([body(*(_rows(g, r, r + hb) for g in grids))
-                      for r in range(0, height, hb)])
+    parts = []
+    for r in range(0, height, hb):
+        count("band")
+        parts.append(body(*(_rows(g, r, r + hb) for g in grids)))
+    return _cat_rows(parts)

@@ -9,11 +9,14 @@ GConst.enable_di_resampling 0 keeps the reference's behaviour: its
 spatio-temporal call is commented out (di_fused_resampling.rgen:69-70), so
 the reservoir shipped to shading is the initial-candidate one. 1, 2 and 3
 run the temporal stage, the spatial stage or both
-(restir/di_resampling.py, DIResamplingFunctions.hlsli:170/504).
+(restir/di_resampling.py, DIResamplingFunctions.hlsli:170/504), each
+inside a utils/profiler.span: pass.di.temporal (the temporal stage and
+the boiling filter after it) and pass.di.spatial.
 """
 
 from __future__ import annotations
 
+import contextlib
 import math
 
 import torch
@@ -33,6 +36,7 @@ from raytracer2_tpu_torch.restir.initial_sampling import (
     LightSamplingContext, init_sample_parameters, sample_lights_for_surface)
 from raytracer2_tpu_torch.utils import brdf as brdfm
 from raytracer2_tpu_torch.utils import rng as rtrng
+from raytracer2_tpu_torch.utils.profiler import span
 
 # launches above this lane count run the pass body in row bands, which
 # bounds its temporaries (every RNG stream is seeded by pixel coordinates
@@ -143,30 +147,36 @@ def _di_fused_body(g_const: GConst, bridge: Bridge,
         vis_known = visible
 
     trp = g_const.restir_di.temporal_resampling_params
-    if mode in (1, 3) and prev_di_reservoirs is not None \
-            and motion is not None:
-        t_spec = DITemporalSpec(
-            max_history_length=trp.max_history_length,
-            bias_correction_mode=trp.temporal_bias_correction,
-            depth_threshold=trp.temporal_depth_threshold,
-            normal_threshold=trp.temporal_normal_threshold,
-            enable_visibility_shortcut=bool(trp.discard_invisible_samples),
-            enable_permutation_sampling=bool(trp.enable_permutation_sampling),
-            active_checkerboard_field=field)
-        # under sharding the previous reservoir tile, halo-padded
-        prev_src, prev_base = prev_di_reservoirs, 0
-        if halo_fn is not None:
-            prev_src = halo_fn(prev_di_reservoirs, halo_rows)
-            prev_base = row0 - halo_rows
-        reservoir, rng = di_temporal_resampling(
-            px, py, surface, reservoir, rng, t_spec, motion,
-            trp.uniform_random_number, prev_src, bridge, row_base=prev_base)
-        vis_known = None  # the selected sample may no longer be ours
+    temporal = (mode in (1, 3) and prev_di_reservoirs is not None
+                and motion is not None)
+    with span("pass.di.temporal") if temporal else contextlib.nullcontext():
+        if temporal:
+            t_spec = DITemporalSpec(
+                max_history_length=trp.max_history_length,
+                bias_correction_mode=trp.temporal_bias_correction,
+                depth_threshold=trp.temporal_depth_threshold,
+                normal_threshold=trp.temporal_normal_threshold,
+                enable_visibility_shortcut=bool(
+                    trp.discard_invisible_samples),
+                enable_permutation_sampling=bool(
+                    trp.enable_permutation_sampling),
+                active_checkerboard_field=field)
+            # under sharding the previous reservoir tile, halo-padded
+            prev_src, prev_base = prev_di_reservoirs, 0
+            if halo_fn is not None:
+                prev_src = halo_fn(prev_di_reservoirs, halo_rows)
+                prev_base = row0 - halo_rows
+            reservoir, rng = di_temporal_resampling(
+                px, py, surface, reservoir, rng, t_spec, motion,
+                trp.uniform_random_number, prev_src, bridge,
+                row_base=prev_base)
+            vis_known = None  # the selected sample may no longer be ours
 
-    # the DI boiling filter (DIResamplingFunctions.hlsli:101-116) on the
-    # temporal stage's reservoir image
-    if trp.enable_boiling_filter:
-        reservoir = di_boiling_filter(reservoir, trp.boiling_filter_strength)
+        # the DI boiling filter (DIResamplingFunctions.hlsli:101-116) on the
+        # temporal stage's reservoir image
+        if trp.enable_boiling_filter:
+            reservoir = di_boiling_filter(reservoir,
+                                          trp.boiling_filter_strength)
 
     if mode in (2, 3):
         srp = g_const.restir_di.spatial_resampling_params
@@ -185,15 +195,16 @@ def _di_fused_body(g_const: GConst, bridge: Bridge,
         # under sharding padded with up to a tile of halo rows (the DI
         # radius can exceed a small tile; gathers beyond the halo clamp,
         # as at the screen's edges, RtxdiApplicationBridge.glsl:252-265)
-        src, src_base = reservoir, 0
-        if halo_fn is not None:
-            r = min(math.ceil(float(srp.spatial_sampling_radius)) + 1,
-                    reservoir.weight_sum.shape[0])
-            src = halo_fn(reservoir, r)
-            src_base = row0 - r
-        reservoir, rng = di_spatial_resampling(px, py, surface, reservoir,
-                                               rng, s_spec, src, bridge,
-                                               row_base=src_base)
+        with span("pass.di.spatial"):
+            src, src_base = reservoir, 0
+            if halo_fn is not None:
+                r = min(math.ceil(float(srp.spatial_sampling_radius)) + 1,
+                        reservoir.weight_sum.shape[0])
+                src = halo_fn(reservoir, r)
+                src_base = row0 - r
+            reservoir, rng = di_spatial_resampling(
+                px, py, surface, reservoir, rng, s_spec, src, bridge,
+                row_base=src_base)
         vis_known = None
 
     if mode != 0:
