@@ -20,12 +20,12 @@ walk's tracer configurations (every cull, sort key and shadow order, and a
 DI frame through create_renderer(tracer_opts={"cull": "sc"})); the JAX
 package's XLA bundle and scatter engines as torch ops
 (create_renderer(..., backend="bundle" / "scatter")); and the frame
-row-sharded over torch.distributed ranks (parallel/mesh.py). Nine
+row-sharded over torch.distributed ranks (parallel/mesh.py). Ten
 hand-written CUDA kernels carry them: the closest-hit and any-hit walks
 (B1, B2) and their supercluster forms (B1-sc, B2-sc), the exact cull's
 nearest box and bundle union (B3, B4), the pair engine's sweep (B5) and
-stable counting sort (B6), and the closest-hit trace's winner decode (D1,
-which replaces no TPU kernel). The phases, each of which raises on
+stable counting sort (B6), the closest-hit trace's winner decode (D1) and
+the DI spatial resampling stage (D2; D1 and D2 replace no TPU kernel). The phases, each of which raises on
 failure:
 
 1. device             - a CUDA device is required; no CPU run.
@@ -130,6 +130,17 @@ failure:
                         to their plain versions bit for bit
                         (kernel-occlude, kernel-cull); one frame each of
                         modes 1, 2 and bias modes 0-2, finite.
+    kernel-di-spatial - three DI frames at 3840x2160 with the 4K
+                        fly-through's DI settings (temporal and spatial
+                        resampling, pairwise MIS): the spatial stage's
+                        kernel must launch once a frame, its plain version
+                        never; then on the last frame's arguments the
+                        kernel route of di_spatial_resampling against
+                        di_spatial_resampling_plain (the sample equal on
+                        all but 1e-3 of the lanes, the other fields bit
+                        for bit or within 2e-3, the RNG indices equal),
+                        both timed between CUDA events, with the share of
+                        the stage's byte bound.
     regir             - create_renderer(regir=True): the ReGIR grid (16^3
                         cells of 128 lights) built on the card, its seconds
                         and filled share; three DI frames with local-light
@@ -306,6 +317,7 @@ from raytracer2_tpu_torch.models import procedural as proc  # noqa: E402
 from raytracer2_tpu_torch.ops import _build, binning, cull, native  # noqa: E402
 from raytracer2_tpu_torch.ops import cuda_pairs as cp  # noqa: E402
 from raytracer2_tpu_torch.ops import cuda_traverse as ct  # noqa: E402
+from raytracer2_tpu_torch.ops import di_spatial as dsk  # noqa: E402
 from raytracer2_tpu_torch.ops import traverse_bundle as tbm  # noqa: E402
 from raytracer2_tpu_torch.ops.bvh import (  # noqa: E402
     build_lbvh, max_depth, validate_bvh)
@@ -314,6 +326,7 @@ from raytracer2_tpu_torch.ops.intersect import (  # noqa: E402
 from raytracer2_tpu_torch.parallel import dryrun  # noqa: E402
 from raytracer2_tpu_torch.params import (  # noqa: E402
     BACKGROUND_DEPTH, LightBufferRegion, default_gconst)
+from raytracer2_tpu_torch.render import di_passes  # noqa: E402
 from raytracer2_tpu_torch.render import frame as fr  # noqa: E402
 from raytracer2_tpu_torch.render import app_bridge  # noqa: E402
 from raytracer2_tpu_torch.render import rays as raysmod  # noqa: E402
@@ -322,6 +335,7 @@ from raytracer2_tpu_torch.render.reference import (  # noqa: E402
     render_reference)
 from raytracer2_tpu_torch.render.surface import (  # noqa: E402
     get_surface_brdf_sample, surface_from_hit)
+from raytracer2_tpu_torch.restir import di_resampling as dr  # noqa: E402
 from raytracer2_tpu_torch.restir.regir import (  # noqa: E402
     presample_regir_grid)
 from raytracer2_tpu_torch.scene import exr, gltf  # noqa: E402
@@ -376,6 +390,12 @@ CHECKERBOARD_DI_FRAMES = 2  # fields 1, 2
 PASS_REPEATS = 5  # synchronised runs of each frame prefix
 NO_OVERFLOW_REPEATS = 3  # synchronised traces per backend in pairs-no-overflow
 RESAMPLING_FRAMES = 4  # DI resampling frames of the moving camera
+# kernel-di-spatial: the 4K fly-through's launch grid, its frames, and the
+# share of lanes whose selected sample may differ (a last-bit difference
+# of CUDA's transcendentals from torch's can flip a selection)
+DI_SPATIAL_SIZE = (3840, 2160)
+DI_SPATIAL_FRAMES = 3
+DI_SPATIAL_FLIPS = 1e-3
 RESAMPLING_STEP = 0.1  # the camera's x step per resampling frame
 REGIR_FRAMES = 3
 # JAX's build_lbvh of the ladder's triangles on a CPU gives this depth
@@ -463,6 +483,11 @@ KERNELS = {
         source="raytracer2_tpu_torch/csrc/hit_decode.cu",
         replaces="none (XLA ops, raytracer2_tpu/ops/pallas_traverse.py:"
                  "1846-1884)"),
+    # D2: no TPU kernel; JAX resamples DI spatially with XLA ops
+    "di_spatial": dict(
+        source="raytracer2_tpu_torch/csrc/di_spatial.cu",
+        replaces="none (XLA ops, raytracer2_tpu/restir/di_resampling.py::"
+                 "di_spatial_resampling)"),
     **{name: dict(KERNELS_BASE[name.partition("[")[0]])
        for name in KNOB_KERNELS},
 }
@@ -478,7 +503,8 @@ KERNEL_MODULES = {"walk_closest": ct, "walk_occluded": ct,
 # kernels whose wrapper counts its launches in a utils/profiler counter
 # (process-wide) rather than in a `launches` attribute: a count reset is a
 # new base
-PROFILER_COUNTED = {"hit_decode": "trace.decode.kernel"}
+PROFILER_COUNTED = {"hit_decode": "trace.decode.kernel",
+                    "di_spatial": "di.spatial.kernel"}
 _COUNT_BASE = dict.fromkeys(PROFILER_COUNTED, 0)
 
 
@@ -948,7 +974,8 @@ def phase_occupancy(renderer, renderer_p) -> dict:
             name: _build.occupancy("rt2_bin_scatter_occupancy", i,
                                    ps.num_superclusters + 1)
             for i, name in enumerate(("count", "scan", "scatter"))},
-        "hit_decode": {"all": _build.occupancy("rt2_hit_decode_occupancy")}}
+        "hit_decode": {"all": _build.occupancy("rt2_hit_decode_occupancy")},
+        "di_spatial": {"all": _build.occupancy("rt2_di_spatial_occupancy")}}
     for cls, cfg in tracers.shapes_by_class.items():
         p = cfg["bundle_size"]
         walk = "walk_occluded" if cls == "shadow" else "walk_closest"
@@ -1682,6 +1709,175 @@ def resampling_gconst(scene, f: int, mode: int = 3, bias: int = 3):
             spatial_resampling_params=dataclasses.replace(
                 di.spatial_resampling_params,
                 spatial_bias_correction=bias)))
+
+
+def di_spatial_gconst(renderer, f: int):
+    """The 4K fly-through's DI settings (portbench/traffic/flythrough.json)
+    at frame f of the smoke's moving camera at DI_SPATIAL_SIZE: temporal
+    and spatial resampling (mode 3), pairwise MIS in both, history 5,
+    radius 32, 3 samples and 2 boost samples; GI off (the spatial stage
+    reads nothing of it)."""
+    w, h = DI_SPATIAL_SIZE
+
+    def view(k):
+        return default_camera(window_size=(w, h),
+                              position=(RESAMPLING_STEP * k, 4, 90),
+                              direction=(0, 0, 1)).planar_view_constants()
+
+    g = default_gconst(view(f), renderer.scene_lights.num_local_lights,
+                       enable_restir_di=1, enable_restir_gi=0,
+                       enable_di_resampling=3, enable_accumulation=1)
+    di = g.restir_di
+    return g.replace(
+        frame=f, blend_factor=0.1, prev_view=view(max(f - 1, 0)),
+        restir_di=dataclasses.replace(
+            di,
+            temporal_resampling_params=dataclasses.replace(
+                di.temporal_resampling_params, max_history_length=5,
+                temporal_bias_correction=2, enable_boiling_filter=0),
+            spatial_resampling_params=dataclasses.replace(
+                di.spatial_resampling_params, spatial_sampling_radius=32.0,
+                num_spatial_samples=3, num_disocclusion_boost_samples=2,
+                spatial_bias_correction=2, discount_naive_samples=0)))
+
+
+# the bytes a DI spatial lane reads and writes of its own: px, py (2 i32),
+# the centre surface (20 f32), the centre reservoir but its canonical
+# weight (52 B), the RNG seed and index (2 i64); the output reservoir
+# (56 B) and RNG index (8 B)
+DI_SPATIAL_LANE_BYTES = 8 + 80 + 52 + 16 + 56 + 8
+# the G-buffer planes the kernel's surface decode reads
+DI_SPATIAL_GBUFFER = ("depth", "normals", "geo_normals", "diffuse_albedo",
+                      "specular_rough")
+
+
+def di_spatial_bound(args, gbuffer) -> dict:
+    """The least time the card could take for one DI spatial stage on
+    these inputs (args: di_spatial_resampling's; gbuffer: the frame's, the
+    bridge's planes): its bytes over the HBM rate, each byte once, however
+    many lanes gather it (as D1's bound counts a meta row): each lane's own
+    inputs and outputs (DI_SPATIAL_LANE_BYTES), and the neighbours' planes
+    whole, as they lie in memory: the G-buffer planes the decode reads
+    (depth f32, four u32 words held as i64) and the reservoir fields the
+    kernel reads of a neighbour (no target pdf, no canonical weight). The
+    arithmetic (~3,000 FP32 operations a lane) is below it."""
+    center, spec, cur = args[3], args[5], args[6]
+    lane_samples = torch.where(
+        center.m < spec.target_history_length,
+        max(spec.num_disocclusion_boost_samples, spec.num_samples),
+        spec.num_samples)
+    lanes = center.m.numel()
+    planes = [getattr(gbuffer, f) for f in DI_SPATIAL_GBUFFER] + [
+        getattr(cur, f) for f in dsk.NEIGHBOR_FIELDS]
+    plane_bytes = sum(t.numel() * t.element_size() for t in planes)
+    nbytes = lanes * DI_SPATIAL_LANE_BYTES + plane_bytes
+    return {"bound_ms": nbytes / HBM_BYTES_PER_S * 1e3, "bound_by": "bytes",
+            "bytes": nbytes, "plane_bytes": plane_bytes, "lanes": lanes,
+            "neighbours": int(lane_samples.sum())}
+
+
+def check_di_spatial(cls: str, args, kwargs, gbuffer) -> dict:
+    """The kernel route of di_spatial_resampling against
+    di_spatial_resampling_plain on one call's arguments: the lanes whose
+    sample (light_data, uv_data) differs (at most DI_SPATIAL_FLIPS of
+    them), every other field on the others bit for bit or, for floats,
+    within 2e-3 of the larger, the RNG indices equal; both times between
+    CUDA events (the kernel's median of 5, the plain version's one call
+    after the call that gives the outputs) and the byte bound."""
+    got = dr.di_spatial_resampling(*args, **kwargs)
+    want = dr.di_spatial_resampling_plain(*args, **kwargs)
+    plain_ms = _plain_ms(lambda: dr.di_spatial_resampling_plain(*args,
+                                                                **kwargs))
+    ms = _median_ms(lambda: dr.di_spatial_resampling(*args, **kwargs))
+    bound = di_spatial_bound(args, gbuffer)
+    g, w = got[0], want[0]
+    flipped = (g.light_data != w.light_data) | (g.uv_data != w.uv_data)
+    same = ~flipped
+    lanes = int(flipped.numel())
+    bits_differ = got[1].index != want[1].index
+    far, max_abs = 0, 0.0
+    for a, b in zip(g, w):
+        if a.is_floating_point():
+            differ = a.view(torch.int32) != b.view(torch.int32)
+            tol = 2e-3 * torch.maximum(a.abs(), b.abs())
+            off = same & ((a - b).abs() > tol) & ~(a.isnan() & b.isnan())
+            max_abs = max(max_abs, float(torch.nan_to_num(
+                (a - b)[same].abs()).max()))
+        else:
+            differ = a != b
+            if differ.dim() > same.dim():  # spatial_distance [..., 2]
+                differ = differ.any(-1)
+            off = same & differ
+        bits_differ |= differ
+        far += int(off.sum())
+    rng_diff = int((got[1].index != want[1].index).sum())
+    share = _bound_share("di_spatial", cls, bound["bound_ms"], ms)
+    log("kernel-di-spatial", kernel="di_spatial", cls=cls, lanes=lanes,
+        bias_mode=args[5].bias_correction_mode,
+        sample_flips=int(flipped.sum()), fields_off=far, rng_diff=rng_diff,
+        lanes_not_bit_equal=int(bits_differ.sum()),
+        merged_lanes=int((w.m > args[3].m).sum()), kernel_ms=f"{ms:.4f}",
+        plain_ms=f"{plain_ms:.3f}", bound_ms=f"{bound['bound_ms']:.4f}",
+        bound_by=bound["bound_by"], bound_share=f"{share:.3f}",
+        gbytes=f"{bound['bytes'] / 1e9:.3f}",
+        neighbours=bound["neighbours"])
+    if (int(flipped.sum()) > DI_SPATIAL_FLIPS * lanes or far or rng_diff):
+        raise RuntimeError(f"di_spatial ({cls}): the kernel and the plain "
+                           f"version disagree: {int(flipped.sum())} samples, "
+                           f"{far} fields, {rng_diff} RNG indices of "
+                           f"{lanes} lanes")
+    return {"ms": ms, "plain_ms": plain_ms,
+            "mismatches": int(bits_differ.sum()), "max_abs_err": max_abs,
+            **bound}
+
+
+def phase_kernel_di_spatial(scene) -> tuple[dict, dict]:
+    """kernel-di-spatial: DI_SPATIAL_FRAMES DI frames at DI_SPATIAL_SIZE
+    with the 4K fly-through's DI settings (di_spatial_gconst), every count
+    reset just before them: the spatial stage must launch its kernel once
+    a frame and never run its plain version. The last frame's
+    di_spatial_resampling arguments are kept, and check_di_spatial holds
+    the kernel to the plain version on them, timed, with its byte bound.
+    Returns (the launches, {class: result})."""
+    w, h = DI_SPATIAL_SIZE
+    renderer = fr.create_renderer(scene, w, h, backend="auto")
+    state = fr.init_frame_state(w, h, device=scene.device)
+    kept = {}
+    inner = di_passes.di_spatial_resampling
+
+    def keep(*args, **kwargs):
+        kept["call"] = (args, kwargs)
+        return inner(*args, **kwargs)
+
+    _reset_counts(renderer.tracers)
+    plain = profiler.counters().get("di.spatial.plain", 0)
+    di_passes.di_spatial_resampling = keep
+    try:
+        for f in range(DI_SPATIAL_FRAMES):
+            state, img = fr.render_frame(renderer,
+                                         di_spatial_gconst(renderer, f),
+                                         state)
+            if not bool(torch.isfinite(img).all()) or img.shape != (h, w, 3):
+                raise RuntimeError(f"kernel-di-spatial: frame {f} gave a "
+                                   f"{tuple(img.shape)} display that is "
+                                   "not finite")
+    finally:
+        di_passes.di_spatial_resampling = inner
+    torch.cuda.synchronize()
+    launches = _launches()
+    plain = profiler.counters().get("di.spatial.plain", 0) - plain
+    log("kernel-di-spatial", frames=DI_SPATIAL_FRAMES, size=f"{w}x{h}",
+        kernel_launches=launches["di_spatial"], plain_calls=plain)
+    if launches["di_spatial"] != DI_SPATIAL_FRAMES or plain:
+        raise RuntimeError(f"the DI spatial stage launched its kernel "
+                           f"{launches['di_spatial']} times and ran its "
+                           f"plain version {plain} times in "
+                           f"{DI_SPATIAL_FRAMES} frames")
+    args, kwargs = kept["call"]
+    gbuffer = state.gbuffer  # the last frame's, which its bridge read
+    del state, renderer
+    return launches, {"4k_pairwise": check_di_spatial("4k_pairwise", args,
+                                                      kwargs, gbuffer)}
 
 
 def phase_di_resampling(scene, renderer) -> tuple[dict, dict]:
@@ -3731,6 +3927,8 @@ def run(dev: torch.device, smi: str, pool, sky_job,
         scene, renderer)
     for kernel, by_cls in rs_classes.items():
         classes[kernel].update(by_cls)
+    paths["di_spatial_frames"], classes["di_spatial"] = \
+        phase_kernel_di_spatial(scene)
     paths["regir_frames"] = phase_regir(scene, view)
     paths["k_cand_probe"], paths["k_cand_frame"] = phase_k_cand(
         scene, renderer, view, g_flag, flag_imgs[0])
@@ -3781,6 +3979,7 @@ def run(dev: torch.device, smi: str, pool, sky_job,
     main_path = {name: "di_frames" if name == "walk_occluded"
                  else "pairs_frames" if name in PAIR_KERNELS
                  else "sc_frames" if name in SC_WALKS
+                 else "di_spatial_frames" if name == "di_spatial"
                  else "knob_traces" if name in KNOB_KERNELS
                  else "flagship_frames" for name in KERNELS}
     log("run", wall_seconds=f"{time.perf_counter() - t_start:.1f}")

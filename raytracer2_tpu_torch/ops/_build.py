@@ -12,7 +12,8 @@ the source writes them, and fuses only the explicit __fmaf_rn of the Wald
 test (csrc/walk_common.cuh, csrc/hit_decode.cu): the kernel then computes
 the same bits as the plain torch version of each kernel
 (ops/cuda_traverse.py, ops/cull.py, ops/cuda_pairs.py; ops/binning.py's
-kernel is integer work).
+kernel is integer work; csrc/di_spatial.cu keeps the plain version's
+order of operations, its transcendentals aside).
 """
 
 from __future__ import annotations
@@ -158,6 +159,12 @@ def library() -> ctypes.CDLL:
         vp]  # stream
     lib.rt2_hit_decode_occupancy.restype = ci
     lib.rt2_hit_decode_occupancy.argtypes = [vp]  # out
+    lib.rt2_di_spatial.restype = ci
+    lib.rt2_di_spatial.argtypes = [vp, vp, vp, vp,  # pointers, lane
+                                   #   strides, ints, floats (host arrays)
+                                   vp]  # stream
+    lib.rt2_di_spatial_occupancy.restype = ci
+    lib.rt2_di_spatial_occupancy.argtypes = [vp]  # out
     lib.rt2_error_string.restype = ctypes.c_char_p
     lib.rt2_error_string.argtypes = [ci]
     return lib
@@ -171,7 +178,7 @@ def occupancy(entry: str, *args: int) -> dict:
     rt2_pair_sweep_occupancy(s_pad),
     rt2_bin_scatter_occupancy(kernel,
     n_bins) for B6's count (0), scan (1) and scatter (2) kernels,
-    rt2_hit_decode_occupancy()):
+    rt2_hit_decode_occupancy(), rt2_di_spatial_occupancy()):
     resident blocks per SM (cudaOccupancyMaxActiveBlocksPerMultiprocessor),
     threads per block, registers per thread and shared bytes per block."""
     lib = library()

@@ -19,6 +19,7 @@ from raytracer2_tpu_torch.lights.polymorphic import (
     LightInfo, calc_sample, gather_light)
 from raytracer2_tpu_torch.ops import cuda_pairs as cp
 from raytracer2_tpu_torch.ops import cuda_traverse as ct
+from raytracer2_tpu_torch.ops import di_spatial as dsk
 from raytracer2_tpu_torch.ops import traverse as lbvh
 from raytracer2_tpu_torch.ops import traverse_bundle as tbm
 from raytracer2_tpu_torch.ops import traverse_scatter as tsm
@@ -428,11 +429,13 @@ def make_bridge(scene: Scene, tracers: Tracers, gbuffer: GBuffer,
                 height: int, row_base: int = 0) -> Bridge:
     """The RAB closure bundle for one frame (RtxdiApplicationBridge.glsl).
     row_base maps global pixel rows into (halo-padded) G-buffer row tiles
-    under row sharding."""
+    under row sharding. On a CUDA G-buffer the bundle also carries the DI
+    spatial stage's kernel over the same data (ops/di_spatial.py)."""
     view = g_const.view
     prev_view = g_const.prev_view
     isp = g_const.restir_di.initial_sampling_params
     invalid = RTXDI_INVALID_LIGHT_INDEX
+    skybox = scene.skybox if g_const.environment else None
 
     def get_gbuffer_surface(px, py, previous_frame):
         if previous_frame:
@@ -477,9 +480,7 @@ def make_bridge(scene: Scene, tracers: Tracers, gbuffer: GBuffer,
         return get_conservative_visibility(prev_surface, sample_position)
 
     def sample_polymorphic_light(light_info, surface, uv):
-        return calc_sample(light_info, uv, surface.world_pos,
-                           skybox=scene.skybox if g_const.environment
-                           else None)
+        return calc_sample(light_info, uv, surface.world_pos, skybox=skybox)
 
     def load_light_info(index, previous_frame):
         return gather_light(lights, index)
@@ -530,6 +531,11 @@ def make_bridge(scene: Scene, tracers: Tracers, gbuffer: GBuffer,
         return evaluate_pdf_texture(env_pdf_mips, (uv[..., 0] * w).long(),
                                     (uv[..., 1] * h).long())
 
+    di_spatial = None
+    if gbuffer.depth.device.type == "cuda":
+        di_spatial = dsk.make_runner(gbuffer, view, width, height, row_base,
+                                     lights, skybox, neighbor_offsets)
+
     return Bridge(
         get_gbuffer_surface=get_gbuffer_surface,
         get_light_sample_target_pdf=get_light_sample_target_pdf,
@@ -547,7 +553,8 @@ def make_bridge(scene: Scene, tracers: Tracers, gbuffer: GBuffer,
         evaluate_environment_map_sampling_pdf=(
             evaluate_environment_map_sampling_pdf),
         neighbor_offsets=neighbor_offsets,
-        viewport=(width, height))
+        viewport=(width, height),
+        di_spatial_kernel=di_spatial)
 
 
 def suggest_k_cand(renderer, view=None, margin: float = 1.25,

@@ -50,6 +50,11 @@ class Bridge(NamedTuple):
     neighbor_offsets: torch.Tensor
     # (width, height) for RAB_ClampSamplePositionIntoView
     viewport: tuple[int, int]
+    # the DI spatial resampling stage as one kernel over the data behind
+    # the closures above (ops/di_spatial.py::make_runner), called with
+    # di_spatial_resampling's arguments but the bridge; None where the
+    # frame's data is not on a CUDA device
+    di_spatial_kernel: Callable | None = None
 
 
 def validate_gi_sample_with_jacobian(jacobian: torch.Tensor

@@ -9,6 +9,13 @@ from whole reservoir planes, and the ray-traced bias correction casts one
 full-screen visibility batch per stage (temporal) or per neighbour sample
 (spatial) through the bridge. A lane advances its RNG counter only where
 the shader's lane would draw, so every stream matches the JAX package's.
+
+Which route the spatial stage takes: on a CUDA device, for bias modes
+0-2, one kernel launch (csrc/di_spatial.cu through the bridge's
+di_spatial_kernel, counted in di.spatial.kernel; a bridge without it
+raises there); otherwise (the CPU, and mode 3, which casts rays between
+its two passes) the torch passes of di_spatial_resampling_plain, counted
+in di.spatial.plain. The temporal stage always runs its torch passes.
 """
 
 from __future__ import annotations
@@ -26,6 +33,7 @@ from raytracer2_tpu_torch.restir.di_reservoir import (
     finalize_resampling, internal_simple_resample, is_valid, light_index,
     sample_uv)
 from raytracer2_tpu_torch.utils import rng as rtrng
+from raytracer2_tpu_torch.utils.profiler import count
 
 NAIVE_SAMPLING_M_THRESHOLD = 2  # (DIResamplingFunctions.hlsli:27)
 
@@ -254,12 +262,36 @@ def di_spatial_resampling(
         cur_reservoirs: DIReservoir, bridge: Bridge, row_base: int = 0
         ) -> tuple[DIReservoir, rtrng.RngState]:
     """RTXDI_DISpatialResampling (DIResamplingFunctions.hlsli:504-677),
-    with the pairwise-MIS variant (:409-494). The disocclusion boost takes
-    the static most samples and masks the extra ones per lane; the
-    ray-traced bias correction casts one visibility batch per sample.
-    Under row sharding cur_reservoirs is a halo-padded row tile whose
-    first row is global row row_base; gathers past it clamp to its edge
-    rows."""
+    with the pairwise-MIS variant (:409-494): the bridge's kernel on a
+    CUDA device for bias modes 0-2 (a bridge without it raises there),
+    else di_spatial_resampling_plain (the module docstring). Under row
+    sharding cur_reservoirs is a halo-padded row tile whose first row is
+    global row row_base; gathers past it clamp to its edge rows."""
+    if (px.device.type == "cuda" and spec.bias_correction_mode
+            != helpers.BIAS_CORRECTION_RAY_TRACED):
+        if bridge.di_spatial_kernel is None:
+            raise RuntimeError(
+                "di_spatial_resampling: a CUDA call in bias mode "
+                f"{spec.bias_correction_mode} needs the bridge's "
+                "di_spatial_kernel (make_bridge sets it on a CUDA G-buffer)")
+        return bridge.di_spatial_kernel(px, py, surface, center_sample, rng,
+                                        spec, cur_reservoirs, row_base)
+    count("di.spatial.plain")
+    return di_spatial_resampling_plain(px, py, surface, center_sample, rng,
+                                       spec, cur_reservoirs, bridge,
+                                       row_base)
+
+
+def di_spatial_resampling_plain(
+        px: torch.Tensor, py: torch.Tensor, surface: Surface,
+        center_sample: DIReservoir, rng: rtrng.RngState, spec: DISpatialSpec,
+        cur_reservoirs: DIReservoir, bridge: Bridge, row_base: int = 0
+        ) -> tuple[DIReservoir, rtrng.RngState]:
+    """di_spatial_resampling as whole-image torch passes, in every bias
+    mode: the CPU route and the kernel's yardstick on the card. The
+    disocclusion boost takes the static most samples and masks the extra
+    ones per lane; the ray-traced bias correction casts one visibility
+    batch per sample."""
     width, height = bridge.viewport
     shape = tuple(px.shape)
     dev = px.device
